@@ -1,0 +1,93 @@
+"""Opto-electronic Blend Unit (OBU) — paper §3.2.
+
+Port of ``repro.core.obu``.  The permutation builders are numpy (static,
+drawn once from a seed) and copied from the reference; the tensor side is
+torch:
+
+  * **optical transpose** — the same programmed array computes ``x @ W.T``;
+    :func:`blend_dot` contracts over the weight's last dim (a transposed
+    view, never a materialized transpose);
+  * **electronic shuffle** — a static channel permutation of the
+    activations (group shuffle or blocked random shuffle), applied as an
+    index gather.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+# --------------------------------------------------------------------------
+# permutation builders (static, numpy)
+# --------------------------------------------------------------------------
+def group_shuffle_permutation(channels: int, groups: int) -> np.ndarray:
+    """Channel-group shuffle as an explicit permutation vector:
+    ``y[i] = x[perm[i]]`` reproduces reshape(g, C/g) -> transpose -> flatten."""
+    if channels % groups != 0:
+        raise ValueError(f"channels {channels} not divisible by groups {groups}")
+    idx = np.arange(channels).reshape(groups, channels // groups)
+    return idx.T.reshape(-1).copy()
+
+
+def blocked_random_permutation(channels: int, block: int, seed: int) -> np.ndarray:
+    """Blocked random shuffle: permute whole blocks of ``block`` channels."""
+    if channels % block != 0:
+        raise ValueError(f"channels {channels} not divisible by block {block}")
+    nblk = channels // block
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(nblk)
+    idx = np.arange(channels).reshape(nblk, block)
+    return idx[order].reshape(-1).copy()
+
+
+def invert_permutation(perm: np.ndarray) -> np.ndarray:
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0])
+    return inv
+
+
+def build_transform_tables(channels: int, reuse_times: int, transforms,
+                           groups: int, block: int, seed: int) -> np.ndarray:
+    """Per-reuse-step channel permutation table, shape (T, channels).  Step
+    ``t`` applies ``perm[t]`` to the activations entering reuse ``t``;
+    identity / transpose-only steps get the identity permutation."""
+    table = np.tile(np.arange(channels), (reuse_times, 1))
+    for t in range(reuse_times):
+        name = transforms[t % len(transforms)] if transforms else "identity"
+        if name in ("shuffle", "shuffle_transpose"):
+            if block and block > 0:
+                table[t] = blocked_random_permutation(channels, block, seed + t)
+            else:
+                table[t] = group_shuffle_permutation(channels, groups)
+    return table
+
+
+def transpose_flags(reuse_times: int, transforms) -> np.ndarray:
+    """Boolean per-reuse-step table: does step ``t`` use the transposed path."""
+    flags = np.zeros((reuse_times,), dtype=bool)
+    for t in range(reuse_times):
+        name = transforms[t % len(transforms)] if transforms else "identity"
+        flags[t] = name in ("transpose", "shuffle_transpose")
+    return flags
+
+
+# --------------------------------------------------------------------------
+# torch-side application
+# --------------------------------------------------------------------------
+def apply_channel_permutation(x: torch.Tensor, perm) -> torch.Tensor:
+    """Permute the last axis of ``x`` by the static permutation ``perm``."""
+    idx = torch.as_tensor(np.asarray(perm), dtype=torch.long, device=x.device)
+    return x.index_select(-1, idx)
+
+
+def blend_dot(x: torch.Tensor, w: torch.Tensor, *,
+              transpose: bool) -> torch.Tensor:
+    """``x @ w`` or ``x @ w.T`` (w: (k, n), or (n, k) when transposed) with
+    float32 accumulation, cast back to x's dtype — the reference's
+    ``dot_general(preferred_element_type=f32)``."""
+    if transpose:
+        if w.shape[-1] != x.shape[-1]:
+            raise ValueError(f"transpose blend needs square-compatible dims, "
+                             f"got x{tuple(x.shape)} w{tuple(w.shape)}")
+        w = w.transpose(-1, -2)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)

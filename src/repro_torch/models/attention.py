@@ -1,0 +1,207 @@
+"""GQA/MHA attention with RoPE and a KV cache (the GQA half of
+``repro.models.attention``).
+
+Cache layout per logical layer (stacked [R, T, ...] by the PRM runner):
+``{"k": (B, L, KV, hd), "v": (B, L, KV, hd)}``.  Decode takes ``pos`` as a
+scalar (aligned batch) or a (B,) tensor (continuous batching, one position
+per slot).  Softmax is always fp32.
+
+Prefill and chunked prefill write the new K/V into the cache view they
+are given IN PLACE (the reference returns an updated copy); decode reads
+the cache and returns the one-token delta for the stack runner to write.
+Decode attention is a masked einsum, as in the reference (no kernel).
+MLA and cross-attention belong to later slices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backend import resolve as resolve_backend
+from repro_torch.models.layers import (apply_rope, cast, dense_init,
+                                       rope_angles)
+
+NEG_INF = -1e30
+
+
+def _maybe_t(x, w, transpose, backend=None):
+    """OBU transpose where the matrix is square (wq, wo here); the identity
+    path otherwise (wk, wv)."""
+    bk = resolve_backend(backend)
+    if transpose and w.shape[0] == w.shape[1]:
+        return bk.dot(x, w, transpose=True)
+    return bk.dot(x, w, transpose=False)
+
+
+def _past_valid(pos, L, device):
+    """(B|1, L) bool mask of cache entries strictly before ``pos``."""
+    ar = torch.arange(L, device=device)
+    if not isinstance(pos, torch.Tensor) or pos.ndim == 0:
+        return (ar < int(pos))[None, :]
+    return ar[None, :] < pos.to(device)[:, None]
+
+
+def _decode_positions(pos, device):
+    """Position array for RoPE at decode: (1,) shared or (B, 1) per-slot."""
+    if not isinstance(pos, torch.Tensor) or pos.ndim == 0:
+        # a device-side fill: a host-to-device copy here would make the
+        # host wait for the device once per layer
+        return torch.full((1,), int(pos), device=device)
+    return pos.to(device)[:, None]
+
+
+# =========================================================================
+# GQA / MHA
+# =========================================================================
+def init_gqa(cfg: ModelConfig, generator, device, lead=()):
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {"wq": dense_init((d, H * hd), generator, device, lead=lead),
+            "wk": dense_init((d, KV * hd), generator, device, lead=lead),
+            "wv": dense_init((d, KV * hd), generator, device, lead=lead),
+            "wo": dense_init((H * hd, d), generator, device, lead=lead)}
+
+
+def _gqa_attend(q, k, v, mask):
+    """q: (B,S,H,hd) k/v: (B,L,KV,hd) mask: (B,S,L) or (S,L)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd)
+    scores = torch.einsum("bskgh,blkh->bkgsl", qg.float(), k.float())
+    scores = scores / torch.tensor(math.sqrt(hd), dtype=torch.float32)
+    m = mask[:, None, None, :, :] if mask.ndim == 3 \
+        else mask[None, None, None, :, :]
+    scores = scores.masked_fill(~m, NEG_INF)
+    att = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgsl,blkh->bskgh", att.to(v.dtype).float(),
+                       v.float())
+    hd_v = v.shape[-1]
+    return out.reshape(B, S, H * hd_v).to(v.dtype)
+
+
+def attend_seq_xla(q, k, v, *, causal: bool, q_offset=None):
+    """The einsum attention reference — ``Backend.attention``'s path for
+    short sequences and xla execution.  ``q_offset`` places query row i at
+    absolute position q_offset + i in the causal mask (chunked prefill).
+    (The reference's lax.scan over query chunks beyond 8192 rows is not
+    needed at this slice's lengths.)"""
+    B, S, H, hd = q.shape
+    L = k.shape[1]
+    off = 0 if q_offset is None else int(q_offset)
+    if causal:
+        mask = ((off + torch.arange(S, device=q.device))[:, None]
+                >= torch.arange(L, device=q.device)[None, :])
+    else:
+        mask = torch.ones((S, L), dtype=torch.bool, device=q.device)
+    return _gqa_attend(q, k, v, mask)
+
+
+def _project_qkv(p, cfg, x, transpose, backend, S):
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _maybe_t(x, cast(p["wq"], x.dtype), transpose,
+                 backend).reshape(B, S, H, hd)
+    k = _maybe_t(x, cast(p["wk"], x.dtype), transpose,
+                 backend).reshape(B, S, KV, hd)
+    v = _maybe_t(x, cast(p["wv"], x.dtype), transpose,
+                 backend).reshape(B, S, KV, hd)
+    return q, k, v
+
+
+def gqa_forward(p, cfg: ModelConfig, x, *, transpose=False, causal=True,
+                positions=None, cache=None, backend=None):
+    """Full-sequence path (train / prefill).  With ``cache`` (a capacity
+    buffer view) the new K/V are written at offset 0 in place."""
+    B, S, d = x.shape
+    q, k, v = _project_qkv(p, cfg, x, transpose, backend, S)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = resolve_backend(backend).attention(q, k, v, causal=causal)
+    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)
+    if cache is not None:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        return y, cache
+    return y, None
+
+
+def gqa_prefill_chunk(p, cfg: ModelConfig, x, cache, q_offset, *,
+                      transpose=False, backend=None):
+    """One query chunk of a chunked prefill: x (B, C, d) holds prompt tokens
+    at absolute positions q_offset..q_offset+C-1.  Their K/V are written
+    into the capacity cache at ``q_offset`` (in place), then the chunk's
+    queries attend against the WHOLE buffer with the absolute-position
+    causal mask: positions past the chunk hold garbage that the mask
+    hides."""
+    B, C, d = x.shape
+    off = int(q_offset)
+    q, k, v = _project_qkv(p, cfg, x, transpose, backend, C)
+    positions = off + torch.arange(C, device=x.device)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    cache["k"][:, off:off + C] = k.to(cache["k"].dtype)
+    cache["v"][:, off:off + C] = v.to(cache["v"].dtype)
+    out = resolve_backend(backend).attention(
+        q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), causal=True,
+        q_offset=off)
+    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)
+    return y, cache
+
+
+def _attend_decode(q, ck, cv, k_new, v_new, pos):
+    """Decode attention against the past-only cache plus the current
+    token's K/V held separately (the cache is read-only here).
+
+    q: (B,1,H,hd)  ck/cv: (B,L,KV,hd)  k_new/v_new: (B,1,KV,hd)."""
+    B, S, H, hd = q.shape
+    KV = ck.shape[2]
+    G = H // KV
+    L = ck.shape[1]
+    qg = q.reshape(B, 1, KV, G, hd).float()
+    scale = 1.0 / torch.tensor(math.sqrt(hd), dtype=torch.float32)
+    s_c = torch.einsum("bskgh,blkh->bkgsl", qg, ck.float()) * scale
+    valid = _past_valid(pos, L, q.device)[:, None, None, None, :]
+    s_c = s_c.masked_fill(~valid, NEG_INF)
+    s_n = torch.einsum("bskgh,blkh->bkgsl", qg,
+                       k_new.to(q.dtype).float()) * scale
+    s = torch.cat([s_c, s_n], dim=-1)
+    att = torch.softmax(s, dim=-1)
+    out = (torch.einsum("bkgsl,blkh->bskgh",
+                        att[..., :L].to(cv.dtype).float(), cv.float())
+           + torch.einsum("bkgsl,blkh->bskgh",
+                          att[..., L:].to(q.dtype).float(),
+                          v_new.to(q.dtype).float()))
+    hd_v = cv.shape[-1]
+    return out.reshape(B, 1, H * hd_v).to(q.dtype)
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
+               backend=None):
+    """Single-token decode: x (B,1,d); cache k/v (B,L,KV,hd) read-only;
+    pos scalar or (B,).  Returns the one-token cache delta."""
+    B, S, d = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got {S}")
+    q, k, v = _project_qkv(p, cfg, x, transpose, backend, 1)
+    cos, sin = rope_angles(_decode_positions(pos, x.device), cfg.head_dim,
+                           cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = _attend_decode(q, cache["k"], cache["v"], k, v, pos)
+    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)
+    return y, {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, length: int, dtype,
+                   device):
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((batch, length, KV, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, length, KV, hd), dtype=dtype,
+                             device=device)}

@@ -1,0 +1,245 @@
+"""Model assembly for the dense decoder family (port of the dense path of
+``repro.models.transformer``).
+
+A model is a list of segments; each segment is a homogeneous stack of
+groups run through the PRM runner (``core.sharing.run_stack``).  Params are
+nested dicts with the reference's keys (``segments/main/l0/mixer/wq``) and
+a leading R axis on every segment leaf.  Caches are
+``{segment: {"l0": {"k": (R, T, B, L, KV, hd), "v": ...}}}``.
+
+MoE, SSM, MLA, cross-attention and the encoder stream belong to later
+slices; :func:`check_ported` raises for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import backend as backend_lib
+from repro_torch.core.prm import ReuseConfig
+from repro_torch.core.sharing import SharedStack, run_stack
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, cast, embed,
+                                       init_embedding, init_mlp, init_norm,
+                                       init_unembed, unembed)
+
+MODES = ("train", "prefill", "prefill_chunk", "decode")
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentSpec:
+    name: str
+    num_groups: int
+    group_size: int
+    mixer_kinds: tuple
+    ffn_kinds: tuple
+    causal: bool
+    reuse: Optional[ReuseConfig]
+    stream: str = "decoder"
+
+    @property
+    def depth(self) -> int:
+        return self.num_groups * self.group_size
+
+
+def _seg_reuse(cfg: ModelConfig, num_groups: int):
+    """Apply cfg.reuse to a segment iff it covers exactly its group count."""
+    r = cfg.reuse
+    if r is not None and r.logical_depth == num_groups:
+        return r
+    return None
+
+
+def build_segments(cfg: ModelConfig) -> tuple:
+    """Segment structure of any family (a copy of the reference's pure-
+    Python planner; the admission policy prices every arch with it).  Only
+    the dense decoder family runs in this slice (:func:`check_ported`)."""
+    if cfg.family == "audio":
+        a = cfg.audio
+        enc = SegmentSpec("enc", a.encoder_layers, 1, ("attn",), ("dense",),
+                          causal=False, reuse=_seg_reuse(cfg, a.encoder_layers),
+                          stream="encoder")
+        dec = SegmentSpec("dec", cfg.num_layers, 1, ("attn_cross",),
+                          ("dense",), causal=True,
+                          reuse=_seg_reuse(cfg, cfg.num_layers))
+        return (enc, dec)
+    gs = cfg.group_size
+    first_dense = cfg.moe.first_dense if cfg.moe else 0
+    segs = []
+    if first_dense:
+        segs.append(SegmentSpec(
+            "pre", first_dense, 1,
+            tuple(cfg.layer_kind(i) for i in range(1)),
+            ("dense_first",), causal=True, reuse=None))
+    depth = cfg.num_layers - first_dense
+    ngroups = depth // gs
+    mixer_kinds = tuple(cfg.layer_kind(first_dense + i) for i in range(gs))
+    ffn_kinds = tuple(cfg.ffn_kind(first_dense + i) for i in range(gs))
+    segs.append(SegmentSpec("main", ngroups, gs, mixer_kinds, ffn_kinds,
+                            causal=True, reuse=_seg_reuse(cfg, ngroups)))
+    return tuple(segs)
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for model families this slice does not run yet: MoE, SSM,
+    hybrid, MLA, cross-attention, encoder-decoder and gelu/layer-norm
+    stacks belong to later slices."""
+    ok = (cfg.moe is None and cfg.mla is None and cfg.ssm is None
+          and cfg.family not in ("audio", "vlm", "ssm", "hybrid")
+          and cfg.mlp_act == "swiglu" and cfg.norm == "rms")
+    if not ok:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense RMSNorm/SwiGLU decoder family is "
+            f"ported so far")
+
+
+@functools.lru_cache(maxsize=64)
+def shareds_for(cfg: ModelConfig) -> dict:
+    return {spec.name: SharedStack.build(spec.num_groups, cfg.d_model,
+                                         spec.reuse)
+            for spec in build_segments(cfg)}
+
+
+# =========================================================================
+# one layer
+# =========================================================================
+def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
+                mode, causal, pos, backend, transpose):
+    """One pre-norm residual layer.  Returns (h, cache, aux)."""
+    if mixer_kind != "attn":
+        raise NotImplementedError(f"mixer {mixer_kind!r} is a later slice")
+    hn = apply_norm(p["norm1"], h, cfg.norm, cfg.norm_eps)
+    if mode == "decode":
+        y, new_cache = attn.gqa_decode(p["mixer"], cfg, hn, cache, pos,
+                                       transpose=transpose, backend=backend)
+    elif mode == "prefill_chunk":
+        y, new_cache = attn.gqa_prefill_chunk(p["mixer"], cfg, hn, cache, pos,
+                                              transpose=transpose,
+                                              backend=backend)
+    else:
+        y, new_cache = attn.gqa_forward(
+            p["mixer"], cfg, hn, transpose=transpose, causal=causal,
+            cache=cache if mode == "prefill" else None, backend=backend)
+    h = h + y
+    if ffn_kind != "none":
+        hn = apply_norm(p["norm2"], h, cfg.norm, cfg.norm_eps)
+        h = h + apply_mlp(p["ffn"], hn, act=cfg.mlp_act, transpose=transpose,
+                          backend=backend)
+    return h, new_cache, aux
+
+
+def group_block_fn(cfg: ModelConfig, spec: SegmentSpec, mode, pos, backend):
+    def block_fn(p_r, h, cache_t, aux, *, transpose, reuse_index):
+        new_cache = {} if cache_t is not None else None
+        for i in range(spec.group_size):
+            c_i = cache_t[f"l{i}"] if cache_t is not None else None
+            h, c_i, aux = apply_layer(
+                p_r[f"l{i}"], cfg, h, c_i, aux,
+                mixer_kind=spec.mixer_kinds[i], ffn_kind=spec.ffn_kinds[i],
+                mode=mode, causal=spec.causal, pos=pos, backend=backend,
+                transpose=transpose)
+            if new_cache is not None:
+                new_cache[f"l{i}"] = c_i
+        return h, new_cache, aux
+    return block_fn
+
+
+# =========================================================================
+# init
+# =========================================================================
+def _init_group(cfg: ModelConfig, spec: SegmentSpec, R: int, generator,
+                device):
+    p = {}
+    for i in range(spec.group_size):
+        layer = {"norm1": init_norm(cfg.d_model, device, lead=(R,)),
+                 "mixer": attn.init_gqa(cfg, generator, device, lead=(R,))}
+        if spec.ffn_kinds[i] != "none":
+            layer["norm2"] = init_norm(cfg.d_model, device, lead=(R,))
+            layer["ffn"] = init_mlp(cfg.d_model, cfg.d_ff, generator, device,
+                                    lead=(R,))
+        p[f"l{i}"] = layer
+    return p
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
+    """Random float32 params from a ``torch.Generator`` with the reference's
+    scales (N(0,1)/sqrt(fan_in) matmul weights, 0.02 embedding, unit norm
+    scales).  The streams differ from ``jax.random``; to hold the port to
+    the reference, load JAX params with ``repro_torch.bridge`` instead.
+    ``device`` defaults to CUDA (``device="cpu"`` for the CPU)."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    params: dict[str, Any] = {
+        "embed": init_embedding(cfg.padded_vocab, cfg.d_model, generator,
+                                dev),
+        "final_norm": init_norm(cfg.d_model, dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_unembed(cfg.d_model, cfg.padded_vocab,
+                                         generator, dev)
+    params["segments"] = {}
+    for spec in build_segments(cfg):
+        R = shareds_for(cfg)[spec.name].num_physical
+        params["segments"][spec.name] = _init_group(cfg, spec, R, generator,
+                                                    dev)
+    return params
+
+
+# =========================================================================
+# forward
+# =========================================================================
+def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
+            pos=None, execution=None):
+    """Run the model.
+
+    batch: {"tokens": (B, S) int tensor}.  mode: train | prefill |
+    prefill_chunk | decode (decode: S == 1 and ``pos`` a scalar or a (B,)
+    tensor of per-slot positions; prefill_chunk: ``pos`` is the chunk's
+    q_offset and ``caches`` the partially filled capacity buffers).
+    caches are updated IN PLACE and returned.  Returns
+    (logits (B, S, V), caches, aux)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    check_ported(cfg)
+    dtype = torch_dtype(cfg.compute_dtype)
+    backend = backend_lib.resolve(execution if execution is not None
+                                  else cfg)
+    aux = torch.zeros((), dtype=torch.float32)
+    shareds = shareds_for(cfg)
+    h = embed(params["embed"], batch["tokens"], dtype)
+    for spec in build_segments(cfg):
+        seg_cache = caches.get(spec.name) if caches is not None else None
+        block = group_block_fn(cfg, spec, mode, pos, backend)
+        h, seg_cache, aux = run_stack(
+            block, params["segments"][spec.name], h, shareds[spec.name],
+            cache=seg_cache, aux0=aux,
+            decode_pos=pos if mode == "decode" else None, backend=backend)
+    h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = backend.dot(h, cast(params["embed"]["table"], h.dtype),
+                             transpose=True)
+    else:
+        logits = unembed(params["lm_head"], h, backend=backend)
+    return logits, caches, aux
+
+
+def init_caches(cfg: ModelConfig, batch: int, length: int,
+                dtype=torch.bfloat16, device=None) -> dict:
+    """Zero caches shaped [R, T, B, L, KV, hd] per segment."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    caches = {}
+    for spec in build_segments(cfg):
+        shared = shareds_for(cfg)[spec.name]
+        R, T = shared.num_physical, shared.reuse_times
+        shape = (R, T, batch, length, cfg.num_kv_heads, cfg.head_dim)
+        caches[spec.name] = {
+            f"l{i}": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                      "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            for i in range(spec.group_size)}
+    return caches

@@ -1,0 +1,279 @@
+"""Continuous-batching scheduler over the slot-level KV pool (port of
+``repro.serve.scheduler``: ``ReuseAwareAdmission`` and
+``ContinuousScheduler`` with monolithic and chunked admission).
+
+The pool decodes every slot each step while new requests prefill into free
+slots; each slot carries its own position and requests finish
+independently.  Admission order decides which rows share a decode batch,
+and the photonic A8 scale is per tensor over every row of a matmul, so the
+admission policy, the prefill bucket padding, the chunk tail padding and
+the idle/staging slots riding the decode batch with ``pad_id`` at position
+0 all follow the reference exactly.
+
+Left out for later slices: telemetry, bank residency, calibration, the
+mesh, and the ``WaveBatcher``.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import api
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import costmodel
+from repro_torch.core.prm import ReusePlan
+from repro_torch.models import transformer as tfm
+from repro_torch.serve.batcher import Completion, Request
+from repro_torch.serve.slots import SlotPool, SlotState
+
+
+# =========================================================================
+# reuse-aware admission
+# =========================================================================
+@dataclasses.dataclass(frozen=True)
+class ReuseAwareAdmission:
+    """Cost-model-driven admission policy (R&B amortization at request
+    level).  ``min_population`` is the smallest active population whose
+    write energy is amortized to ``target_efficiency``; below it every
+    queued request that fits is admitted, at or above it at most
+    ``max_admit_per_step`` per step."""
+
+    min_population: int
+    max_admit_per_step: int = 1
+
+    @staticmethod
+    def build(cfg: ModelConfig, *, tile: int = 256,
+              target_efficiency: float = 0.9, refresh_steps: int = 8,
+              mats_per_block: int = 6, max_admit_per_step: int = 1
+              ) -> "ReuseAwareAdmission":
+        R, depth = 0, 0
+        for spec in tfm.build_segments(cfg):
+            if spec.stream == "encoder":
+                continue
+            plan = ReusePlan.build(spec.num_groups, spec.reuse)
+            R += plan.num_physical
+            depth += spec.depth
+        d = cfg.d_model
+        _, e_write = costmodel.CALIBRATED.write_cost(d, d, tile)
+        _, e_comp = costmodel.CALIBRATED.compute_cost(d, d, tile)
+        ratio = target_efficiency / max(1.0 - target_efficiency, 1e-9)
+        min_pop = math.ceil(ratio * R * mats_per_block * e_write
+                            / (depth * e_comp * refresh_steps))
+        return ReuseAwareAdmission(min_population=max(1, min_pop),
+                                   max_admit_per_step=max_admit_per_step)
+
+    def admit_count(self, *, queued: int, free: int, active: int) -> int:
+        if queued == 0 or free == 0:
+            return 0
+        if active < self.min_population:
+            return min(queued, free)
+        return min(queued, free, self.max_admit_per_step)
+
+
+@dataclasses.dataclass
+class ContinuousStats:
+    """Work counters of one scheduler (the reference's telemetry fields
+    are a later slice)."""
+    requests: int = 0
+    prefill_chunks: int = 0
+    decode_steps: int = 0
+    generated_tokens: int = 0
+
+
+# =========================================================================
+# continuous scheduler
+# =========================================================================
+class ContinuousScheduler:
+    """Slot-level continuous batching over a shared [R, T, B, L, ...] pool,
+    serving from a :class:`repro_torch.api.Program`.  Greedy outputs are
+    token-identical to the reference scheduler on the same trace."""
+
+    def __init__(self, program: api.Program, *, capacity: int = 8,
+                 max_len: int = 256, pad_id: int = 0,
+                 temperature: float = 0.0, seed: int = 0,
+                 prefill_bucket: int = 16,
+                 prefill_chunk: Optional[int] = None,
+                 admission: Optional[ReuseAwareAdmission] = None):
+        if not isinstance(program, api.Program):
+            raise TypeError("ContinuousScheduler serves a built Program")
+        self.program = program
+        cfg = program.cfg
+        self.cfg = cfg
+        self.pad_id = pad_id
+        self.temperature = temperature
+        self.prefill_bucket = max(1, prefill_bucket)
+        self.admission = admission or ReuseAwareAdmission.build(cfg)
+        self.pool = SlotPool(cfg, capacity, max_len, device=program.device)
+        # every mixer of the ported family is attention: right padding is
+        # causally invisible, so prompts pad to a bucket and chunking works
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        # slot -> in-progress chunked prefill (staging cache at pool
+        # max_len, padded prompt, next chunk offset); such slots are
+        # allocated but not decoded until their last chunk lands
+        self._prefilling: dict[int, dict] = {}
+        self.queue: collections.deque[Request] = collections.deque()
+        self.stats = ContinuousStats()
+        self.generator = None
+        if temperature > 0.0:
+            self.generator = torch.Generator(
+                device=program.device).manual_seed(seed)
+        # current (unprocessed) token per slot, fed to the next decode step
+        self._cur = np.full((capacity, 1), pad_id, np.int32)
+
+    # ------------------------------------------------------------ interface
+    def submit(self, req: Request) -> None:
+        plen = len(req.prompt)
+        if plen + req.max_new > self.pool.max_len:
+            raise ValueError(
+                f"request {req.rid}: prompt {plen} + max_new {req.max_new} "
+                f"exceeds slot budget {self.pool.max_len}")
+        if req.max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        if req.extras:
+            raise NotImplementedError("modality extras are a later slice")
+        self.queue.append(req)
+
+    def drain(self) -> list[Completion]:
+        """Run until queue and slots are empty; completions in finish order."""
+        done: list[Completion] = []
+        while self.queue or self.pool.num_active:
+            done.extend(self.step())
+        return done
+
+    def step(self) -> list[Completion]:
+        """Admit (policy-bounded) new requests, advance one prefill chunk
+        per staging slot, then decode one token for every in-flight slot."""
+        done: list[Completion] = []
+        n = self.admission.admit_count(queued=len(self.queue),
+                                       free=self.pool.num_free,
+                                       active=self.pool.num_active)
+        for _ in range(n):
+            comp = self._admit_one(self.queue.popleft())
+            if comp is not None:
+                done.append(comp)
+        if self._prefilling:
+            done.extend(self._advance_chunks())
+        if self.pool.num_active > len(self._prefilling):
+            done.extend(self._decode_once())
+        return done
+
+    # ------------------------------------------------------------ internals
+    def _sample(self, logits) -> int:
+        return int(api.sample(logits, self.cfg.vocab_size, self.generator,
+                              self.temperature)[0])
+
+    def _bucket(self, plen: int) -> int:
+        b = self.prefill_bucket
+        return min(-(-plen // b) * b, self.pool.max_len)
+
+    def _admit_one(self, req: Request) -> Optional[Completion]:
+        plen = len(req.prompt)
+        if self.prefill_chunk is not None and plen > self.prefill_chunk:
+            self._start_chunked(req)
+            return None
+        bucket = self._bucket(plen)
+        state = SlotState(rid=req.rid, prompt_len=plen, max_new=req.max_new,
+                          eos_id=req.eos_id,
+                          prompt=np.asarray(req.prompt, np.int32),
+                          padded_to=bucket)
+        slot = self.pool.allocate(state)
+        toks = np.full((1, bucket), self.pad_id, np.int32)
+        toks[0, :plen] = req.prompt
+        logits, caches = self.program.prefill({"tokens": toks}, bucket,
+                                              last=[plen - 1])
+        self.pool.write_prefill(slot, caches, plen)
+        tok = self._sample(logits)
+        self._cur[slot, 0] = tok
+        self.stats.requests += 1
+        return self._commit_token(slot, tok)
+
+    def _start_chunked(self, req: Request) -> None:
+        """Allocate a slot and stage a chunked prefill: ``prefill_chunk``-
+        wide pieces (tail padded with ``pad_id``), one per step, into a
+        batch-1 staging cache at the pool's max_len."""
+        W = self.prefill_chunk
+        plen = len(req.prompt)
+        padded = -(-plen // W) * W
+        state = SlotState(rid=req.rid, prompt_len=plen, max_new=req.max_new,
+                          eos_id=req.eos_id,
+                          prompt=np.asarray(req.prompt, np.int32),
+                          padded_to=padded)
+        slot = self.pool.allocate(state)
+        toks = np.full((1, padded), self.pad_id, np.int32)
+        toks[0, :plen] = req.prompt
+        self._prefilling[slot] = {
+            "state": state, "tokens": toks, "off": 0,
+            "caches": self.program.empty_caches(1, self.pool.max_len)}
+        self.stats.requests += 1
+
+    def _advance_chunks(self) -> list[Completion]:
+        """One prefill chunk for every staging slot; final chunks publish
+        the staged cache into the pool and sample the first token."""
+        done: list[Completion] = []
+        W = self.prefill_chunk
+        for slot in sorted(self._prefilling):
+            st = self._prefilling[slot]
+            state, off = st["state"], st["off"]
+            last = off + W >= st["tokens"].shape[1]
+            idx = state.prompt_len - 1 - off if last else W - 1
+            logits, st["caches"] = self.program.prefill_chunk(
+                st["tokens"][:, off:off + W], st["caches"], off, last=[idx])
+            st["off"] = off + W
+            self.stats.prefill_chunks += 1
+            if not last:
+                continue
+            del self._prefilling[slot]
+            self.pool.write_prefill(slot, st["caches"], state.prompt_len)
+            tok = self._sample(logits)
+            self._cur[slot, 0] = tok
+            comp = self._commit_token(slot, tok)
+            if comp is not None:
+                done.append(comp)
+        return done
+
+    def _commit_token(self, slot: int, tok: int) -> Optional[Completion]:
+        """Record one generated token; complete/free the slot if done."""
+        state = self.pool.slots[slot]
+        state.tokens.append(tok)
+        state.generated += 1
+        self.stats.generated_tokens += 1
+        hit_eos = state.eos_id is not None and tok == state.eos_id
+        if state.generated >= state.max_new or hit_eos:
+            self.pool.free(slot)
+            self._cur[slot, 0] = self.pad_id
+            comp = Completion(
+                rid=state.rid,
+                tokens=np.concatenate([state.prompt,
+                                       np.asarray(state.tokens, np.int32)]),
+                prompt_len=state.prompt_len, padded_to=state.padded_to,
+                finish_reason="eos" if hit_eos else "length")
+            return comp
+        return None
+
+    def _decode_once(self) -> list[Completion]:
+        # staging (chunk-prefilling) and idle slots ride the full-pool step
+        # with pad_id at their position (0 for staging slots): their delta
+        # write is dead data and they commit no tokens
+        active = [s for s in self.pool.active_slots()
+                  if s not in self._prefilling]
+        nxt, self.pool.caches = self.program.decode_sample(
+            self._cur, self.pool.caches, self.pool.position_vector(),
+            generator=self.generator, temperature=self.temperature)
+        nxt = nxt.cpu().numpy()
+        self.stats.decode_steps += 1
+        done = []
+        for slot in active:
+            self.pool.advance(slot)
+            comp = self._commit_token(slot, int(nxt[slot]))
+            if comp is None:
+                self._cur[slot, 0] = int(nxt[slot])
+            else:
+                done.append(comp)
+        return done
