@@ -7,28 +7,43 @@ Phases (each prints one JSON object per line; any failed check raises and
 the script exits non-zero without printing the final ``ok`` line):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
-   both CUDA sources compile from this checkout, in parallel;
-2. every kernel against its plain PyTorch version on the card, in bf16, at
-   the shapes the serving path gives it, with its median time (CUDA
-   events, L2 flushed before each launch), the plain version's time, a
-   PyTorch library call computing the same product as a yardstick (never
-   used by the port) and the card's lower bound for the work;
-3. the serving path: minitron-4b with its R&B plan (8 physical blocks x 4
-   reuses) at full width, photonic, bf16, seeded random weights, through
-   ``Program.generate`` and a ``ContinuousScheduler`` with chunked prefill;
-   kernel launch counts are zeroed just before and read just after; then
-   one prefill's logits are checked and a small model's GPU logits are
-   held against the CPU plain path;
+   all four CUDA sources compile from this checkout, in parallel;
+2. every kernel against its plain PyTorch version on the card, at the
+   shapes the serving paths give it, with its median time (CUDA events,
+   L2 flushed before each launch), the plain version's time, a PyTorch
+   library call computing the same function as a yardstick (never used by
+   the port) and the card's lower bound for the work: the fused MVM and
+   flash attention (slice 1), the split MVMs in both orientations and the
+   blend (slice 2);
+3. the fused serving path: minitron-4b with its R&B plan (8 physical
+   blocks x 4 reuses) at full width, photonic, bf16, seeded random weights,
+   through ``Program.generate`` and a ``ContinuousScheduler`` with chunked
+   prefill; kernel launch counts are zeroed just before and read just
+   after; then one prefill's logits are checked and a small model's GPU
+   logits are held against the CPU plain path;
+3b. the fault-model serving path: the same model with the paper's blocked
+   shuffle (``shuffle_block=128``) on ``Backend("photonic", fused=False,
+   noise=...)`` at full width and depth, served by a ``ContinuousScheduler``
+   with bank residency and the calibration loop; launch counts zeroed just
+   before the drain and read just after; single billing of every write;
+3c. a small float32 model on the card: fused vs split logits with noise
+   off, the drift bench's gates, and crosstalk-only noise on the card
+   against the CPU plain path;
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
-Tolerances (bf16 outputs): the MVM kernel computes an exact int32 product
-while the plain version keeps the reference's fp32 offset decomposition,
-so they agree up to bf16 rounding: rel-L2 <= 2**-8.  Flash attention
-reorders fp32 softmax sums: rel-L2 <= 2**-8.  The small-model end-to-end
-check uses the repository's W8A8 bound, rel-L2 <= 0.055.
+Tolerances: the MVM kernels compute an exact int32 product while the plain
+versions keep the reference's fp32 offset decomposition, so they agree up
+to that rounding: rel-L2 <= 2**-8 (bf16 outputs of the fused kernel, fp32
+of the split ones).  Flash attention reorders fp32 softmax sums: rel-L2 <=
+2**-8.  The blend is a gather plus the same epilogue: exact without an
+activation, rel-L2 <= 2**-8 with silu (the card's exp may differ from the
+plain version's in the last bit).  Model-level checks use the repository's
+W8A8 bound, rel-L2 <= 0.055.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -41,7 +56,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 MVM_TOL = 2.0 ** -8
 FLASH_TOL = 2.0 ** -8
+BLEND_TOL = 2.0 ** -8
 W8A8_BOUND = 0.055
+INT8_TOPS = 1979e12
+HBM_BYTES_S = 3.35e12
 
 
 def emit(obj) -> None:
@@ -56,7 +74,13 @@ def rel_l2(a, b) -> float:
 class Timer:
     """Median CUDA-event time of a call, with the 50 MB L2 flushed (a
     64 MiB write) before every timed launch: on the serving path each
-    weight bank is cold when its matmul runs."""
+    weight bank is cold when its matmul runs.  A spin kernel queued ahead
+    of the timed launches keeps the host ahead of the device, so an event
+    pair measures the device's time for the call, not the host's time to
+    issue it (the host's cost per step is measured end to end, in the
+    decode-step phase)."""
+
+    SPIN_CYCLES = 100_000_000          # ~50 ms at 1.98 GHz
 
     def __init__(self, torch):
         self.torch = torch
@@ -67,17 +91,17 @@ class Timer:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        torch.cuda._sleep(self.SPIN_CYCLES)
+        for start, end in events:
             self.flush_buf.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 # -------------------------------------------------------------------------
@@ -136,12 +160,14 @@ def check_mvm(torch, timer, pm, photonic):
         plain_ms = timer.ms(
             lambda: pm.photonic_mvm_fused_plain(x, wq, xs, ws, **kw),
             3 if big else 10)
-        lib_ms = int_mm_ms(torch, timer, x, xs, wq, tr, reps)
+        xq = torch.clamp(torch.round(x / xs.to(x.dtype)), -128, 127).to(
+            torch.int8)
+        lib_ms = int_mm_ms(torch, timer, xq, wq, tr, reps)
         nbytes = (M * K * 2 + K * N + 4 * N + M * N * 2
                   + (2 * N if extra else 0))
         ops = 2.0 * M * K * N
-        t_bytes = nbytes / 3.35e12 * 1e3
-        t_ops = ops / 1979e12 * 1e3
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = ops / INT8_TOPS * 1e3
         row = {"case": label, "kernel": "photonic_mvm_fused",
                "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -155,12 +181,10 @@ def check_mvm(torch, timer, pm, photonic):
     return rows
 
 
-def int_mm_ms(torch, timer, x, xs, wq, transpose, reps):
+def int_mm_ms(torch, timer, xq, wq, transpose, reps):
     """Yardstick: cuBLAS int8 x int8 -> int32 (``torch._int_mm``) on the
     same quantized operands.  It needs more than 16 rows, so decode widths
     pad the rows to 32 with zeros."""
-    xq = torch.clamp(torch.round(x / xs.to(x.dtype)), -128, 127).to(
-        torch.int8)
     if xq.shape[0] < 32:
         xq = torch.cat([xq, xq.new_zeros((32 - xq.shape[0], xq.shape[1]))])
     w = wq.t() if transpose else wq
@@ -218,7 +242,7 @@ def check_flash(torch, timer, fa):
         pairs = int(mask.sum())                 # visible (query, key) pairs
         flops = 2.0 * (hd + hdv) * pairs * B * H
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
-        t_bytes = nbytes / 3.35e12 * 1e3
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = flops / 989e12 * 1e3
         row = {"case": label, "kernel": "flash_attention", "rel_l2": err,
                "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
@@ -285,6 +309,10 @@ def profile_generate(torch, prog, prompt):
         if name.startswith(("void (anonymous namespace)::mvm_kernel",
                             "void (anonymous namespace)::reduce_kernel")):
             group = "photonic_mvm_fused"
+        elif "::split_kernel" in name or "::split_reduce_kernel" in name:
+            group = "photonic_mvm_split"
+        elif "blend_kernel" in name:
+            group = "blend_shuffle"
         elif "flash_kernel" in name:
             group = "flash_attention"
         else:
@@ -324,11 +352,30 @@ def decode_step_costs(torch, prog):
         prog.decode_sample(toks, caches, pos)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    # one profiled step: the device's busy time, and the host ops that
+    # cost the most self time (the launch side of the step)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog.decode_sample(toks, caches, pos)
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in evs
+               if e.device_type == DeviceType.CUDA)
+    cpu = [e for e in evs if e.device_type == DeviceType.CPU]
+    host = sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:8]
     return {"phase": "decode_step", "capacity": 4, "max_len": 2048,
-            "aten_ops": Count.n, "wall_ms_median": statistics.median(times)}
+            "aten_ops": Count.n, "wall_ms_median": statistics.median(times),
+            "profiled_device_busy_ms": busy / 1e3,
+            "profiled_host_op_self_ms": sum(e.self_cpu_time_total
+                                            for e in cpu) / 1e3,
+            "top_host_ops": [{"op": e.key, "calls": e.count,
+                              "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                             for e in host]}
 
 
-def serve(torch, pm, fa, gpu):
+def serve(torch, pm, fa, blend, gpu):
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tfm
@@ -354,8 +401,7 @@ def serve(torch, pm, fa, gpu):
     rng = np.random.default_rng(0)
     V = cfg.vocab_size
 
-    pm.launches = 0
-    fa.launches = 0
+    reset_counts(pm, fa, blend)
     torch.cuda.reset_peak_memory_stats()
 
     # -- Program.generate: two 600-token prompts (monolithic flash prefill)
@@ -382,7 +428,9 @@ def serve(torch, pm, fa, gpu):
     done = sched.drain()
     torch.cuda.synchronize()
     sched_s = time.perf_counter() - t0
-    mvm_launches, flash_launches = pm.launches, fa.launches
+    launches = kernel_counts(pm, fa, blend)
+    mvm_launches = launches["photonic_mvm_fused"]
+    flash_launches = launches["flash_attention"]
 
     # outside the counted window: the logits of one 600-token prefill
     logits, _ = prog.prefill({"tokens": prompts[:1]}, 616)
@@ -407,13 +455,307 @@ def serve(torch, pm, fa, gpu):
               "scheduler_decode_steps": sched.stats.decode_steps,
               "scheduler_prefill_chunks": sched.stats.prefill_chunks,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "launches": {"photonic_mvm_fused": mvm_launches,
-                           "flash_attention": flash_launches}}
+              "launches": launches}
     result.update(small_model_check(torch))
     emit(result)
     emit(profile_generate(torch, prog, prompts[:1]))
     emit(decode_step_costs(torch, prog))
-    return mvm_launches, flash_launches
+    return launches
+
+
+# -------------------------------------------------------------------------
+# phase 2, slice 2: the split MVMs and the blend
+# -------------------------------------------------------------------------
+def split_cases():
+    """(label, M, K, N, transpose): the split pipeline's matmuls at the
+    fused kernel's serving shapes — minitron-4b's 3072->3072 (wq, wo),
+    3072->1024 (wk, wv), 3072->9216 (w_gate, w_up), 9216->3072 (w_down)
+    and the 3072->256000 lm head — in both orientations, at decode M = 4
+    and prefill M = 2048."""
+    shapes = [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072),
+              (3072, 256000)]
+    return [(f"M={M} {K}->{N}{' ^T' if tr else ''}", M, K, N, tr)
+            for M in (4, 2048) for K, N in shapes for tr in (False, True)]
+
+
+def check_split(torch, timer, pm, photonic, ops):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for label, M, K, N, tr in split_cases():
+        x = torch.randn((M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        xq, xs = photonic.quantize_symmetric(x, 8)
+        wq = torch.randint(-127, 128, (N, K) if tr else (K, N),
+                           generator=gen, device="cuda", dtype=torch.int8)
+        ws = torch.rand((N,), generator=gen, device="cuda") * 0.05 + 0.01
+        kernel = pm.photonic_mvm_t if tr else pm.photonic_mvm
+        plain = pm.photonic_mvm_t_plain if tr else pm.photonic_mvm_plain
+        got = kernel(xq, wq, xs, ws)
+        want = plain(xq, wq, xs, ws)
+        # the fused-vs-split gate at kernel level: the split output cast to
+        # x's dtype against the fused kernel on the same x
+        fused = ops.photonic_matmul_fused(x, wq, ws, transpose=tr)
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        max_abs = float((got - want).abs().max())
+        if not (err <= MVM_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"{'photonic_mvm_t' if tr else 'photonic_mvm'}"
+                                 f" {label}: rel-L2 {err} > {MVM_TOL}")
+        fused_equal = bool(torch.equal(got.to(x.dtype), fused))
+        del fused
+        big = M * K * N > 1e12
+        reps = 5 if big else 20
+        ms = timer.ms(lambda: kernel(xq, wq, xs, ws), reps)
+        plain_ms = timer.ms(lambda: plain(xq, wq, xs, ws), 3 if big else 10)
+        lib_ms = int_mm_ms(torch, timer, xq, wq, tr, reps)
+        nbytes = M * K + K * N + 4 * N + 4 + 4 * M * N
+        ops_n = 2.0 * M * K * N
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = ops_n / INT8_TOPS * 1e3
+        row = {"case": label,
+               "kernel": "photonic_mvm_t" if tr else "photonic_mvm",
+               "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "torch._int_mm on the int8 operands (product "
+                          "only; rows padded to >= 32)",
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops_n,
+               "split_cast_equals_fused": fused_equal}
+        emit(row)
+        rows.append(row)
+        del got, want, x, xq, wq
+    return rows
+
+
+def blend_cases():
+    """(label, M, act, with_bias): ``Backend.shuffle``'s blocked shuffle of
+    minitron-4b's 3072 channels in blocks of 128 (24 blocks, no bias, no
+    activation), at decode M = 4 and a 2048-row prefill, and once with a
+    bias and silu."""
+    return [(f"M={M} C=3072 block=128 {act}{' +bias' if b else ''}", M, act,
+             b) for M in (4, 2048) for act, b in (("none", False),
+                                                   ("silu", True))]
+
+
+def check_blend(torch, timer, blend):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    C, block = 3072, 128
+    perm = tuple(torch.randperm(C // block, generator=torch.Generator()
+                                .manual_seed(5)).tolist())
+    idx = torch.as_tensor(blend.gather_index(perm, block), device="cuda")
+    rows = []
+    for label, M, act, with_bias in blend_cases():
+        x = torch.randn((M, C), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        bias = (torch.randn((C,), generator=gen, device="cuda").to(
+            torch.bfloat16) if with_bias else None)
+        kw = dict(block=block, activation=act)
+        got = blend.blend_shuffle(x, bias, perm, **kw)
+        want = blend.blend_shuffle_plain(x, bias, perm, **kw)
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        max_abs = float((got.float() - want.float()).abs().max())
+        ok = (bool(torch.equal(got, want)) if act == "none"
+              else err <= BLEND_TOL)
+        if not (ok and torch.isfinite(got).all()):
+            raise AssertionError(f"blend_shuffle {label}: rel-L2 {err}")
+        ms = timer.ms(lambda: blend.blend_shuffle(x, bias, perm, **kw), 20)
+        plain_ms = timer.ms(
+            lambda: blend.blend_shuffle_plain(x, bias, perm, **kw), 20)
+        lib_ms = (timer.ms(lambda: x.index_select(-1, idx), 20)
+                  if act == "none" and bias is None else None)
+        nbytes = 2 * M * C * 2 + 4 * (C // block) + (2 * C if bias is not None
+                                                      else 0)
+        row = {"case": label, "kernel": "blend_shuffle", "rel_l2": err,
+               "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms,
+               "library": "x.index_select(-1, idx) (no bias/activation "
+                          "only)",
+               "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+               "bytes": nbytes, "ops": 0}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+# -------------------------------------------------------------------------
+# phase 3b: the fault-model serving path
+# -------------------------------------------------------------------------
+NOISE_SPEC = dict(gain_sigma=0.01, crosstalk=0.002, dac_sigma=0.25,
+                  drift_gain_per_nm=0.05)
+WRITES_PER_ACCESS = 2e4     # drift stress per serving access: the first
+                            # sweep (4th decode step) finds stale banks
+
+
+def kernel_counts(pm, fa, blend) -> dict:
+    return {"photonic_mvm_fused": pm.launches, "photonic_mvm": pm.launches_mvm,
+            "photonic_mvm_t": pm.launches_mvm_t,
+            "blend_shuffle": blend.launches, "flash_attention": fa.launches}
+
+
+def reset_counts(pm, fa, blend) -> None:
+    pm.launches = pm.launches_mvm = pm.launches_mvm_t = 0
+    fa.launches = blend.launches = 0
+
+
+def serve_noisy(torch, pm, fa, blend, gpu):
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.core.backend import Backend
+    from repro_torch.core.noise import NoiseConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.obs.meter import PhotonicMeter, StackProfile
+    from repro_torch.resident import (BankResidencyManager, DriftClock,
+                                      ProgramResidency, specs_from_program)
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.calibration import CalibrationLoop
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    cfg = get_arch("minitron-4b", reuse=True)
+    cfg = dataclasses.replace(cfg, reuse=dataclasses.replace(
+        cfg.reuse, shuffle_block=128))
+    noise = NoiseConfig(**NOISE_SPEC)
+    t0 = time.perf_counter()
+    params = tfm.init_model(cfg, seed=0)
+    prog = api.Program.build(
+        cfg, params, execution=Backend("photonic", fused=False, noise=noise))
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    specs = specs_from_program(prog)
+    manager = BankResidencyManager(sum(s.tiles for s in specs))
+    meter = PhotonicMeter(StackProfile.from_cfg(cfg))
+    residency = ProgramResidency(manager, specs)
+    residency.bind_meter(meter)
+    clock = DriftClock(manager, writes_per_access=WRITES_PER_ACCESS)
+    loop = CalibrationLoop(prog, manager, clock=clock, every_steps=4,
+                           meter=meter)
+    sched = ContinuousScheduler(prog, capacity=4, max_len=2048,
+                                prefill_chunk=512, residency=residency,
+                                calibration=loop)
+    rng = np.random.default_rng(1)
+    lens = (40, 300, 1300)
+    for rid, n in enumerate(lens):
+        sched.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size,
+                                                          n), max_new=16))
+    torch.cuda.synchronize()
+    reset_counts(pm, fa, blend)
+    t0 = time.perf_counter()
+    done = sched.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = kernel_counts(pm, fa, blend)
+
+    got = sorted((c.rid, len(c.tokens), c.finish_reason) for c in done)
+    want = [(rid, n + 16, "length") for rid, n in enumerate(lens)]
+    if got != want:
+        raise AssertionError(f"completions {got} != {want}")
+    for name in ("photonic_mvm", "photonic_mvm_t", "blend_shuffle",
+                 "flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} not on the fault-model path: "
+                                 f"{launches}")
+    if launches["photonic_mvm_fused"] != 0:
+        raise AssertionError(f"the fused kernel ran on the split path: "
+                             f"{launches}")
+    cal = loop.report()
+    if not (cal["sweeps"] > 0 and cal["reprograms"] > 0):
+        raise AssertionError(f"calibration did not repair: {cal}")
+    res = manager.report()
+    installs = res["install_writes_mats"] + res["streamed_writes_mats"]
+    if not (meter.bank_writes == installs + res["calibration_writes_mats"]
+            and meter.calibration_writes == res["calibration_writes_mats"]):
+        raise AssertionError(f"write ledger: meter {meter.bank_writes} vs "
+                             f"installs {installs} + calibration "
+                             f"{res['calibration_writes_mats']}")
+    for c in done:
+        if not (np.asarray(c.tokens) >= 0).all():
+            raise AssertionError("negative token id")
+    emit({"phase": "serve_fault_model", "gpu": gpu, "arch": cfg.name,
+          "R": cfg.reuse.num_basic, "T": cfg.reuse.reuse_times,
+          "shuffle_block": cfg.reuse.shuffle_block, "dtype": cfg.compute_dtype,
+          "noise": NOISE_SPEC, "build_s": build_s, "drain_s": drain_s,
+          "prompt_tokens": sum(lens), "generated_tokens": 16 * len(lens),
+          "tokens_per_s": 16 * len(lens) / drain_s,
+          "decode_steps": sched.stats.decode_steps,
+          "prefill_chunks": sched.stats.prefill_chunks,
+          "launches": launches, "calibration": cal,
+          "max_readback_err": cal["max_readback_err"],
+          "residency": {k: v for k, v in res.items() if k != "endurance"},
+          "meter": meter.report(),
+          "live_bank_ages": len(prog.backend.noise.bank_ages),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    prompt = rng.integers(0, cfg.vocab_size, (1, 600))
+    emit(profile_generate(torch, prog, prompt))
+    emit(decode_step_costs(torch, prog))
+    return launches
+
+
+# -------------------------------------------------------------------------
+# phase 3c: a small model on the card
+# -------------------------------------------------------------------------
+def small_model_fault_checks(torch):
+    """The drift bench's model (``smoke_variant("deepseek-7b")``, float32):
+    fused vs split logits with noise off; the drift bench's gates on the
+    card (three rungs, against the port's xla path); crosstalk-only noise,
+    which draws nothing at random, on the card vs the CPU plain path."""
+    from repro_torch import api, drift_bench
+    from repro_torch.configs import smoke_variant
+    from repro_torch.core.backend import Backend
+    from repro_torch.core.noise import NoiseConfig
+    from repro_torch.models import transformer as tfm
+
+    cfg = smoke_variant("deepseek-7b")
+    params = tfm.init_model(cfg, seed=0, device="cpu")
+    # the drift bench's prompt shape (B=2, T=12); the W8A8 gap to xla on
+    # this model is prompt-dependent (0.035-0.063 over seeds on the CPU):
+    # these prompts read 0.048 there, the reference bench's own 0.0479
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 12))
+    out = {"phase": "small_model_fault", "arch": cfg.name,
+           "dtype": cfg.compute_dtype}
+
+    def build(backend, device=None):
+        return api.Program.build(cfg, params, execution=backend,
+                                 device=device)
+
+    pf, pu = build(Backend("photonic")), build(Backend("photonic",
+                                                       fused=False))
+    lf, cf = pf.prefill({"tokens": toks}, 14)
+    lu, cu = pu.prefill({"tokens": toks}, 14)
+    df, _ = pf.decode(toks[:, :1], cf, 12)
+    du, _ = pu.decode(toks[:, :1], cu, 12)
+    errs = (rel_l2(lu, lf), rel_l2(du, df))
+    out["fused_vs_split_bitwise"] = bool(torch.equal(lf, lu)
+                                         and torch.equal(df, du))
+    out["fused_vs_split_rel_l2"] = max(errs)
+    if not max(errs) <= MVM_TOL:
+        raise AssertionError(f"fused vs split rel-L2 {errs} > {MVM_TOL}")
+
+    noise0, ages, step = drift_bench.drift_noise(rungs=3)
+    rows, loop, meter, manager = drift_bench.run_sweeps(
+        build(Backend("photonic", noise=noise0)), build("xla"),
+        {"tokens": toks}, cfg=cfg, noise0=noise0, ages=ages, rung_step=step,
+        cache_len=14)
+    drift_bench.check_gates(rows, loop, meter, manager)
+    out["drift_rungs"] = [{k: r[k] for k in ("age_writes", "uncal_rel_l2",
+                                             "cal_rel_l2", "readback_err",
+                                             "reprogrammed_banks")}
+                          for r in rows]
+
+    ct = Backend("photonic", fused=False, noise=NoiseConfig(crosstalk=0.003))
+    gpu, cpu = build(ct), build(ct, device="cpu")
+    lg, _ = gpu.prefill({"tokens": toks}, 14)
+    lc, _ = cpu.prefill({"tokens": toks}, 14)
+    err = rel_l2(lg.cpu(), lc)
+    same = bool((gpu.generate(toks, 6).cpu() == cpu.generate(toks, 6)).all())
+    out["crosstalk_gpu_vs_cpu_rel_l2"] = err
+    out["crosstalk_greedy_tokens_equal"] = same
+    if not (err <= W8A8_BOUND and same):
+        raise AssertionError(f"crosstalk-only GPU vs CPU: rel-L2 {err}, "
+                             f"tokens equal {same}")
+    emit(out)
 
 
 # -------------------------------------------------------------------------
@@ -438,6 +780,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import photonic
+    from repro_torch.kernels import blend
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import photonic_mvm as pm
@@ -459,19 +802,43 @@ def main() -> int:
     timer = Timer(torch)
     mvm_rows = check_mvm(torch, timer, pm, photonic)
     flash_rows = check_flash(torch, timer, fa)
+    split_rows = check_split(torch, timer, pm, photonic, ops)
+    blend_rows = check_blend(torch, timer, blend)
     del timer
     torch.cuda.empty_cache()
-    mvm_launches, flash_launches = serve(torch, pm, fa, smi)
+    # each path's launches are counted in its own window
+    fused_path = serve(torch, pm, fa, blend, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fault_path = serve_noisy(torch, pm, fa, blend, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_model_fault_checks(torch)
 
+    split = "src/repro_torch/csrc/photonic_mvm_split.cu"
     emit({"kernels": [
-        summary("photonic_mvm_fused", mvm_rows, mvm_launches,
+        summary("photonic_mvm_fused", mvm_rows,
+                fused_path["photonic_mvm_fused"],
                 "M=4 w_gate+silu 3072->9216",
                 "src/repro_torch/csrc/photonic_mvm_fused.cu",
                 "src/repro/kernels/photonic_mvm.py:432"),
-        summary("flash_attention", flash_rows, flash_launches,
-                "B=1 Sq=L=2048 causal",
+        summary("flash_attention", flash_rows,
+                fused_path["flash_attention"], "B=1 Sq=L=2048 causal",
                 "src/repro_torch/csrc/flash_attention.cu",
-                "src/repro/kernels/flash_attention.py:114")]})
+                "src/repro/kernels/flash_attention.py:114"),
+        summary("photonic_mvm", [r for r in split_rows
+                                 if r["kernel"] == "photonic_mvm"],
+                fault_path["photonic_mvm"], "M=4 3072->9216", split,
+                "src/repro/kernels/photonic_mvm.py:157"),
+        summary("photonic_mvm_t", [r for r in split_rows
+                                   if r["kernel"] == "photonic_mvm_t"],
+                fault_path["photonic_mvm_t"], "M=4 3072->9216 ^T", split,
+                "src/repro/kernels/photonic_mvm.py:191"),
+        summary("blend_shuffle", blend_rows, fault_path["blend_shuffle"],
+                "M=4 C=3072 block=128 none",
+                "src/repro_torch/csrc/blend_shuffle.cu",
+                "src/repro/kernels/blend.py:33")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

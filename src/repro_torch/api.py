@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import backend as backend_lib
+from repro_torch.core import noise as noise_lib
 from repro_torch.core import prepared as prepared_lib
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import transformer as tfm
@@ -87,6 +88,13 @@ class Program:
         bank = prepared_lib.prepare_params(moved, cfg.compute_dtype,
                                            bk.is_photonic)
         return cls(cfg=cfg, backend=bk, bank=bank, device=dev)
+
+    def update_noise(self, noise) -> None:
+        """Swap the fault-model config on the live Program (in place): the
+        calibration loop's republish step.  The banks and caches stay;
+        the device gain cache of the old config is dropped."""
+        self.backend = dataclasses.replace(self.backend, noise=noise)
+        noise_lib.clear_gain_cache()
 
     # -------------------------------------------------------------- stats
     def bank_stats(self) -> dict:

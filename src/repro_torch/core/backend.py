@@ -7,19 +7,30 @@ sequence attention goes through ``Backend.attention``.
 
   * ``"xla"`` (name kept from the reference) — plain torch matmuls with
     float32 accumulation (``obu.blend_dot``) and the einsum attention.
-  * ``"photonic"`` — every matmul runs the fused W8A8 MVM kernel
-    (``kernels/photonic_mvm.py``: A8 quantization in the prologue, the
-    blend epilogue in the kernel), fed from a prepared bank or from the fp
-    weight quantized in-step; long-sequence attention runs the flash kernel
-    (``kernels/flash_attention.py``).
+  * ``"photonic"`` — every matmul runs a W8A8 MVM kernel against a
+    prepared bank (or the fp weight quantized in-step):
+      - ``fused=True`` (default): the fused kernel
+        (``kernels/photonic_mvm.photonic_mvm_fused``: A8 quantization in
+        the prologue, the blend epilogue in the kernel);
+      - ``fused=False``: the split comparator — the A8 pass, the split MVM
+        kernel (``photonic_mvm`` / ``photonic_mvm_t``) with a float32
+        output cast to the activation dtype, then the unfused epilogue
+        (the blend kernel for blocked shuffles, torch ops otherwise).  Same
+        numbers as the fused path with noise off;
+      - an enabled ``noise`` (``core/noise.NoiseConfig``) reroutes every
+        matmul through the split pipeline with the fault model applied to
+        the raw MVM output, keyed by the bank's tag.
+    Blocked OBU shuffles run the blend kernel; long-sequence attention runs
+    the flash kernel (``kernels/flash_attention.py``).
 
-This slice ports the single-device fused path only.  Left out for later
-slices: the mesh/sharded branches, the noise model, ``reuse_dot`` (PRM-
-blended MoE experts) and the split (``fused=False``) comparator.
+Left out for later slices: the mesh/sharded branches, ``reuse_dot``
+(PRM-blended MoE experts) and the TPU tile plans (``bm/bk/bn``,
+``adaptive``: the CUDA kernels pick their own tiles).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -31,6 +42,17 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.photonic_mvm import apply_activation
 
 EXECUTIONS = ("xla", "photonic")
+
+
+def _epilogue_unfused(y, bias, block_perm, block, activation):
+    """The split blend epilogue: the blend kernel for blocked shuffles,
+    torch ops for bias/activation-only epilogues."""
+    if block_perm is not None:
+        return ops.blend_shuffle(y, bias, block_perm, block=block,
+                                 activation=activation or "none")
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return apply_activation(y, activation)
 
 
 def _epilogue_xla(y, bias, block_perm, block, activation):
@@ -53,8 +75,11 @@ class Backend:
     """Static description of the matmul substrate."""
 
     execution: str = "xla"
-    fused: bool = True                # the megakernel; the split pipeline
-                                      # is not ported yet
+    fused: bool = True                # the fused kernel vs the split
+                                      # quantize/MVM/blend pipeline
+    noise: Any = None                 # core.noise.NoiseConfig | None — the
+                                      # opt-in photonic fault model; None /
+                                      # all-zero is the clean path
     flash: bool = True                # long photonic attention -> flash
     flash_min_seq: int = 512          # query lengths below this take the
                                       # einsum path
@@ -63,14 +88,17 @@ class Backend:
         if self.execution not in EXECUTIONS:
             raise ValueError(f"unknown execution backend "
                              f"{self.execution!r}; have {EXECUTIONS}")
-        if not self.fused:
-            raise NotImplementedError(
-                "the split (fused=False) photonic pipeline is not ported "
-                "yet; the port runs the fused kernel only")
 
     @property
     def is_photonic(self) -> bool:
         return self.execution == "photonic"
+
+    @property
+    def noise_active(self) -> bool:
+        """True when the fault model actually perturbs: photonic execution
+        AND an enabled config.  Always False on xla."""
+        return (self.is_photonic and self.noise is not None
+                and self.noise.enabled)
 
     # ----------------------------------------------------------- attention
     def use_flash(self, q_len: int) -> bool:
@@ -113,7 +141,8 @@ class Backend:
             wq, wscale = quantize_weight(w)
         return self._photonic_matmul(x, wq, wscale, transpose=transpose,
                                      bias=bias, block_perm=block_perm,
-                                     block=block, activation=activation)
+                                     block=block, activation=activation,
+                                     bank_tag=None)
 
     def dot_prepared(self, x, prep: PreparedTensor, *,
                      transpose: bool = False, bias=None, block_perm=None,
@@ -140,24 +169,39 @@ class Backend:
             wq, wscale = prep.wq, prep.scale
         return self._photonic_matmul(x, wq, wscale, transpose=transpose,
                                      bias=bias, block_perm=block_perm,
-                                     block=block, activation=activation)
+                                     block=block, activation=activation,
+                                     bank_tag=prep.tag)
 
     def _photonic_matmul(self, x, wq, wscale, *, transpose, bias,
-                         block_perm, block, activation):
-        return ops.photonic_matmul_fused(
-            x, wq, wscale, transpose=transpose, bias=bias,
-            block_perm=block_perm, block=block,
-            activation=activation or "none")
+                         block_perm, block, activation, bank_tag):
+        """The fused kernel, or the split quantize -> MVM -> epilogue
+        pipeline; with an enabled fault model, the split pipeline with the
+        ``core/noise.py`` perturbation on the raw MVM output.
+        ``bank_tag`` (the PreparedTensor's path hash; None for in-step
+        quantized weights) keys the bank's random streams and its age."""
+        if self.noise_active:
+            y = ops.photonic_matmul_noisy(x, wq, wscale, noise=self.noise,
+                                          bank_tag=bank_tag,
+                                          transpose=transpose)
+            return _epilogue_unfused(y, bias, block_perm, block, activation)
+        if self.fused:
+            return ops.photonic_matmul_fused(
+                x, wq, wscale, transpose=transpose, bias=bias,
+                block_perm=block_perm, block=block,
+                activation=activation or "none")
+        mm = (ops.photonic_matmul_prepared_t if transpose
+              else ops.photonic_matmul_prepared)
+        return _epilogue_unfused(mm(x, wq, wscale), bias, block_perm, block,
+                                 activation)
 
     # -------------------------------------------------------------- shuffle
     def shuffle(self, h, perm, block_perm=None, block: int = 0):
-        """OBU electronic shuffle of the channel axis: a static index
-        gather.  (The reference folds *blocked* shuffles into its blend
-        kernel; no ``RB_PLANS`` entry sets a blocked shuffle, and the blend
-        kernel is not ported yet, so that case raises.)"""
+        """OBU electronic shuffle of the channel axis.  Photonic + blocked
+        permutation (the paper's §3.2 method 1): the blend kernel, fused or
+        split alike.  Otherwise the static index gather."""
         if self.is_photonic and block_perm is not None and block > 0:
-            raise NotImplementedError(
-                "blocked OBU shuffles need the blend kernel, not ported yet")
+            return ops.blend_shuffle(h, None, block_perm, block=block,
+                                     activation="none")
         return obu.apply_channel_permutation(h, perm)
 
 

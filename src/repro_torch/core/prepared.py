@@ -162,8 +162,7 @@ def path_tag(path) -> int:
     """Stable 31-bit bank identity: crc32 of the JAX ``keystr`` form of the
     parameter path (a tuple of dict keys), e.g.
     ``['segments']['main']['l0']['mixer']['wq']``."""
-    key = "".join(f"[{k!r}]" for k in path)
-    return zlib.crc32(key.encode()) & 0x7FFFFFFF
+    return zlib.crc32(keystr(path).encode()) & 0x7FFFFFFF
 
 
 def _eligible(path, leaf) -> bool:
@@ -180,6 +179,21 @@ def map_with_path(fn, tree, path=()):
     if isinstance(tree, dict):
         return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
     return fn(path, tree)
+
+
+def flatten_with_path(tree, path=()) -> list:
+    """``[(path, leaf), ...]`` of a nested-dict tree in JAX's
+    ``tree_flatten_with_path`` order: dict keys sorted at every level (the
+    port's ``map_with_path`` keeps insertion order)."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in flatten_with_path(tree[k], path + (k,))]
+    return [(path, tree)]
+
+
+def keystr(path) -> str:
+    """JAX's ``keystr`` of a dict-key path: ``['segments']['main']...``."""
+    return "".join(f"[{k!r}]" for k in path)
 
 
 def tree_leaves(tree) -> list:
@@ -212,6 +226,27 @@ MRR_TILE = 128   # physical crossbar tile edge (paper §2: 128x128 MRR array)
 def tiles_128(rows: int, cols: int) -> int:
     """128x128 MRR crossbar tiles one (rows, cols) matrix occupies."""
     return -(-rows // MRR_TILE) * -(-cols // MRR_TILE)
+
+
+def bank_descriptors(bank: Any, prefix: str = "") -> list[dict]:
+    """One descriptor per programmed tensor of a prepared bank, in the
+    reference's order and with its ``keystr`` paths: path, logical (rows,
+    cols) of one matrix slice, the stacked slice count (leading dims), the
+    128-tile occupancy and the tag.  ``resident/`` turns these into
+    ``BankSpec`` budget entries."""
+    out = []
+    for path, leaf in flatten_with_path(bank):
+        if not isinstance(leaf, PreparedTensor):
+            continue
+        k, n = int(leaf.wq.shape[-2]), int(leaf.wq.shape[-1])
+        stacked = 1
+        for d in leaf.wq.shape[:-2]:
+            stacked *= int(d)
+        out.append({"path": prefix + keystr(path), "rows": k, "cols": n,
+                    "stacked": stacked,
+                    "mrr_tiles_128": stacked * tiles_128(k, n),
+                    "tag": leaf.tag})
+    return out
 
 
 def prepared_stats(bank: Any) -> dict:

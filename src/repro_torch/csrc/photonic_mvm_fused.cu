@@ -40,6 +40,8 @@
 //   * the blocked output shuffle writes computed column n of block j to
 //     inv_perm[j] * block + n % block; the bias is read at that output
 //     position.
+// The main loop (both weight orientations, the dp4a product) and the
+// rescale live in `photonic_mvm_common.cuh`, shared with the split kernels.
 // Tensor cores (s8 `mma.sync` / `wgmma`), TMA and a pipelined shared-memory
 // ring are later work; this kernel is the simple, exact first version.
 
@@ -47,12 +49,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "photonic_mvm_common.cuh"
+
 namespace {
 
-constexpr int BN = 128;         // output columns per block
-constexpr int BK = 64;          // int8 reduction depth per shared-memory stage
-constexpr int BKW = BK / 4;     // 32-bit words per stage row
-constexpr int THREADS = 256;    // 16 x 16 threads; each owns TM x 8 outputs
+using pmvm::BK;
+using pmvm::BKW;
+using pmvm::BN;
+using pmvm::THREADS;
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2 };
 
@@ -83,7 +87,7 @@ __device__ __forceinline__ void epilogue(int32_t acc, int m, int n, int N,
                                          const T* __restrict__ bias,
                                          const int* __restrict__ inv_perm,
                                          int block, int act, T* __restrict__ out) {
-  float y = static_cast<float>(acc) * (sx * sw[n]) / 127.0f;
+  float y = pmvm::rescale(acc, sx, sw[n]);
   int o = n;
   if (inv_perm != nullptr) {
     int j = n / block;
@@ -113,28 +117,16 @@ mvm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
            int block, int act, int M, int K, int N, int k_per_split,
            int32_t* __restrict__ part, T* __restrict__ out) {
   constexpr int BM = 16 * TM;
-  __shared__ int32_t As[BM][BKW + 1];
-  __shared__ int32_t Bs[BN][BKW + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int k_begin = blockIdx.z * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
   const float sx = *sx_ptr;
   const float s_t = to_f<T>(from_f<T>(sx));
-  const bool vec = (reinterpret_cast<uintptr_t>(w) % 4 == 0) &&
-                   ((TRANS ? K : N) % 4 == 0);
 
-  int32_t acc[TM][8];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    // ---- prologue: quantize a BM x BK activation tile into int8 words
-    for (int idx = tid; idx < BM * BKW; idx += THREADS) {
+  // prologue: quantize a BM x BK activation tile into int8 words
+  auto load_a = [&](int32_t (*As)[BKW + 1], int k0, int kend) {
+    for (int idx = threadIdx.x; idx < BM * BKW; idx += THREADS) {
       const int r = idx / BKW, kw = idx % BKW;
       const int m = m0 + r, kb = k0 + kw * 4;
       uint32_t packed = 0;
@@ -142,69 +134,15 @@ mvm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
         const T* src = x + static_cast<size_t>(m) * K;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int q = (kb + i < k_end) ? quantize<T>(src[kb + i], s_t) : 0;
+          const int q = (kb + i < kend) ? quantize<T>(src[kb + i], s_t) : 0;
           packed |= static_cast<uint32_t>(q & 0xff) << (8 * i);
         }
       }
       As[r][kw] = static_cast<int32_t>(packed);
     }
-    // ---- weight tile, stored as Bs[n][k/4] in either orientation
-    if (TRANS) {
-      for (int idx = tid; idx < BN * BKW; idx += THREADS) {
-        const int c = idx / BKW, kw = idx % BKW;
-        const int n = n0 + c, kb = k0 + kw * 4;
-        uint32_t packed = 0;
-        if (n < N) {
-          const int8_t* src = w + static_cast<size_t>(n) * K + kb;
-          if (vec && kb + 4 <= k_end) {
-            packed = *reinterpret_cast<const uint32_t*>(src);
-          } else {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (kb + i < k_end)
-                packed |= static_cast<uint32_t>(static_cast<uint8_t>(src[i])) << (8 * i);
-          }
-        }
-        Bs[c][kw] = static_cast<int32_t>(packed);
-      }
-    } else {
-      uint8_t* bs8 = reinterpret_cast<uint8_t*>(&Bs[0][0]);
-      for (int idx = tid; idx < BK * (BN / 4); idx += THREADS) {
-        const int kr = idx / (BN / 4), c4 = idx % (BN / 4);
-        const int k = k0 + kr, n = n0 + c4 * 4;
-        uint32_t v4 = 0;
-        if (k < k_end) {
-          const int8_t* src = w + static_cast<size_t>(k) * N + n;
-          if (vec && n + 4 <= N) {
-            v4 = *reinterpret_cast<const uint32_t*>(src);
-          } else {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (n + i < N)
-                v4 |= static_cast<uint32_t>(static_cast<uint8_t>(src[i])) << (8 * i);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          bs8[(c4 * 4 + i) * (BKW + 1) * 4 + kr] = static_cast<uint8_t>(v4 >> (8 * i));
-      }
-    }
-    __syncthreads();
-    // ---- exact integer product: 4 int8 MACs per __dp4a
-#pragma unroll
-    for (int kw = 0; kw < BKW; ++kw) {
-      int32_t a[TM], b[8];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[ty + 16 * i][kw];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[tx + 16 * j][kw];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  };
+  int32_t acc[TM][8];
+  pmvm::mainloop<TRANS, TM>(load_a, w, n0, k_begin, k_end, K, N, acc);
 
   const bool split = gridDim.z > 1;
 #pragma unroll

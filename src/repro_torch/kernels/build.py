@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds.  Libraries are keyed by a hash of the
-source and flags and written to ``build/kernels/`` at the repository root
-(listed in ``.gitignore``; ``REPRO_TORCH_BUILD_DIR`` overrides it).  Nothing
+source, the ``csrc/`` headers it includes and the flags, and written to
+``build/kernels/`` at the repository root (listed in ``.gitignore``;
+``REPRO_TORCH_BUILD_DIR`` overrides it).  Nothing
 is built at import time: a kernel is built on its first launch, or by
 :func:`build` ahead of time, which starts one ``nvcc`` per source at once.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -20,6 +22,8 @@ from pathlib import Path
 
 SOURCES = {
     "photonic_mvm_fused": "photonic_mvm_fused.cu",
+    "photonic_mvm_split": "photonic_mvm_split.cu",
+    "blend_shuffle": "blend_shuffle.cu",
     "flash_attention": "flash_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,10 +58,31 @@ def find_nvcc() -> str:
         "the CUDA toolkit (the CPU path needs none)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """The ``.cu`` file of kernel ``name`` and every ``csrc/`` header it
+    includes, directly or through another header (``#include "..."``)."""
+    todo, seen = [csrc_dir() / SOURCES[name]], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (csrc_dir() / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"{name}-{digest[:16]}.so"
+    """Library of kernel ``name``, keyed by its source, the headers it
+    includes and the flags: editing a shared header rebuilds every kernel
+    that includes it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict:

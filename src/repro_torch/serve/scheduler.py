@@ -10,8 +10,14 @@ admission policy, the prefill bucket padding, the chunk tail padding and
 the idle/staging slots riding the decode batch with ``pad_id`` at position
 0 all follow the reference exactly.
 
-Left out for later slices: telemetry, bank residency, calibration, the
-mesh, and the ``WaveBatcher``.
+Bank residency (``residency=``, a ``resident.ProgramResidency``) and the
+calibration loop (``calibration=``, a ``serve.calibration.CalibrationLoop``)
+hook in as in the reference: every prefill and decode step looks each bank
+up once, and a calibration sweep follows the residency hook of a decode
+step.  Where the reference binds a meter through its telemetry
+(``telemetry.meter``), the caller binds it with
+``ProgramResidency.bind_meter``.  Left out for later slices: telemetry,
+the mesh, and the ``WaveBatcher``.
 """
 from __future__ import annotations
 
@@ -98,7 +104,8 @@ class ContinuousScheduler:
                  temperature: float = 0.0, seed: int = 0,
                  prefill_bucket: int = 16,
                  prefill_chunk: Optional[int] = None,
-                 admission: Optional[ReuseAwareAdmission] = None):
+                 admission: Optional[ReuseAwareAdmission] = None,
+                 residency=None, calibration=None):
         if not isinstance(program, api.Program):
             raise TypeError("ContinuousScheduler serves a built Program")
         self.program = program
@@ -107,6 +114,17 @@ class ContinuousScheduler:
         self.pad_id = pad_id
         self.temperature = temperature
         self.prefill_bucket = max(1, prefill_bucket)
+        # global bank residency: resident hits are free passes, misses and
+        # evictions are priced writes.  Accounting only: served tokens are
+        # identical with it on or off
+        self.residency = residency
+        # drift detection & repair: its on_step runs after the residency
+        # hook of each decode step, at the ages that step's accesses made
+        self.calibration = calibration
+        if admission is None and residency is not None:
+            from repro_torch.resident.cosched import ResidencyAwareAdmission
+            admission = ResidencyAwareAdmission.from_base(
+                ReuseAwareAdmission.build(cfg), residency)
         self.admission = admission or ReuseAwareAdmission.build(cfg)
         self.pool = SlotPool(cfg, capacity, max_len, device=program.device)
         # every mixer of the ported family is attention: right padding is
@@ -184,6 +202,8 @@ class ContinuousScheduler:
                           prompt=np.asarray(req.prompt, np.int32),
                           padded_to=bucket)
         slot = self.pool.allocate(state)
+        if self.residency is not None:
+            self.residency.on_prefill(bucket)
         toks = np.full((1, bucket), self.pad_id, np.int32)
         toks[0, :plen] = req.prompt
         logits, caches = self.program.prefill({"tokens": toks}, bucket,
@@ -206,6 +226,8 @@ class ContinuousScheduler:
                           prompt=np.asarray(req.prompt, np.int32),
                           padded_to=padded)
         slot = self.pool.allocate(state)
+        if self.residency is not None:
+            self.residency.on_prefill(padded)
         toks = np.full((1, padded), self.pad_id, np.int32)
         toks[0, :plen] = req.prompt
         self._prefilling[slot] = {
@@ -263,6 +285,10 @@ class ContinuousScheduler:
         # write is dead data and they commit no tokens
         active = [s for s in self.pool.active_slots()
                   if s not in self._prefilling]
+        if self.residency is not None:
+            self.residency.on_decode_step(self.pool.capacity)
+        if self.calibration is not None:
+            self.calibration.on_step()
         nxt, self.pool.caches = self.program.decode_sample(
             self._cur, self.pool.caches, self.pool.position_vector(),
             generator=self.generator, temperature=self.temperature)

@@ -37,6 +37,24 @@ def test_no_jax_or_reference_imports_in_the_port():
     assert bad == []
 
 
+# the fault-model slice's copies and ports of pure-Python reference modules
+SLICE2_MODULES = ["core/aging.py", "core/noise.py", "resident/__init__.py",
+                  "resident/manager.py", "resident/mapping.py",
+                  "resident/cosched.py", "obs/__init__.py", "obs/metrics.py",
+                  "obs/meter.py", "serve/calibration.py", "drift_bench.py",
+                  "kernels/blend.py"]
+
+
+@pytest.mark.parametrize("module", SLICE2_MODULES)
+def test_fault_model_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    # every import statement, function-level (lazy) ones included
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert bad == []
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)

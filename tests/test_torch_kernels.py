@@ -260,7 +260,30 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert lib.parent == tmp_path / "k"
     assert lib.name.startswith("flash_attention-") and lib.suffix == ".so"
     assert t_build.library_path("flash_attention") == lib
-    assert sorted(t_build.SOURCES) == ["flash_attention",
-                                       "photonic_mvm_fused"]
+    assert sorted(t_build.SOURCES) == ["blend_shuffle", "flash_attention",
+                                       "photonic_mvm_fused",
+                                       "photonic_mvm_split"]
     for src in t_build.SOURCES.values():
         assert (t_build.csrc_dir() / src).is_file()
+
+
+def test_library_path_hashes_the_headers_a_source_includes(monkeypatch,
+                                                           tmp_path):
+    """Editing a ``csrc/`` header shared by two kernels rebuilds both, and
+    no other kernel: the library name hashes the ``.cu`` file and every
+    header it includes, directly or through another header."""
+    import shutil
+    src = tmp_path / "csrc"
+    shutil.copytree(t_build.csrc_dir(), src)
+    monkeypatch.setattr(t_build, "csrc_dir", lambda: src)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "k"))
+    names = [p.name for p in t_build.source_files("photonic_mvm_split")]
+    assert names == ["photonic_mvm_split.cu", "photonic_mvm_common.cuh"]
+    assert [p.name for p in t_build.source_files("blend_shuffle")] == \
+        ["blend_shuffle.cu"]
+    before = {n: t_build.library_path(n) for n in t_build.SOURCES}
+    header = src / "photonic_mvm_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: t_build.library_path(n) for n in t_build.SOURCES}
+    changed = sorted(n for n in before if before[n] != after[n])
+    assert changed == ["photonic_mvm_fused", "photonic_mvm_split"]
