@@ -7,14 +7,15 @@ Phases (each prints one JSON object per line; any failed check raises and
 the script exits non-zero without printing the final ``ok`` line):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
-   all four CUDA sources compile from this checkout, in parallel;
+   all five CUDA sources compile from this checkout, in parallel;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it, with its median time (CUDA events,
    L2 flushed before each launch), the plain version's time, a PyTorch
    library call computing the same function as a yardstick (never used by
    the port) and the card's lower bound for the work: the fused MVM and
    flash attention (slice 1), the split MVMs in both orientations and the
-   blend (slice 2);
+   blend (slice 2), the reuse-resident MVM (slice 3, also held bit for
+   bit to T launches of the split MVM);
 3. the fused serving path: minitron-4b with its R&B plan (8 physical
    blocks x 4 reuses) at full width, photonic, bf16, seeded random weights,
    through ``Program.generate`` and a ``ContinuousScheduler`` with chunked
@@ -29,12 +30,23 @@ the script exits non-zero without printing the final ``ok`` line):
 3c. a small float32 model on the card: fused vs split logits with noise
    off, the drift bench's gates, and crosstalk-only noise on the card
    against the CPU plain path;
+3d. the MoE path: granite-moe-1b-a400m with its R&B plan (6 x 4) and
+   blended experts (``num_basic_experts=8``) at full width and depth,
+   photonic, bf16, seeded random weights, through ``Program.generate`` and
+   a ``ContinuousScheduler`` with chunked prefill; launch counts zeroed
+   just before and read just after, the resident count held to 480 per
+   forward pass;
+3e. the granite smoke model (float32, blended experts, an R&B stack with a
+   transposed reuse) on the card against the CPU plain path;
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
 versions keep the reference's fp32 offset decomposition, so they agree up
 to that rounding: rel-L2 <= 2**-8 (bf16 outputs of the fused kernel, fp32
-of the split ones).  Flash attention reorders fp32 softmax sums: rel-L2 <=
+of the split ones).  The resident MVM, like the split one, is
+float32 out: rel-L2 <= 2**-8 against its plain version, and each stream
+equal bit for bit to the split kernel's output (one integer product, one
+rescale expression).  Flash attention reorders fp32 softmax sums: rel-L2 <=
 2**-8.  The blend is a gather plus the same epilogue: exact without an
 activation, rel-L2 <= 2**-8 with silu (the card's exp may differ from the
 plain version's in the last bit).  Model-level checks use the repository's
@@ -311,6 +323,8 @@ def profile_generate(torch, prog, prompt):
             group = "photonic_mvm_fused"
         elif "::split_kernel" in name or "::split_reduce_kernel" in name:
             group = "photonic_mvm_split"
+        elif "resident_kernel" in name:
+            group = "photonic_mvm_resident"
         elif "blend_kernel" in name:
             group = "blend_shuffle"
         elif "flash_kernel" in name:
@@ -591,11 +605,13 @@ WRITES_PER_ACCESS = 2e4     # drift stress per serving access: the first
 def kernel_counts(pm, fa, blend) -> dict:
     return {"photonic_mvm_fused": pm.launches, "photonic_mvm": pm.launches_mvm,
             "photonic_mvm_t": pm.launches_mvm_t,
+            "photonic_mvm_resident": pm.launches_resident,
             "blend_shuffle": blend.launches, "flash_attention": fa.launches}
 
 
 def reset_counts(pm, fa, blend) -> None:
     pm.launches = pm.launches_mvm = pm.launches_mvm_t = 0
+    pm.launches_resident = 0
     fa.launches = blend.launches = 0
 
 
@@ -759,6 +775,203 @@ def small_model_fault_checks(torch):
 
 
 # -------------------------------------------------------------------------
+# phase 2, slice 3: the reuse-resident MVM
+# -------------------------------------------------------------------------
+def resident_cases():
+    """(label, T, M, K, N): granite-moe-1b-a400m's blended expert banks
+    (d 1024, d_ff_expert 512) with T = E / R_e = 4 streams per bank:
+    gate/up 1024->512 and down 512->1024 at M = G * C rows per stream —
+    8 in a capacity-4 decode step, 160 in a 512-token chunk, 640 in a
+    2048-row prefill."""
+    return [(f"T=4 M={M} {K}->{N}", 4, M, K, N)
+            for M in (8, 160, 640) for K, N in ((1024, 512), (512, 1024))]
+
+
+def check_resident(torch, timer, pm, photonic):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for label, T, M, K, N in resident_cases():
+        x = torch.randn((T, M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        xq, xs = photonic.quantize_symmetric(x, 8, axis=(1, 2))
+        xs = xs.reshape(T)
+        wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        ws = torch.rand((N,), generator=gen, device="cuda") * 0.05 + 0.01
+        got = pm.photonic_mvm_resident(xq, wq, xs, ws)
+        want = pm.photonic_mvm_resident_plain(xq, wq, xs, ws)
+        split = [pm.photonic_mvm(xq[t], wq, xs[t], ws) for t in range(T)]
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        max_abs = float((got - want).abs().max())
+        if not (err <= MVM_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"photonic_mvm_resident {label}: rel-L2 "
+                                 f"{err} > {MVM_TOL}")
+        if not all(torch.equal(got[t], split[t]) for t in range(T)):
+            raise AssertionError(f"photonic_mvm_resident {label}: a stream "
+                                 f"differs from the split kernel's output")
+        ms = timer.ms(lambda: pm.photonic_mvm_resident(xq, wq, xs, ws), 20)
+        plain_ms = timer.ms(
+            lambda: pm.photonic_mvm_resident_plain(xq, wq, xs, ws), 10)
+        split_ms = timer.ms(lambda: [pm.photonic_mvm(xq[t], wq, xs[t], ws)
+                                     for t in range(T)], 20)
+        lib_ms = int_mm_ms(torch, timer, xq.reshape(T * M, K), wq, False, 20)
+        nbytes = T * M * K + K * N + 4 * T + 4 * N + 4 * T * M * N
+        ops_n = 2.0 * T * M * K * N
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = ops_n / INT8_TOPS * 1e3
+        row = {"case": label, "kernel": "photonic_mvm_resident",
+               "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "torch._int_mm on the stacked (T*M, K) int8 rows "
+                          "(product only; rows padded to >= 32)",
+               "t_split_ms": split_ms, "streams_equal_split": True,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops_n}
+        emit(row)
+        rows.append(row)
+        del got, want, split, x, xq, wq
+    return rows
+
+
+# -------------------------------------------------------------------------
+# phase 3d: the MoE path (blended experts)
+# -------------------------------------------------------------------------
+def moe_resident_per_pass(cfg) -> int:
+    """Resident launches one forward pass makes: each non-transposed MoE
+    layer runs its gate, up and down banks through ``reuse_dot`` once per
+    basic expert, each transposed layer only its up bank."""
+    from repro_torch.models import transformer as tfm
+    nb = cfg.moe.num_basic_experts
+    n = 0
+    for spec in tfm.build_segments(cfg):
+        shared = tfm.shareds_for(cfg)[spec.name]
+        moe_layers = sum(k == "moe" for k in spec.ffn_kinds)
+        for t in range(shared.reuse_times):
+            banks = 1 if shared.transpose_flags[t] else 3
+            n += shared.num_physical * moe_layers * banks * nb
+    return n
+
+
+def serve_moe(torch, pm, fa, blend, gpu):
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    cfg = get_arch("granite-moe-1b-a400m", reuse=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_basic_experts=8))
+    per_pass = moe_resident_per_pass(cfg)
+    if per_pass != 480:
+        raise AssertionError(f"resident launches per pass {per_pass} != 480")
+    t0 = time.perf_counter()
+    params = tfm.init_model(cfg, seed=0)
+    prog = api.Program.build(cfg, params, execution="photonic")
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stats = prog.bank_stats()
+    rng = np.random.default_rng(2)
+    V = cfg.vocab_size
+
+    lens = (40, 300, 512, 1300)
+    sched = ContinuousScheduler(prog, capacity=4, max_len=2048,
+                                prefill_chunk=512)
+    for rid, n in enumerate(lens):
+        sched.submit(Request(rid=rid, prompt=rng.integers(0, V, n),
+                             max_new=16))
+    prompts = rng.integers(0, V, (2, 600))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts(pm, fa, blend)
+    t0 = time.perf_counter()
+    out = prog.generate(prompts, 8)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    done = sched.drain()
+    torch.cuda.synchronize()
+    sched_s = time.perf_counter() - t0 - gen_s
+    launches = kernel_counts(pm, fa, blend)
+
+    if tuple(out.shape) != (2, 608) or not bool(
+            (out[:, :600].cpu() == torch.as_tensor(prompts)).all()):
+        raise AssertionError(f"generate returned {tuple(out.shape)}")
+    got = sorted((c.rid, len(c.tokens), c.finish_reason) for c in done)
+    want = [(rid, n + 16, "length") for rid, n in enumerate(lens)]
+    if got != want:
+        raise AssertionError(f"completions {got} != {want}")
+    # generate: one prefill + 7 decode steps; the scheduler: monolithic
+    # prefills (prompts up to the chunk width), chunks and decode steps
+    passes = (8 + sum(n <= 512 for n in lens)
+              + sched.stats.prefill_chunks + sched.stats.decode_steps)
+    if launches["photonic_mvm_resident"] != per_pass * passes:
+        raise AssertionError(f"resident launches {launches} != {per_pass} x "
+                             f"{passes} forward passes")
+    if launches["photonic_mvm_fused"] <= 0 or launches["flash_attention"] <= 0:
+        raise AssertionError(f"kernels not on the MoE path: {launches}")
+    logits, _ = prog.prefill({"tokens": prompts[:1]}, 608)
+    if not (logits.shape[-1] == cfg.padded_vocab
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError("non-finite MoE prefill logits")
+    emit({"phase": "serve_moe", "gpu": gpu, "arch": cfg.name,
+          "R": cfg.reuse.num_basic, "T": cfg.reuse.reuse_times,
+          "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+          "num_basic_experts": cfg.moe.num_basic_experts,
+          "d_model": cfg.d_model, "d_ff_expert": cfg.moe.d_ff_expert,
+          "padded_vocab": cfg.padded_vocab, "dtype": cfg.compute_dtype,
+          "build_s": build_s, "bank_int8_bytes": stats["int8_bytes"],
+          "bank_fp_bytes": stats["fp_bytes"],
+          "verify_banks": prog.verify_banks(),
+          "generate_s": gen_s, "generate_tokens_per_s": 2 * 8 / gen_s,
+          "scheduler_s": sched_s,
+          "scheduler_tokens_per_s": 16 * len(lens) / sched_s,
+          "scheduler_prompt_tokens": sum(lens),
+          "scheduler_decode_steps": sched.stats.decode_steps,
+          "scheduler_prefill_chunks": sched.stats.prefill_chunks,
+          "forward_passes": passes, "resident_per_pass": per_pass,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches})
+    emit(profile_generate(torch, prog, prompts[:1]))
+    emit(decode_step_costs(torch, prog))
+    return launches
+
+
+def small_moe_check(torch):
+    """The granite smoke model (float32, 4 experts blended from 2 basic
+    ones, R=2 x T=2 with a transposed reuse) on the card against the CPU
+    plain path on the same weights: the logits gap (reported; the kernels'
+    exact int32 products and the plain fp32 decomposition may round an A8
+    boundary differently) and the greedy tokens (required equal)."""
+    from repro_torch import api
+    from repro_torch.configs import smoke_variant
+    from repro_torch.core.prm import ReuseConfig
+    from repro_torch.models import transformer as tfm
+
+    cfg = smoke_variant("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, num_basic_experts=2),
+        reuse=ReuseConfig(num_basic=2, reuse_times=2,
+                          transforms=("identity", "transpose"),
+                          shuffle_groups=8))
+    params = tfm.init_model(cfg, seed=4, device="cpu")
+    gpu = api.Program.build(cfg, params, execution="photonic")
+    cpu = api.Program.build(cfg, params, execution="photonic", device="cpu")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12))
+    lg, _ = gpu.prefill({"tokens": toks}, 20)
+    lc, _ = cpu.prefill({"tokens": toks}, 20)
+    err = rel_l2(lg.cpu(), lc)
+    same = bool((gpu.generate(toks, 8).cpu() == cpu.generate(toks, 8)).all())
+    out = {"phase": "small_moe", "arch": cfg.name, "dtype": cfg.compute_dtype,
+           "gpu_vs_cpu_rel_l2": err, "greedy_tokens_equal": same}
+    emit(out)
+    if not (err <= W8A8_BOUND and same and torch.isfinite(lg).all()):
+        raise AssertionError(f"small MoE model GPU vs CPU: {out}")
+
+
+# -------------------------------------------------------------------------
 def summary(name, rows, launches, at, source, replaces):
     """One kernel's entry: errors are maxima over every case (``worst_at``
     names the case of the largest rel-L2); times are those of case ``at``."""
@@ -804,6 +1017,7 @@ def main() -> int:
     flash_rows = check_flash(torch, timer, fa)
     split_rows = check_split(torch, timer, pm, photonic, ops)
     blend_rows = check_blend(torch, timer, blend)
+    resident_rows = check_resident(torch, timer, pm, photonic)
     del timer
     torch.cuda.empty_cache()
     # each path's launches are counted in its own window
@@ -815,6 +1029,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     small_model_fault_checks(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_path = serve_moe(torch, pm, fa, blend, smi)
+    small_moe_check(torch)
 
     split = "src/repro_torch/csrc/photonic_mvm_split.cu"
     emit({"kernels": [
@@ -838,7 +1056,11 @@ def main() -> int:
         summary("blend_shuffle", blend_rows, fault_path["blend_shuffle"],
                 "M=4 C=3072 block=128 none",
                 "src/repro_torch/csrc/blend_shuffle.cu",
-                "src/repro/kernels/blend.py:33")]})
+                "src/repro/kernels/blend.py:33"),
+        summary("photonic_mvm_resident", resident_rows,
+                moe_path["photonic_mvm_resident"], "T=4 M=8 1024->512",
+                "src/repro_torch/csrc/photonic_mvm_resident.cu",
+                "src/repro/kernels/photonic_mvm.py:231")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,9 +1,10 @@
 """Execution backends — the seam between the model stack and the compute
 substrate (partial port of ``repro.core.backend``).
 
-Every weight matmul in ``models/*`` goes through ``Backend.dot``; the OBU
-activation shuffle in ``core/sharing.py`` goes through ``Backend.shuffle``;
-sequence attention goes through ``Backend.attention``.
+Every weight matmul in ``models/*`` goes through ``Backend.dot``; the
+PRM-blended MoE experts' stacked streams go through ``Backend.reuse_dot``;
+the OBU activation shuffle in ``core/sharing.py`` goes through
+``Backend.shuffle``; sequence attention goes through ``Backend.attention``.
 
   * ``"xla"`` (name kept from the reference) — plain torch matmuls with
     float32 accumulation (``obu.blend_dot``) and the einsum attention.
@@ -20,12 +21,16 @@ sequence attention goes through ``Backend.attention``.
       - an enabled ``noise`` (``core/noise.NoiseConfig``) reroutes every
         matmul through the split pipeline with the fault model applied to
         the raw MVM output, keyed by the bank's tag.
-    Blocked OBU shuffles run the blend kernel; long-sequence attention runs
-    the flash kernel (``kernels/flash_attention.py``).
+    ``reuse_dot`` streams T activation sets through one programmed bank
+    in the reuse-resident kernel (``photonic_mvm_resident``), on every
+    photonic configuration; with an enabled fault model, one perturbation
+    keyed by the bank's tag covers all T streams.  Blocked OBU shuffles
+    run the blend kernel; long-sequence attention runs the flash kernel
+    (``kernels/flash_attention.py``).
 
-Left out for later slices: the mesh/sharded branches, ``reuse_dot``
-(PRM-blended MoE experts) and the TPU tile plans (``bm/bk/bn``,
-``adaptive``: the CUDA kernels pick their own tiles).
+Left out for later slices: the mesh/sharded branches (``_reuse_dot_sharded``
+among them) and the TPU tile plans (``bm/bk/bn``, ``adaptive``: the CUDA
+kernels pick their own tiles).
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import noise as noise_lib
 from repro_torch.core import obu
 from repro_torch.core.prepared import (PreparedTensor, quantize_weight,
                                        quantize_weight_t)
@@ -193,6 +199,39 @@ class Backend:
               else ops.photonic_matmul_prepared)
         return _epilogue_unfused(mm(x, wq, wscale), bias, block_perm, block,
                                  activation)
+
+    def reuse_dot(self, x_stack, w):
+        """T independent activation streams through ONE weight: x_stack
+        (T, ..., k) @ w (k, n).  Photonic: the weight is programmed once
+        and all T streams pass through the resident bank tile."""
+        if isinstance(w, PreparedTensor):
+            return self.reuse_dot_prepared(x_stack, w)
+        if not self.is_photonic:
+            return obu.blend_dot(x_stack, w, transpose=False)
+        y = ops.reuse_resident_matmul(x_stack, w)
+        return self._perturb_reuse(y, bank_tag=None)
+
+    def reuse_dot_prepared(self, x_stack, prep: PreparedTensor):
+        """Reuse-resident matmul against a programmed bank (neither the
+        weight fetch nor its quantization repeats across the T streams).
+        xla pointed at a bank dequantizes its W8 image, as ``dot_prepared``
+        does."""
+        if not self.is_photonic:
+            w = (prep.wq.to(torch.float32)
+                 * (prep.scale / 127.0)[..., None, :]).to(x_stack.dtype)
+            return obu.blend_dot(x_stack, w, transpose=False)
+        y = ops.reuse_resident_matmul_prepared(x_stack, prep.wq, prep.scale)
+        return self._perturb_reuse(y, bank_tag=prep.tag)
+
+    def _perturb_reuse(self, y, *, bank_tag):
+        """Fault-model hook of the reuse-resident paths: one programmed bank
+        serves all T streams, so one perturbation pattern (keyed by the
+        bank tag) applies across the whole stack — every stream passes the
+        same drifted rings.  No-op when noise is disabled."""
+        if not self.noise_active:
+            return y
+        return noise_lib.perturb_mvm_output(y, self.noise, tag=bank_tag,
+                                            transpose=False)
 
     # -------------------------------------------------------------- shuffle
     def shuffle(self, h, perm, block_perm=None, block: int = 0):

@@ -12,7 +12,9 @@
 //
 // The TIA rescale `rescale` is the one place the integer product becomes a
 // float: both kernels use it, so the split pipeline's float32 output cast to
-// the activation dtype equals the fused kernel's output bit for bit.
+// the activation dtype equals the fused kernel's output bit for bit.  The
+// reuse-resident kernel (`photonic_mvm_resident.cu`) has its own schedule
+// but the same rescale, so each of its streams equals the split output.
 
 #pragma once
 

@@ -23,6 +23,7 @@ from pathlib import Path
 SOURCES = {
     "photonic_mvm_fused": "photonic_mvm_fused.cu",
     "photonic_mvm_split": "photonic_mvm_split.cu",
+    "photonic_mvm_resident": "photonic_mvm_resident.cu",
     "blend_shuffle": "blend_shuffle.cu",
     "flash_attention": "flash_attention.cu",
 }

@@ -3,15 +3,17 @@
 
 The shape plumbing lives here so callers stay tensor-shaped: the A8 scale
 pre-pass and row flattening of the fused MVM, the A8 quantization pass of
-the split MVMs, the row flattening of the blend, and the head flattening
-of flash attention.  The kernels themselves are built and loaded by
-``kernels/build.py`` (re-exported here as :func:`build_kernels`, which
-starts one ``nvcc`` per source, all at once).
+the split MVMs, the per-stream A8 pass of the reuse-resident MVM, the row
+flattening of the blend, and the head flattening of flash attention.
+The kernels themselves are built and loaded by ``kernels/build.py``
+(re-exported here as :func:`build_kernels`, which starts one ``nvcc`` per
+source, all at once).
 """
 from __future__ import annotations
 
 from repro_torch.core import noise as noise_lib
 from repro_torch.core.photonic import a8_scale, quantize_symmetric
+from repro_torch.core.prepared import quantize_weight
 from repro_torch.kernels import blend as _blend
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import photonic_mvm as _pm
@@ -42,6 +44,32 @@ def photonic_matmul_prepared_t(x, wq, wscale):
     y = _pm.photonic_mvm_t(xq.reshape(-1, x.shape[-1]), wq, xscale,
                            wscale.reshape(-1))
     return y.reshape(*lead, wq.shape[0]).to(x.dtype)
+
+
+def reuse_resident_matmul(x_stack, w):
+    """W8A8 matmul of T independent activation streams against ONE fp
+    weight w (k, n): the weight is quantized (programmed) once and all T
+    streams pass through it.  Returns (T, ..., n)."""
+    wq, wscale = quantize_weight(w)
+    return reuse_resident_matmul_prepared(x_stack, wq, wscale)
+
+
+def reuse_resident_matmul_prepared(x_stack, wq, wscale):
+    """Reuse-resident MVM against a programmed bank: x_stack (T, ..., k)
+    — e.g. the token buffers of the T logical experts blended from one
+    basic expert — through wq int8 (k, n) with wscale f32 (n,).  Each
+    stream gets its own A8 scale (abs-max and divide in x's dtype, as in
+    the reference); the kernel's float32 output is cast to x's dtype.  The
+    reference's TPU row-tile clamp (``bm_eff``) has no counterpart: the
+    CUDA kernel picks its own row blocks."""
+    T = x_stack.shape[0]
+    lead = x_stack.shape[1:-1]
+    K = x_stack.shape[-1]
+    xq, xscale = quantize_symmetric(x_stack.reshape(T, -1, K), 8,
+                                    axis=(1, 2))           # (T, 1, 1)
+    y = _pm.photonic_mvm_resident(xq.contiguous(), wq, xscale.reshape(T),
+                                  wscale.reshape(-1))
+    return y.reshape(T, *lead, wq.shape[1]).to(x_stack.dtype)
 
 
 def photonic_matmul_noisy(x, wq, wscale, *, noise, bank_tag=None,

@@ -9,7 +9,10 @@ Ports of ``repro.kernels.photonic_mvm``:
     OBU orientations): int8 activations and an A8 scale in, the float32
     MVM out (``csrc/photonic_mvm_split.cu``, one library, both
     orientations).  Quantization and the epilogue are separate passes
-    (``kernels/ops.py``, ``kernels/blend.py``).
+    (``kernels/ops.py``, ``kernels/blend.py``);
+  * ``photonic_mvm_resident`` (the PRM-blended MoE experts' MVM): T int8
+    activation streams, each with its own A8 scale, through ONE programmed
+    (K, N) bank held in shared memory (``csrc/photonic_mvm_resident.cu``).
 
 Both versions compute the same function:
 
@@ -45,14 +48,18 @@ _ACT_CODE = {"none": 0, "relu": 1, "silu": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches on the CUDA path (the plain CPU path does not count):
-# photonic_mvm_fused, photonic_mvm and photonic_mvm_t
+# photonic_mvm_fused, photonic_mvm, photonic_mvm_t and photonic_mvm_resident
 launches = 0
 launches_mvm = 0
 launches_mvm_t = 0
+launches_resident = 0
 
 QMAX = 127.0          # W8A8: the kernel's int8 grid
 BN, BK = 128, 64      # kernel output-column tile and reduction stage
 _SMS_H100 = 132
+# the resident kernel holds the full-depth (K, 32) bank tile in shared
+# memory: K up to this fits (``RESIDENT_MAX_K`` in the CUDA source)
+RESIDENT_MAX_K = 4096
 
 
 def apply_activation(y: torch.Tensor, activation: str) -> torch.Tensor:
@@ -310,3 +317,86 @@ def photonic_mvm_t(xq, wq, x_scale, w_scale):
     out = _launch_split(xq, wq, x_scale.reshape(()), w_scale, True)
     launches_mvm_t += 1
     return out
+
+
+# -------------------------------------------------------------------------
+# reuse-resident: T streams through one programmed bank
+# -------------------------------------------------------------------------
+def photonic_mvm_resident_plain(xq, wq, x_scale, w_scale):
+    """Plain version of ``photonic_mvm_resident``: xq int8 (T, M, K), wq
+    int8 (K, N), x_scale float32 (T,) (one A8 scale per stream), w_scale
+    (N,); float32 (T, M, N), any device.  The reference kernel's float32
+    arithmetic (``_kernel_resident``): ``2 (q @ W' - sum(q)/2)``, then
+    times ``s_x[t]``, then times ``s_w``."""
+    xf = xq.to(torch.float32)
+    w_prime = wq.to(torch.float32) / (2.0 * QMAX) + 0.5
+    y = xf @ w_prime
+    y = 2.0 * (y - 0.5 * xf.sum(dim=2, keepdim=True))
+    return y * x_scale.reshape(-1, 1, 1) * w_scale.reshape(1, 1, -1)
+
+
+def _check_resident(xq, wq, x_scale, w_scale):
+    if xq.ndim != 3 or wq.ndim != 2:
+        raise ValueError(f"need xq (T, M, K) and wq (K, N), got "
+                         f"{tuple(xq.shape)} and {tuple(wq.shape)}")
+    T, M, K = xq.shape
+    K2, N = wq.shape
+    if K != K2:
+        raise ValueError(f"reduction dims differ: xq {tuple(xq.shape)}, "
+                         f"wq {tuple(wq.shape)}")
+    if K > RESIDENT_MAX_K:
+        raise ValueError(f"photonic_mvm_resident holds the full-depth bank "
+                         f"tile in shared memory: K = {K} exceeds its limit "
+                         f"RESIDENT_MAX_K = {RESIDENT_MAX_K}")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError(f"xq and wq must be int8, got {xq.dtype}/{wq.dtype}")
+    if tuple(x_scale.shape) != (T,) or x_scale.dtype != torch.float32:
+        raise ValueError(f"x_scale must be float32 ({T},), got "
+                         f"{x_scale.dtype} {tuple(x_scale.shape)}")
+    if tuple(w_scale.shape) != (N,) or w_scale.dtype != torch.float32:
+        raise ValueError(f"w_scale must be float32 ({N},), got "
+                         f"{w_scale.dtype} {tuple(w_scale.shape)}")
+    return T, M, K, N
+
+
+@functools.lru_cache(maxsize=1)
+def _resident_library():
+    lib = _build.load("photonic_mvm_resident")
+    fn = lib.photonic_mvm_resident
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
+    fn.restype = i
+    return lib, fn
+
+
+def _launch_resident(xq, wq, x_scale, w_scale, T, M, K, N):
+    global launches_resident
+    for t in (xq, wq, x_scale, w_scale):
+        if t.device != xq.device:
+            raise ValueError("all operands must be on the same CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    out = torch.empty((T, M, N), dtype=torch.float32, device=xq.device)
+    lib, fn = _resident_library()
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    tm = 2 if T * M <= 64 else 8          # row blocks of 32 or 128
+    rc = fn(xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), T, M, K, N, tm, out.data_ptr(), stream)
+    _build.check(lib, "photonic_mvm_resident_error_string", rc,
+                 "photonic_mvm_resident")
+    launches_resident += 1
+    return out
+
+
+def photonic_mvm_resident(xq, wq, x_scale, w_scale):
+    """Reuse-resident MVM: T int8 activation streams ``xq`` (T, M, K), each
+    with its own A8 scale ``x_scale`` (T,), through ONE programmed bank
+    ``wq`` int8 (K, N) with per-column ``w_scale`` (N,).  Returns float32
+    (T, M, N); stream t equals ``photonic_mvm(xq[t], wq, x_scale[t],
+    w_scale)`` (bit for bit on the card).  K is limited to
+    ``RESIDENT_MAX_K`` (ValueError beyond it).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    T, M, K, N = _check_resident(xq, wq, x_scale, w_scale)
+    if xq.device.type == "cpu":
+        return photonic_mvm_resident_plain(xq, wq, x_scale, w_scale)
+    return _launch_resident(xq, wq, x_scale, w_scale, T, M, K, N)

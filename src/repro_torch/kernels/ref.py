@@ -26,6 +26,15 @@ def photonic_mvm_t_ref(xq, wq, x_scale, w_scale, qmax=127.0):
     return xf @ wf.T
 
 
+def photonic_mvm_resident_ref(xq, wq, x_scales, w_scale, qmax=127.0):
+    """Per-stream ``photonic_mvm_ref``, stacked: xq (T,M,K) with one A8
+    scale per stream — residency is a schedule property, not a numerics
+    one."""
+    return torch.stack([photonic_mvm_ref(xq[t], wq, x_scales[t], w_scale,
+                                         qmax=qmax)
+                        for t in range(xq.shape[0])])
+
+
 def photonic_mvm_fused_ref(x, wq, x_scale, w_scale, *, transpose=False,
                            bias=None, block_perm=None, block=0,
                            activation="none", qmax=127.0):

@@ -1,5 +1,5 @@
-"""Model assembly for the dense decoder family (port of the dense path of
-``repro.models.transformer``).
+"""Model assembly for the GQA decoder families, dense and MoE (port of
+the dense and MoE paths of ``repro.models.transformer``).
 
 A model is a list of segments; each segment is a homogeneous stack of
 groups run through the PRM runner (``core.sharing.run_stack``).  Params are
@@ -7,8 +7,11 @@ nested dicts with the reference's keys (``segments/main/l0/mixer/wq``) and
 a leading R axis on every segment leaf.  Caches are
 ``{segment: {"l0": {"k": (R, T, B, L, KV, hd), "v": ...}}}``.
 
-MoE, SSM, MLA, cross-attention and the encoder stream belong to later
-slices; :func:`check_ported` raises for them.
+An FFN is a SwiGLU MLP (``dense``; ``dense_first`` in the ``pre`` segment
+of a MoE stack with ``first_dense`` layers, at ``first_dense_d_ff``) or a
+mixture of experts (``moe``, ``models/moe.py``), whose load-balance loss
+adds to the forward's ``aux``.  SSM, MLA, cross-attention and the encoder
+stream belong to later slices; :func:`check_ported` raises for them.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from repro_torch.core.prm import ReuseConfig
 from repro_torch.core.sharing import SharedStack, run_stack
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, cast, embed,
                                        init_embedding, init_mlp, init_norm,
                                        init_unembed, unembed)
@@ -86,16 +90,18 @@ def build_segments(cfg: ModelConfig) -> tuple:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for model families this slice does not run yet: MoE, SSM,
-    hybrid, MLA, cross-attention, encoder-decoder and gelu/layer-norm
-    stacks belong to later slices."""
-    ok = (cfg.moe is None and cfg.mla is None and cfg.ssm is None
-          and cfg.family not in ("audio", "vlm", "ssm", "hybrid")
+    """Raise for model families the port does not run yet.  Ported: the
+    RMSNorm/SwiGLU GQA decoder, dense or MoE (``family`` dense or moe,
+    no MLA).  MLA, SSM, hybrid, cross-attention (VLM), encoder-decoder
+    (audio) and gelu/layer-norm stacks belong to later slices."""
+    ok = (cfg.mla is None and cfg.ssm is None
+          and cfg.family in ("dense", "moe")
           and cfg.mlp_act == "swiglu" and cfg.norm == "rms")
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense RMSNorm/SwiGLU decoder family is "
-            f"ported so far")
+            f"{cfg.name}: only the RMSNorm/SwiGLU GQA decoder, dense or MoE "
+            f"without MLA, is ported so far (family {cfg.family!r}, "
+            f"mla={cfg.mla is not None}, ssm={cfg.ssm is not None})")
 
 
 @functools.lru_cache(maxsize=64)
@@ -128,8 +134,15 @@ def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
     h = h + y
     if ffn_kind != "none":
         hn = apply_norm(p["norm2"], h, cfg.norm, cfg.norm_eps)
-        h = h + apply_mlp(p["ffn"], hn, act=cfg.mlp_act, transpose=transpose,
-                          backend=backend)
+        if ffn_kind == "moe":
+            y, moe_aux = moe_lib.apply_moe(p["ffn"], hn, cfg.moe,
+                                           transpose=transpose,
+                                           backend=backend)
+            aux = aux + moe_aux["load_balance"]
+        else:
+            y = apply_mlp(p["ffn"], hn, act=cfg.mlp_act,
+                          transpose=transpose, backend=backend)
+        h = h + y
     return h, new_cache, aux
 
 
@@ -152,6 +165,15 @@ def group_block_fn(cfg: ModelConfig, spec: SegmentSpec, mode, pos, backend):
 # =========================================================================
 # init
 # =========================================================================
+def _init_ffn(cfg: ModelConfig, kind: str, generator, device, lead):
+    if kind == "moe":
+        return moe_lib.init_moe(cfg.d_model, cfg.moe, generator, device,
+                                lead=lead)
+    d_ff = (cfg.moe.first_dense_d_ff if kind == "dense_first" and cfg.moe
+            else cfg.d_ff)
+    return init_mlp(cfg.d_model, d_ff, generator, device, lead=lead)
+
+
 def _init_group(cfg: ModelConfig, spec: SegmentSpec, R: int, generator,
                 device):
     p = {}
@@ -160,8 +182,8 @@ def _init_group(cfg: ModelConfig, spec: SegmentSpec, R: int, generator,
                  "mixer": attn.init_gqa(cfg, generator, device, lead=(R,))}
         if spec.ffn_kinds[i] != "none":
             layer["norm2"] = init_norm(cfg.d_model, device, lead=(R,))
-            layer["ffn"] = init_mlp(cfg.d_model, cfg.d_ff, generator, device,
-                                    lead=(R,))
+            layer["ffn"] = _init_ffn(cfg, spec.ffn_kinds[i], generator,
+                                     device, (R,))
         p[f"l{i}"] = layer
     return p
 
@@ -209,9 +231,9 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
     dtype = torch_dtype(cfg.compute_dtype)
     backend = backend_lib.resolve(execution if execution is not None
                                   else cfg)
-    aux = torch.zeros((), dtype=torch.float32)
     shareds = shareds_for(cfg)
     h = embed(params["embed"], batch["tokens"], dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for spec in build_segments(cfg):
         seg_cache = caches.get(spec.name) if caches is not None else None
         block = group_block_fn(cfg, spec, mode, pos, backend)

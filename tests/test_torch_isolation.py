@@ -55,6 +55,21 @@ def test_fault_model_modules_are_checked_and_standalone(module):
     assert bad == []
 
 
+# the MoE slice's new module and the modules it extended
+SLICE3_MODULES = ["models/moe.py", "models/transformer.py",
+                  "core/backend.py", "kernels/ops.py",
+                  "kernels/photonic_mvm.py", "kernels/ref.py"]
+
+
+@pytest.mark.parametrize("module", SLICE3_MODULES)
+def test_moe_slice_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert bad == []
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)

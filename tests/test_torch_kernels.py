@@ -262,6 +262,7 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert t_build.library_path("flash_attention") == lib
     assert sorted(t_build.SOURCES) == ["blend_shuffle", "flash_attention",
                                        "photonic_mvm_fused",
+                                       "photonic_mvm_resident",
                                        "photonic_mvm_split"]
     for src in t_build.SOURCES.values():
         assert (t_build.csrc_dir() / src).is_file()
@@ -269,8 +270,8 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 
 def test_library_path_hashes_the_headers_a_source_includes(monkeypatch,
                                                            tmp_path):
-    """Editing a ``csrc/`` header shared by two kernels rebuilds both, and
-    no other kernel: the library name hashes the ``.cu`` file and every
+    """Editing a ``csrc/`` header shared by three kernels rebuilds them,
+    and no other kernel: the library name hashes the ``.cu`` file and every
     header it includes, directly or through another header."""
     import shutil
     src = tmp_path / "csrc"
@@ -286,4 +287,5 @@ def test_library_path_hashes_the_headers_a_source_includes(monkeypatch,
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: t_build.library_path(n) for n in t_build.SOURCES}
     changed = sorted(n for n in before if before[n] != after[n])
-    assert changed == ["photonic_mvm_fused", "photonic_mvm_split"]
+    assert changed == ["photonic_mvm_fused", "photonic_mvm_resident",
+                       "photonic_mvm_split"]
