@@ -7,7 +7,7 @@ Phases (each prints one JSON object per line; any failed check raises and
 the script exits non-zero without printing the final ``ok`` line):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
-   all five CUDA sources compile from this checkout, in parallel;
+   all six CUDA sources compile from this checkout, in parallel;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it, with its median time (CUDA events,
    L2 flushed before each launch), the plain version's time, a PyTorch
@@ -15,7 +15,10 @@ the script exits non-zero without printing the final ``ok`` line):
    the port) and the card's lower bound for the work: the fused MVM and
    flash attention (slice 1), the split MVMs in both orientations and the
    blend (slice 2), the reuse-resident MVM (slice 3, also held bit for
-   bit to T launches of the split MVM);
+   bit to T launches of the split MVM), the intra-chunk SSD (slice 4, at
+   mamba2-780m's and a jamba-width chunk, with stride-0 and materialised
+   B/C, which must agree bit for bit, each at mamba2's decay spread and at
+   a slow decay under which every key tile and state row carries weight);
 3. the fused serving path: minitron-4b with its R&B plan (8 physical
    blocks x 4 reuses) at full width, photonic, bf16, seeded random weights,
    through ``Program.generate`` and a ``ContinuousScheduler`` with chunked
@@ -38,6 +41,15 @@ the script exits non-zero without printing the final ``ok`` line):
    forward pass;
 3e. the granite smoke model (float32, blended experts, an R&B stack with a
    transposed reuse) on the card against the CPU plain path;
+3f. the SSM path: mamba2-780m with its R&B plan (12 x 4) at full width and
+   depth, photonic, bf16, seeded random weights, through
+   ``Program.generate`` and a ``ContinuousScheduler`` whose exact-length
+   prefills must not chunk; launch counts zeroed just before and read just
+   after, ``ssd_chunk`` held to 48 launches per prefill pass and the fused
+   MVM to its per-pass counts;
+3g. the mamba2 smoke model (R&B, 2 x 2) and the jamba smoke model (SSM,
+   attention and MoE layers), float32, on the card against the CPU plain
+   path;
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
@@ -49,8 +61,11 @@ equal bit for bit to the split kernel's output (one integer product, one
 rescale expression).  Flash attention reorders fp32 softmax sums: rel-L2 <=
 2**-8.  The blend is a gather plus the same epilogue: exact without an
 activation, rel-L2 <= 2**-8 with silu (the card's exp may differ from the
-plain version's in the last bit).  Model-level checks use the repository's
-W8A8 bound, rel-L2 <= 0.055.
+plain version's in the last bit).  The SSD kernel sums its float32 products
+and its cumsum in another order than the plain version: rel-L2 <= 2**-8
+for y and the states (at the slow decay, a kernel that dropped a key tile
+or a block of state rows would miss it: ``tests/test_torch_ssd.py``).
+Model-level checks use the repository's W8A8 bound, rel-L2 <= 0.055.
 """
 from __future__ import annotations
 
@@ -70,7 +85,9 @@ MVM_TOL = 2.0 ** -8
 FLASH_TOL = 2.0 ** -8
 BLEND_TOL = 2.0 ** -8
 W8A8_BOUND = 0.055
+SSD_TOL = 2.0 ** -8
 INT8_TOPS = 1979e12
+FP32_FLOPS = 67e12          # H100 SXM, CUDA cores (no tensor cores)
 HBM_BYTES_S = 3.35e12
 
 
@@ -329,6 +346,8 @@ def profile_generate(torch, prog, prompt):
             group = "blend_shuffle"
         elif "flash_kernel" in name:
             group = "flash_attention"
+        elif "ssd_chunk_kernel" in name:
+            group = "ssd_chunk"
         else:
             group = "other torch kernels"
         groups[group] = groups.get(group, 0.0) + ev.self_device_time_total
@@ -603,16 +622,19 @@ WRITES_PER_ACCESS = 2e4     # drift stress per serving access: the first
 
 
 def kernel_counts(pm, fa, blend) -> dict:
+    from repro_torch.kernels import ssd
     return {"photonic_mvm_fused": pm.launches, "photonic_mvm": pm.launches_mvm,
             "photonic_mvm_t": pm.launches_mvm_t,
             "photonic_mvm_resident": pm.launches_resident,
-            "blend_shuffle": blend.launches, "flash_attention": fa.launches}
+            "blend_shuffle": blend.launches, "flash_attention": fa.launches,
+            "ssd_chunk": ssd.launches}
 
 
 def reset_counts(pm, fa, blend) -> None:
+    from repro_torch.kernels import ssd
     pm.launches = pm.launches_mvm = pm.launches_mvm_t = 0
     pm.launches_resident = 0
-    fa.launches = blend.launches = 0
+    fa.launches = blend.launches = ssd.launches = 0
 
 
 def serve_noisy(torch, pm, fa, blend, gpu):
@@ -972,6 +994,243 @@ def small_moe_check(torch):
 
 
 # -------------------------------------------------------------------------
+# phase 2, slice 4: the intra-chunk SSD
+# -------------------------------------------------------------------------
+def ssd_cases():
+    """(label, b, nc, H, N, stride0, decay): mamba2-780m's chunks (L 256, 48
+    heads of 64, d_state 128) for one prompt, for a batch of two prompts of
+    768 tokens and for one 2048-token prompt, each with B/C as the serving
+    path passes them (a stride-0 view over the heads: one group) and
+    materialised; plus a jamba-width chunk pair (128 heads of 64, d_state
+    16), where a tile sized for N 128 must still be right.  Each at two
+    decays (``ssd_inputs``): mamba2's spread, where only the diagonal and
+    the adjacent key tile and the last 64 state rows carry weight, and a
+    slow one, where every key tile and every state row does."""
+    cases = []
+    for decay in ("mamba2", "slow"):
+        for b, nc in ((1, 1), (2, 3), (1, 8)):
+            for s0 in (True, False):
+                cases.append((f"b={b} nc={nc} L=256 H=48 P=64 N=128 "
+                              f"{'stride-0' if s0 else 'materialised'} B/C"
+                              + ("" if decay == "mamba2" else " slow decay"),
+                              b, nc, 48, 128, s0, decay))
+        cases.append(("b=1 nc=2 L=256 H=128 P=64 N=16 stride-0 B/C"
+                      + ("" if decay == "mamba2" else " slow decay"),
+                      1, 2, 128, 16, True, decay))
+    return cases
+
+
+def ssd_inputs(torch, gen, b, nc, H, N, stride0, decay, L=256, P=64,
+               device="cuda"):
+    """dt-folded x, dA = dt * A and B/C shared by every head (stride 0) or
+    materialised; dt = softplus(N(0, 1)).  ``decay`` "mamba2": A =
+    -linspace(1, 16, H), the model's init, so |cumsum| reaches thousands in
+    a chunk and exp(cs_i - cs_j) is below e^-50 two key tiles back;
+    "slow": A = -linspace(1e-3, 4e-3, H), |dA| ~ 1e-2 per step or less, so
+    every key tile of a query row and every row of the state weighs in."""
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, nc, L, H), generator=gen, device=device))
+    lo, hi = (1.0, 16.0) if decay == "mamba2" else (1e-3, 4e-3)
+    A = -torch.linspace(lo, hi, H, device=device)
+    x = (torch.randn((b, nc, L, H, P), generator=gen, device=device)
+         * dt[..., None])
+    dA = (dt * A).permute(0, 1, 3, 2)
+    Bg = torch.randn((b, nc, L, 1, N), generator=gen, device=device)
+    Cg = torch.randn((b, nc, L, 1, N), generator=gen, device=device)
+    Bh, Ch = Bg.expand(b, nc, L, H, N), Cg.expand(b, nc, L, H, N)
+    if not stride0:
+        Bh, Ch = Bh.contiguous(), Ch.contiguous()
+    return x, dA, Bh, Ch
+
+
+def ssd_bound(b, nc, L, H, P, N, stride0):
+    """(bound ms, bound_by, bytes, flops): each input read once (a stride-0
+    B/C is one head's data), y and the states written once; the lower
+    triangle's products (the upper one is zero by definition) and the
+    state's, at the fp32 CUDA-core peak (the kernel's and the plain
+    version's type)."""
+    pairs = L * (L + 1) // 2
+    flops = 2.0 * b * nc * H * (pairs * (N + P) + L * N * P)
+    bc = 2 * b * nc * L * N * (1 if stride0 else H)
+    nbytes = 4 * (2 * b * nc * L * H * P + b * nc * H * L + bc
+                  + b * nc * H * N * P)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops)
+
+
+def check_ssd(torch, timer, ssd):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for label, b, nc, H, N, s0, decay in ssd_cases():
+        args = ssd_inputs(torch, gen, b, nc, H, N, s0, decay)
+        y, st = ssd.ssd_chunk(*args)
+        want_y, want_st = ssd.ssd_chunk_plain(*args)
+        x, dA, Bh, Ch = args
+        y2, st2 = ssd.ssd_chunk(x, dA, Bh.contiguous(), Ch.contiguous())
+        torch.cuda.synchronize()
+        err = max(rel_l2(y, want_y), rel_l2(st, want_st))
+        max_abs = max(float((y - want_y).abs().max()),
+                      float((st - want_st).abs().max()))
+        if not (err <= SSD_TOL and torch.isfinite(y).all()
+                and torch.isfinite(st).all()):
+            raise AssertionError(f"ssd_chunk {label}: rel-L2 {err} > "
+                                 f"{SSD_TOL}")
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            raise AssertionError(f"ssd_chunk {label}: stride-0 and "
+                                 f"materialised B/C differ")
+        ms = timer.ms(lambda: ssd.ssd_chunk(*args), 20)
+        plain_ms = timer.ms(lambda: ssd.ssd_chunk_plain(*args), 5)
+        bound, by, nbytes, flops = ssd_bound(b, nc, 256, H, 64, N, s0)
+        row = {"case": label, "kernel": "ssd_chunk", "decay": decay,
+               "rel_l2": err, "rel_l2_y": rel_l2(y, want_y),
+               "rel_l2_states": rel_l2(st, want_st), "max_abs_err": max_abs,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "library": "none: no single PyTorch call computes it (the "
+                          "plain version is the einsum/bmm chain)",
+               "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+               "ops": flops, "stride0_equals_materialised": True}
+        emit(row)
+        rows.append(row)
+        del args, y, st, want_y, want_st, y2, st2
+    return rows
+
+
+# -------------------------------------------------------------------------
+# phase 3f: the SSM path
+# -------------------------------------------------------------------------
+def serve_ssm(torch, pm, fa, blend, gpu):
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    cfg = get_arch("mamba2-780m", reuse=True)
+    layers = cfg.num_layers                 # logical SSM layers per pass
+    t0 = time.perf_counter()
+    params = tfm.init_model(cfg, seed=0)
+    prog = api.Program.build(cfg, params, execution="photonic")
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stats = prog.bank_stats()
+    rng = np.random.default_rng(5)
+    V = cfg.vocab_size
+    prompts = rng.integers(0, V, (2, 600))
+    lens = (40, 300, 512, 1300, 1900)
+    sched = ContinuousScheduler(prog, capacity=4, max_len=2048,
+                                prefill_chunk=512)
+    for rid, n in enumerate(lens):
+        sched.submit(Request(rid=rid, prompt=rng.integers(0, V, n),
+                             max_new=16))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts(pm, fa, blend)
+    t0 = time.perf_counter()
+    out = prog.generate(prompts, 16)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    done = sched.drain()
+    torch.cuda.synchronize()
+    sched_s = time.perf_counter() - t0 - gen_s
+    launches = kernel_counts(pm, fa, blend)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    if tuple(out.shape) != (2, 616) or not bool(
+            (out[:, :600].cpu() == torch.as_tensor(prompts)).all()):
+        raise AssertionError(f"generate returned {tuple(out.shape)}")
+    got = sorted((c.rid, len(c.tokens), c.finish_reason, c.padded_to)
+                 for c in done)
+    want = [(rid, n + 16, "length", n) for rid, n in enumerate(lens)]
+    if got != want or sched.stats.prefill_chunks != 0:
+        raise AssertionError(f"completions {got} != {want} (exact-length, "
+                             f"unchunked; {sched.stats.prefill_chunks} "
+                             f"chunks)")
+    prefills = 1 + len(lens)
+    decodes = 15 + sched.stats.decode_steps
+    if launches["ssd_chunk"] != layers * prefills:
+        raise AssertionError(f"ssd_chunk launches {launches['ssd_chunk']} "
+                             f"!= {layers} x {prefills} prefill passes")
+    # outside the counted window: fused launches of one prefill pass and of
+    # one decode step, and the logits of one prefill
+    reset_counts(pm, fa, blend)
+    logits, caches = prog.prefill({"tokens": prompts[:1]}, 616)
+    per_prefill = pm.launches
+    reset_counts(pm, fa, blend)
+    prog.decode(out[:1, 600:601], caches, 600)
+    per_decode = pm.launches
+    if not (logits.shape[-1] == cfg.padded_vocab
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError("non-finite SSM prefill logits")
+    if launches["photonic_mvm_fused"] != (per_prefill * prefills
+                                          + per_decode * decodes):
+        raise AssertionError(f"fused launches {launches} != {per_prefill} x "
+                             f"{prefills} + {per_decode} x {decodes}")
+    for name in ("photonic_mvm", "photonic_mvm_t", "photonic_mvm_resident",
+                 "blend_shuffle", "flash_attention"):
+        if launches[name] != 0:
+            raise AssertionError(f"{name} ran on the SSM path: {launches}")
+    emit({"phase": "serve_ssm", "gpu": gpu, "arch": cfg.name,
+          "R": cfg.reuse.num_basic, "T": cfg.reuse.reuse_times,
+          "transforms": list(cfg.reuse.transforms), "d_model": cfg.d_model,
+          "d_state": cfg.ssm.d_state, "chunk": cfg.ssm.chunk,
+          "padded_vocab": cfg.padded_vocab, "dtype": cfg.compute_dtype,
+          "build_s": build_s, "bank_int8_bytes": stats["int8_bytes"],
+          "bank_fp_bytes": stats["fp_bytes"],
+          "verify_banks": prog.verify_banks(),
+          "generate_s": gen_s, "generate_tokens_per_s": 2 * 16 / gen_s,
+          "scheduler_s": sched_s,
+          "scheduler_tokens_per_s": 16 * len(lens) / sched_s,
+          "scheduler_prompt_tokens": sum(lens),
+          "scheduler_decode_steps": sched.stats.decode_steps,
+          "scheduler_prefill_chunks": sched.stats.prefill_chunks,
+          "prefill_passes": prefills, "decode_steps": decodes,
+          "fused_per_prefill": per_prefill, "fused_per_decode": per_decode,
+          "peak_mem_gb": peak_gb, "launches": launches})
+    emit(profile_generate(torch, prog, prompts[:1]))
+    emit(decode_step_costs(torch, prog))
+    return launches
+
+
+def small_ssm_checks(torch):
+    """The mamba2 smoke model on an R&B stack (2 x 2, identity then
+    shuffle) and the jamba smoke model, float32, photonic: the kernels on
+    the card against the CPU plain path on the same weights, logits within
+    the W8A8 bound and the same greedy tokens."""
+    from repro_torch import api
+    from repro_torch.configs import smoke_variant
+    from repro_torch.configs.archs import rb
+    from repro_torch.kernels import ssd
+    from repro_torch.models import transformer as tfm
+
+    out = {"phase": "small_ssm"}
+    for name in ("mamba2-780m", "jamba-v0.1-52b"):
+        cfg = smoke_variant(name)
+        if name == "mamba2-780m":
+            cfg = rb(cfg, 2, 2)
+        params = tfm.init_model(cfg, seed=5, device="cpu")
+        gpu = api.Program.build(cfg, params, execution="photonic")
+        cpu = api.Program.build(cfg, params, execution="photonic",
+                                device="cpu")
+        toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 12))
+        before = ssd.launches
+        lg, _ = gpu.prefill({"tokens": toks}, 20)
+        lc, _ = cpu.prefill({"tokens": toks}, 20)
+        err = rel_l2(lg.cpu(), lc)
+        same = bool((gpu.generate(toks, 8).cpu()
+                     == cpu.generate(toks, 8)).all())
+        out[name] = {"dtype": cfg.compute_dtype, "gpu_vs_cpu_rel_l2": err,
+                     "greedy_tokens_equal": same,
+                     "ssd_launches": ssd.launches - before}
+        if not (err <= W8A8_BOUND and same and torch.isfinite(lg).all()
+                and ssd.launches > before):
+            raise AssertionError(f"small SSM model {name} GPU vs CPU: {out}")
+    emit(out)
+
+
+# -------------------------------------------------------------------------
 def summary(name, rows, launches, at, source, replaces):
     """One kernel's entry: errors are maxima over every case (``worst_at``
     names the case of the largest rel-L2); times are those of case ``at``."""
@@ -997,6 +1256,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import photonic_mvm as pm
+    from repro_torch.kernels import ssd
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1018,6 +1278,7 @@ def main() -> int:
     split_rows = check_split(torch, timer, pm, photonic, ops)
     blend_rows = check_blend(torch, timer, blend)
     resident_rows = check_resident(torch, timer, pm, photonic)
+    ssd_rows = check_ssd(torch, timer, ssd)
     del timer
     torch.cuda.empty_cache()
     # each path's launches are counted in its own window
@@ -1033,6 +1294,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_path = serve_moe(torch, pm, fa, blend, smi)
     small_moe_check(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_path = serve_ssm(torch, pm, fa, blend, smi)
+    small_ssm_checks(torch)
 
     split = "src/repro_torch/csrc/photonic_mvm_split.cu"
     emit({"kernels": [
@@ -1060,7 +1325,11 @@ def main() -> int:
         summary("photonic_mvm_resident", resident_rows,
                 moe_path["photonic_mvm_resident"], "T=4 M=8 1024->512",
                 "src/repro_torch/csrc/photonic_mvm_resident.cu",
-                "src/repro/kernels/photonic_mvm.py:231")]})
+                "src/repro/kernels/photonic_mvm.py:231"),
+        summary("ssd_chunk", ssd_rows, ssm_path["ssd_chunk"],
+                "b=1 nc=8 L=256 H=48 P=64 N=128 stride-0 B/C",
+                "src/repro_torch/csrc/ssd_chunk.cu",
+                "src/repro/kernels/ssd.py:51")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,9 +8,11 @@
 
 ``build`` resolves the backend, moves the params to the device, casts them
 to the compute dtype and — photonic — programs every matmul weight into a
-``PreparedTensor`` bank once.  PyTorch runs eagerly, so there are no jit
-cells: each step calls ``models.transformer.forward`` directly.  Caches are
-updated in place and returned.
+``PreparedTensor`` bank once.  Stacks with SSM mixers prefill
+monolithically (their state integrates every token): ``prefill_chunk`` and
+``prefill_chunked`` raise for them.  PyTorch runs eagerly, so there are no
+jit cells: each step calls ``models.transformer.forward`` directly.  Caches
+are updated in place and returned.
 
 Greedy decoding matches the reference token for token on the test
 configs; temperature sampling draws from a ``torch.Generator`` and is not
@@ -59,6 +61,17 @@ def sample(logits, vocab_size: int, generator=None,
     probs = torch.softmax(logits / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[..., 0].to(
         torch.int32)
+
+
+def _short_conv(caches, S: int):
+    """A prompt shorter than the conv tail (W-1 rows): the reference's
+    prefill returns conv leaves of S rows, which its slot pool writes at
+    rows 0..S-1 and its decode reads with clamped indices.  Narrow the conv
+    leaves (views of the W-1-row buffers) to match."""
+    if isinstance(caches, dict):
+        return {k: (v.narrow(-2, 0, S) if k == "conv" else
+                    _short_conv(v, S)) for k, v in caches.items()}
+    return caches
 
 
 # =========================================================================
@@ -132,7 +145,14 @@ class Program:
         logits, caches, _ = tfm.forward(self.bank, self.cfg,
                                         {"tokens": tokens}, mode="prefill",
                                         caches=caches, execution=self.backend)
+        if self.cfg.ssm is not None and S < self.cfg.ssm.conv_width - 1:
+            caches = _short_conv(caches, S)
         return logits[torch.arange(B, device=self.device), last], caches
+
+    def _refuse_chunks(self, what: str) -> None:
+        if tfm.has_ssm(self.cfg):
+            raise ValueError(f"{what}: chunked prefill supports attention "
+                             f"mixers only; {self.cfg.name} has SSM layers")
 
     def empty_caches(self, B: int, cache_len: int):
         """Zero capacity caches for the chunked-prefill entry points."""
@@ -145,6 +165,7 @@ class Program:
         (updated in place).  tokens: (B, W) = prompt slice
         [q_offset, q_offset + W); ``last`` (B,) indexes logits WITHIN the
         chunk (default: final column)."""
+        self._refuse_chunks("prefill_chunk")
         tokens = self._tokens(tokens)
         B, W = tokens.shape
         if last is None:
@@ -160,6 +181,7 @@ class Program:
         (tail zero-padded, causally invisible).  Equivalent to
         :meth:`prefill` within the W8A8 tolerance on photonic (per-chunk
         activation scales).  Returns (logits (B, V), caches)."""
+        self._refuse_chunks("prefill_chunked")
         tokens = self._tokens(batch["tokens"])
         B, S = tokens.shape
         if last is None:

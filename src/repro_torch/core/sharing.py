@@ -9,11 +9,14 @@ the block, transpose flag at the weight use-sites).  The reference's
 
 Per-logical-layer caches have leading dims [R, T, ...].  Unlike the
 reference (immutable arrays, a new cache returned), **the port updates the
-cache in place**: prefill and chunked-prefill blocks write their K/V into
-the [r, t] view they are handed, and in decode mode the block returns a
-one-token delta that :func:`_delta_update` writes into the carried buffer
-at ``decode_pos`` (a per-row scatter for a (B,) position vector).  The
-cache object passed in is the one returned.
+cache in place**: prefill and chunked-prefill attention blocks write their
+K/V into the [r, t] view they are handed; a prefill SSM block returns its
+final state and conv tail, which :func:`_write_prefill` copies into the
+[r, t] slice at offset 0 (the reference stacks them as the new cache); in
+decode mode the block returns a one-token delta (attention) or a
+full-slice update (SSM) that :func:`_delta_update` writes into the carried
+buffer at ``decode_pos`` (a per-row scatter for a (B,) position vector).
+The cache object passed in is the one returned.
 """
 from __future__ import annotations
 
@@ -143,9 +146,26 @@ def run_stack(block_fn: BlockFn, params: Any, x: torch.Tensor,
             x, new_c, aux = block_fn(p_r, x, c_t, aux,
                                      transpose=bool(shared.transpose_flags[t]),
                                      reuse_index=t)
-            if cache is not None and decode_pos is not None:
-                _write_deltas(cache, new_c, r, t, decode_pos)
+            if cache is not None:
+                if decode_pos is not None:
+                    _write_deltas(cache, new_c, r, t, decode_pos)
+                else:
+                    _write_prefill(c_t, new_c)
     return x, cache, aux
+
+
+def _write_prefill(view, new) -> None:
+    """Copy a prefill block's returned cache into its [r, t] view at offset
+    0 of every axis; a leaf the block already wrote in place (the view
+    itself) is skipped.  A leaf shorter than the view (the conv tail of a
+    prompt shorter than W-1) fills the leading rows only."""
+    if isinstance(view, dict):
+        for k in view:
+            _write_prefill(view[k], new[k])
+        return
+    if new is view:
+        return
+    view[tuple(slice(0, n) for n in new.shape)].copy_(new.to(view.dtype))
 
 
 def _write_deltas(cache, delta, r, t, pos):

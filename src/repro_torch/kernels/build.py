@@ -26,6 +26,7 @@ SOURCES = {
     "photonic_mvm_resident": "photonic_mvm_resident.cu",
     "blend_shuffle": "blend_shuffle.cu",
     "flash_attention": "flash_attention.cu",
+    "ssd_chunk": "ssd_chunk.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -17,6 +17,7 @@ from repro_torch.core.prepared import quantize_weight
 from repro_torch.kernels import blend as _blend
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import photonic_mvm as _pm
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.build import build as build_kernels  # noqa: F401
 
 
@@ -124,3 +125,11 @@ def flash_attention(q, k, v, *, causal=True, q_offset=None):
     vf = v.permute(0, 2, 1, 3).reshape(B * KV, L, hdv).contiguous()
     o = _fa.flash_attention(qf, kf, vf, causal=causal, q_offset=q_offset)
     return o.reshape(B, H, Sq, hdv).permute(0, 2, 1, 3)
+
+
+def ssd_chunk(x, dA, B, C):
+    """Intra-chunk SSD (``kernels/ssd.py``): x (b, nc, L, H, P) dt-folded,
+    dA (b, nc, H, L), B/C (b, nc, L, H, N) head-broadcast — a stride-0 view
+    over the head axis is read in place.  Returns y_diag (b, nc, L, H, P)
+    and states (b, nc, H, N, P), float32."""
+    return _ssd.ssd_chunk(x, dA, B, C)

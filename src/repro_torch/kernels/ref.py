@@ -1,8 +1,9 @@
 """Plain PyTorch oracles (partial port of ``repro.kernels.ref``).
 
 These are the reference's allclose targets written in torch: the direct
-dequantized matmuls, the fused-MVM composition, the blocked blend shuffle
-and the full-softmax attention with the flash kernel's layout contract.
+dequantized matmuls, the fused-MVM composition, the blocked blend shuffle,
+the full-softmax attention with the flash kernel's layout contract and the
+intra-chunk SSD algebra.
 """
 from __future__ import annotations
 
@@ -92,3 +93,22 @@ def flash_attention_ref(q, k, v, causal=True, q_offset=0, kv_len=None):
     s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkh->bqh", p, v.float()).to(q.dtype)
+
+
+def ssd_chunk_ref(x, dA, B, C):
+    """Oracle for the intra-chunk SSD kernel (the reference's
+    ``ref.ssd_chunk_ref``): x (b, nc, L, H, P) dt-folded, dA (b, nc, H, L),
+    B/C (b, nc, L, H, N) head-broadcast.  Returns y (b, nc, L, H, P) and
+    states (b, nc, H, N, P), float32."""
+    L = x.shape[2]
+    x, dA, Bh, Ch = (t.to(torch.float32) for t in (x, dA, B, C))
+    cs = torch.cumsum(dA, dim=-1)                          # (b,nc,H,L)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    Lmat = torch.exp(seg.masked_fill(~mask, float("-inf")))
+    scores = torch.einsum("bclhn,bcshn->bchls", Ch, Bh)
+    y = torch.einsum("bchls,bcshp->bclhp", scores * Lmat, x)
+    decay = torch.exp(cs[..., -1:] - cs)                   # (b,nc,H,L)
+    st = torch.einsum("bclhn,bclhp->bchnp",
+                      Bh * decay.permute(0, 1, 3, 2)[..., None], x)
+    return y, st

@@ -1,16 +1,21 @@
-"""Model assembly for the GQA decoder families, dense and MoE (port of
-the dense and MoE paths of ``repro.models.transformer``).
+"""Model assembly for the GQA decoder, Mamba-2 and hybrid families (port
+of the dense, MoE, SSM and hybrid paths of ``repro.models.transformer``).
 
 A model is a list of segments; each segment is a homogeneous stack of
 groups run through the PRM runner (``core.sharing.run_stack``).  Params are
 nested dicts with the reference's keys (``segments/main/l0/mixer/wq``) and
-a leading R axis on every segment leaf.  Caches are
-``{segment: {"l0": {"k": (R, T, B, L, KV, hd), "v": ...}}}``.
+a leading R axis on every segment leaf.  Caches hold one entry per layer
+of a group, shaped by its mixer: attention
+``{"k": (R, T, B, L, KV, hd), "v": ...}``, SSM
+``{"h": (R, T, B, H, P, N) fp32, "conv": (R, T, B, W-1, conv_dim)}``.
 
-An FFN is a SwiGLU MLP (``dense``; ``dense_first`` in the ``pre`` segment
-of a MoE stack with ``first_dense`` layers, at ``first_dense_d_ff``) or a
-mixture of experts (``moe``, ``models/moe.py``), whose load-balance loss
-adds to the forward's ``aux``.  SSM, MLA, cross-attention and the encoder
+A sequence mixer is GQA attention (``attn``) or the Mamba-2 block
+(``ssm``, ``models/ssm.py``); a hybrid stack interleaves them within a
+group.  An FFN is a SwiGLU MLP (``dense``; ``dense_first`` in the ``pre``
+segment of a MoE stack with ``first_dense`` layers, at
+``first_dense_d_ff``), a mixture of experts (``moe``, ``models/moe.py``),
+whose load-balance loss adds to the forward's ``aux``, or absent
+(``none``: mamba2 has no FFN).  MLA, cross-attention and the encoder
 stream belong to later slices; :func:`check_ported` raises for them.
 """
 from __future__ import annotations
@@ -28,6 +33,7 @@ from repro_torch.core.sharing import SharedStack, run_stack
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, cast, embed,
                                        init_embedding, init_mlp, init_norm,
                                        init_unembed, unembed)
@@ -61,8 +67,8 @@ def _seg_reuse(cfg: ModelConfig, num_groups: int):
 
 def build_segments(cfg: ModelConfig) -> tuple:
     """Segment structure of any family (a copy of the reference's pure-
-    Python planner; the admission policy prices every arch with it).  Only
-    the dense decoder family runs in this slice (:func:`check_ported`)."""
+    Python planner; the admission policy prices every arch with it).  The
+    families that run are those :func:`check_ported` admits."""
     if cfg.family == "audio":
         a = cfg.audio
         enc = SegmentSpec("enc", a.encoder_layers, 1, ("attn",), ("dense",),
@@ -91,16 +97,19 @@ def build_segments(cfg: ModelConfig) -> tuple:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for model families the port does not run yet.  Ported: the
-    RMSNorm/SwiGLU GQA decoder, dense or MoE (``family`` dense or moe,
-    no MLA).  MLA, SSM, hybrid, cross-attention (VLM), encoder-decoder
-    (audio) and gelu/layer-norm stacks belong to later slices."""
-    ok = (cfg.mla is None and cfg.ssm is None
-          and cfg.family in ("dense", "moe")
+    RMSNorm/SwiGLU stacks of GQA attention and Mamba-2 mixers with dense,
+    MoE or no FFNs (``family`` dense, moe, ssm or hybrid; no MLA).  MLA,
+    cross-attention (VLM), encoder-decoder (audio) and gelu/layer-norm
+    stacks belong to later slices."""
+    ok = (cfg.mla is None
+          and cfg.family in ("dense", "moe", "ssm", "hybrid")
+          and (cfg.ssm is not None) == (cfg.family in ("ssm", "hybrid"))
           and cfg.mlp_act == "swiglu" and cfg.norm == "rms")
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: only the RMSNorm/SwiGLU GQA decoder, dense or MoE "
-            f"without MLA, is ported so far (family {cfg.family!r}, "
+            f"{cfg.name}: only the RMSNorm/SwiGLU stacks of GQA attention "
+            f"and Mamba-2 mixers (dense or MoE without MLA, SSM, hybrid) "
+            f"are ported so far (family {cfg.family!r}, "
             f"mla={cfg.mla is not None}, ssm={cfg.ssm is not None})")
 
 
@@ -116,11 +125,29 @@ def shareds_for(cfg: ModelConfig) -> dict:
 # =========================================================================
 def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
                 mode, causal, pos, backend, transpose):
-    """One pre-norm residual layer.  Returns (h, cache, aux)."""
-    if mixer_kind != "attn":
+    """One pre-norm residual layer.  Returns (h, cache, aux): an attention
+    layer writes its K/V into ``cache`` in place and returns it; an SSM
+    layer returns its new state (decode: the full-slice update; prefill:
+    the final state and conv tail, written into the slice by
+    ``core.sharing.run_stack``)."""
+    if mixer_kind not in ("attn", "ssm"):
         raise NotImplementedError(f"mixer {mixer_kind!r} is a later slice")
+    if mode == "prefill_chunk" and mixer_kind != "attn":
+        # SSM state integration would need chunk-to-chunk state threading;
+        # the scheduler prefills such stacks monolithically
+        raise ValueError(f"chunked prefill supports attention mixers only, "
+                         f"got {mixer_kind!r}")
     hn = apply_norm(p["norm1"], h, cfg.norm, cfg.norm_eps)
-    if mode == "decode":
+    if mixer_kind == "ssm":
+        if mode == "decode":
+            y, new_cache = ssm_lib.ssm_decode(p["mixer"], cfg, hn, cache, pos,
+                                              transpose=transpose,
+                                              backend=backend)
+        else:
+            y, new_cache = ssm_lib.ssm_forward(
+                p["mixer"], cfg, hn, transpose=transpose,
+                return_cache=(mode == "prefill"), backend=backend)
+    elif mode == "decode":
         y, new_cache = attn.gqa_decode(p["mixer"], cfg, hn, cache, pos,
                                        transpose=transpose, backend=backend)
     elif mode == "prefill_chunk":
@@ -174,12 +201,19 @@ def _init_ffn(cfg: ModelConfig, kind: str, generator, device, lead):
     return init_mlp(cfg.d_model, d_ff, generator, device, lead=lead)
 
 
+def _init_mixer(cfg: ModelConfig, kind: str, generator, device, lead):
+    if kind == "ssm":
+        return ssm_lib.init_ssm(cfg, generator, device, lead=lead)
+    return attn.init_gqa(cfg, generator, device, lead=lead)
+
+
 def _init_group(cfg: ModelConfig, spec: SegmentSpec, R: int, generator,
                 device):
     p = {}
     for i in range(spec.group_size):
         layer = {"norm1": init_norm(cfg.d_model, device, lead=(R,)),
-                 "mixer": attn.init_gqa(cfg, generator, device, lead=(R,))}
+                 "mixer": _init_mixer(cfg, spec.mixer_kinds[i], generator,
+                                      device, (R,))}
         if spec.ffn_kinds[i] != "none":
             layer["norm2"] = init_norm(cfg.d_model, device, lead=(R,))
             layer["ffn"] = _init_ffn(cfg, spec.ffn_kinds[i], generator,
@@ -250,18 +284,35 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
     return logits, caches, aux
 
 
+def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
+                 dtype, device, lead) -> dict:
+    if kind == "ssm":
+        return ssm_lib.init_ssm_cache(cfg, batch, dtype, device, lead=lead)
+    shape = lead + (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_caches(cfg: ModelConfig, batch: int, length: int,
                 dtype=torch.bfloat16, device=None) -> dict:
-    """Zero caches shaped [R, T, B, L, KV, hd] per segment."""
+    """Zero caches with leading [R, T] axes per layer of each segment's
+    group: attention [R, T, B, L, KV, hd] K/V, SSM [R, T, B, H, P, N]
+    fp32 state and [R, T, B, W-1, conv_dim] conv tail (no length axis)."""
     check_ported(cfg)
     dev = resolve_device(device)
     caches = {}
     for spec in build_segments(cfg):
         shared = shareds_for(cfg)[spec.name]
-        R, T = shared.num_physical, shared.reuse_times
-        shape = (R, T, batch, length, cfg.num_kv_heads, cfg.head_dim)
+        lead = (shared.num_physical, shared.reuse_times)
         caches[spec.name] = {
-            f"l{i}": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                      "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            f"l{i}": _mixer_cache(cfg, spec.mixer_kinds[i], batch, length,
+                                  dtype, dev, lead)
             for i in range(spec.group_size)}
     return caches
+
+
+def has_ssm(cfg: ModelConfig) -> bool:
+    """True when a decoder segment holds an SSM mixer (its state integrates
+    every prompt token: no right padding, no chunked prefill)."""
+    return any("ssm" in spec.mixer_kinds for spec in build_segments(cfg)
+               if spec.stream != "encoder")

@@ -127,9 +127,14 @@ class ContinuousScheduler:
                 ReuseAwareAdmission.build(cfg), residency)
         self.admission = admission or ReuseAwareAdmission.build(cfg)
         self.pool = SlotPool(cfg, capacity, max_len, device=program.device)
-        # every mixer of the ported family is attention: right padding is
-        # causally invisible, so prompts pad to a bucket and chunking works
+        # Right padding is causally invisible to attention (masked by the
+        # slot position) but NOT to recurrent state: SSM ``h`` and the conv
+        # tail integrate every input token.  Stacks with SSM layers prefill
+        # at the exact prompt length, and chunked admission is for
+        # attention-only stacks (``prefill_chunk`` is ignored otherwise).
+        self._exact_prefill = tfm.has_ssm(cfg)
         self.prefill_chunk = prefill_chunk
+        self._chunkable = prefill_chunk is not None and not self._exact_prefill
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         # slot -> in-progress chunked prefill (staging cache at pool
@@ -188,12 +193,14 @@ class ContinuousScheduler:
                               self.temperature)[0])
 
     def _bucket(self, plen: int) -> int:
+        if self._exact_prefill:
+            return plen
         b = self.prefill_bucket
         return min(-(-plen // b) * b, self.pool.max_len)
 
     def _admit_one(self, req: Request) -> Optional[Completion]:
         plen = len(req.prompt)
-        if self.prefill_chunk is not None and plen > self.prefill_chunk:
+        if self._chunkable and plen > self.prefill_chunk:
             self._start_chunked(req)
             return None
         bucket = self._bucket(plen)

@@ -1,4 +1,4 @@
-"""Slot-level KV cache pool for continuous batching (port of
+"""Slot-level KV/SSM cache pool for continuous batching (port of
 ``repro.serve.slots`` without the mesh).
 
 A ``SlotPool`` owns ONE preallocated cache tree shaped ``[R, T, B, L, ...]``
@@ -34,6 +34,9 @@ class SlotState:
 
 
 def _insert(pool, pre, slot: int) -> None:
+    """Write each prefill leaf's whole extent at (0, 0, slot, 0, 0, ...) of
+    its pool leaf, as the reference's ``dynamic_update_slice``: K/V rows
+    0..Lp-1, an SSM state whole, a conv tail at its leading rows."""
     if isinstance(pool, dict):
         for k in pool:
             _insert(pool[k], pre[k], slot)
@@ -41,8 +44,12 @@ def _insert(pool, pre, slot: int) -> None:
     if pre.ndim != pool.ndim:
         raise ValueError(f"prefill leaf rank {pre.ndim} != pool rank "
                          f"{pool.ndim}")
-    Lp = pre.shape[3]
-    pool[:, :, slot:slot + 1, :Lp].copy_(pre.to(pool.dtype))
+    if pre.shape[2] != 1 or any(a > b for a, b in zip(pre.shape, pool.shape)):
+        raise ValueError(f"batch-1 prefill leaf {tuple(pre.shape)} does not "
+                         f"fit pool leaf {tuple(pool.shape)}")
+    idx = (slice(None), slice(None), slice(slot, slot + 1)) + tuple(
+        slice(0, n) for n in pre.shape[3:])
+    pool[idx].copy_(pre.to(pool.dtype))
 
 
 class SlotPool:
@@ -98,8 +105,9 @@ class SlotPool:
 
     def write_prefill(self, slot: int, prefill_caches, prompt_len: int
                       ) -> None:
-        """Copy a batch-1 prefilled cache tree ([R, T, 1, Lp, ...] leaves)
-        into position 0 of ``slot``."""
+        """Copy a batch-1 prefilled cache tree ([R, T, 1, Lp, ...] leaves,
+        or full-state leaves like SSM ``h`` with no length axis) into
+        position 0 of ``slot``."""
         if self.slots[slot] is None:
             raise ValueError(f"slot {slot} is not active")
         if prompt_len > self.max_len:

@@ -70,6 +70,22 @@ def test_moe_slice_modules_are_checked_and_standalone(module):
     assert bad == []
 
 
+# the SSM slice's new modules and the modules it extended
+SLICE4_MODULES = ["models/ssm.py", "kernels/ssd.py", "kernels/ops.py",
+                  "kernels/build.py", "kernels/ref.py",
+                  "models/transformer.py", "core/sharing.py", "api.py",
+                  "serve/slots.py", "serve/scheduler.py"]
+
+
+@pytest.mark.parametrize("module", SLICE4_MODULES)
+def test_ssm_slice_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert bad == []
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)

@@ -263,7 +263,7 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert sorted(t_build.SOURCES) == ["blend_shuffle", "flash_attention",
                                        "photonic_mvm_fused",
                                        "photonic_mvm_resident",
-                                       "photonic_mvm_split"]
+                                       "photonic_mvm_split", "ssd_chunk"]
     for src in t_build.SOURCES.values():
         assert (t_build.csrc_dir() / src).is_file()
 
