@@ -12,8 +12,12 @@ the script exits non-zero without printing the final ``ok`` line):
    shapes the serving paths give it, with its median time (CUDA events,
    L2 flushed before each launch), the plain version's time, a PyTorch
    library call computing the same function as a yardstick (never used by
-   the port) and the card's lower bound for the work: the fused MVM and
-   flash attention (slice 1), the split MVMs in both orientations and the
+   the port) and the card's lower bound for the work: the fused MVM (slice
+   1; since slice 5 in two regimes, each row naming its own: "gemv" streams
+   the bank at decode widths, "mma" runs s8 tensor cores at prefill
+   widths) and flash attention (slice 1; since slice 5 a bf16 tensor-core
+   variant "mma" beside the float32 CUDA-core one "simt", and a case with
+   NaN/inf past kv_len), the split MVMs in both orientations and the
    blend (slice 2), the reuse-resident MVM (slice 3, also held bit for
    bit to T launches of the split MVM), the intra-chunk SSD (slice 4, at
    mamba2-780m's and a jamba-width chunk, with stride-0 and materialised
@@ -23,8 +27,9 @@ the script exits non-zero without printing the final ``ok`` line):
    blocks x 4 reuses) at full width, photonic, bf16, seeded random weights,
    through ``Program.generate`` and a ``ContinuousScheduler`` with chunked
    prefill; kernel launch counts are zeroed just before and read just
-   after; then one prefill's logits are checked and a small model's GPU
-   logits are held against the CPU plain path;
+   after, and both fused regimes and the tensor-core flash must have run;
+   then one prefill's logits are checked and a small model's GPU logits
+   are held against the CPU plain path;
 3b. the fault-model serving path: the same model with the paper's blocked
    shuffle (``shuffle_block=128``) on ``Backend("photonic", fused=False,
    noise=...)`` at full width and depth, served by a ``ContinuousScheduler``
@@ -58,8 +63,10 @@ to that rounding: rel-L2 <= 2**-8 (bf16 outputs of the fused kernel, fp32
 of the split ones).  The resident MVM, like the split one, is
 float32 out: rel-L2 <= 2**-8 against its plain version, and each stream
 equal bit for bit to the split kernel's output (one integer product, one
-rescale expression).  Flash attention reorders fp32 softmax sums: rel-L2 <=
-2**-8.  The blend is a gather plus the same epilogue: exact without an
+rescale expression).  Flash attention reorders fp32 softmax sums, and its
+tensor-core variant rounds P to bf16 for the PV product (~2e-3): rel-L2 <=
+2**-8; keys past kv_len, even NaN or inf, leave the output bit for bit
+unchanged.  The blend is a gather plus the same epilogue: exact without an
 activation, rel-L2 <= 2**-8 with silu (the card's exp may differ from the
 plain version's in the last bit).  The SSD kernel sums its float32 products
 and its cumsum in another order than the plain version: rel-L2 <= 2**-8
@@ -87,6 +94,7 @@ BLEND_TOL = 2.0 ** -8
 W8A8_BOUND = 0.055
 SSD_TOL = 2.0 ** -8
 INT8_TOPS = 1979e12
+BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12          # H100 SXM, CUDA cores (no tensor cores)
 HBM_BYTES_S = 3.35e12
 
@@ -138,10 +146,15 @@ class Timer:
 # -------------------------------------------------------------------------
 def mvm_cases():
     """(label, M, K, N, transpose, activation, bias_perm) at the serving
-    path's shapes for minitron-4b (d 3072, kv 1024, d_ff 9216, vocab
-    256000), decode M = 4 slots and prefill M = 2048 rows.  The transposed
-    rows are the OBU transpose reuse: wq/wo (square), w_down^T with the
-    gate's silu, w_gate^T."""
+    paths' shapes.  minitron-4b (d 3072, kv 1024, d_ff 9216, vocab 256000)
+    at decode M = 4 slots and prefill M = 2048 rows; the transposed rows
+    are the OBU transpose reuse: wq/wo (square), w_down^T with the gate's
+    silu, w_gate^T.  Then both sides of the fused kernel's regime boundary
+    (M = 8 decode, 9 tensor cores), 16 and 17, and the scheduler's widths
+    (40: its short prompt, 512: its prefill chunk, 600: the generate
+    prompt) in both orientations; mamba2-780m's ``w_in`` (1536 -> 2*3072
+    + 2*128 + 48 = 6448, not a multiple of 128) at M = 2048;
+    granite-moe-1b-a400m's 1024 -> 512 at decode and prefill widths."""
     shapes = [("wq", 3072, 3072, False, "none"),
               ("wq^T", 3072, 3072, True, "none"),
               ("wk", 3072, 1024, False, "none"),
@@ -156,6 +169,14 @@ def mvm_cases():
             cases.append((f"M={M} {name} {K}->{N}", M, K, N, tr, act, False))
     cases.append(("M=8 bias+relu+block_perm 256->512", 8, 256, 512, False,
                   "relu", True))
+    for M in (8, 9, 16, 17, 40, 512, 600):
+        for name, K, N, tr, act in shapes[3:5]:
+            cases.append((f"M={M} {name} {K}->{N}", M, K, N, tr, act, False))
+    cases.append(("M=2048 mamba2 w_in 1536->6448", 2048, 1536, 6448, False,
+                  "none", False))
+    for M in (4, 2048):
+        cases.append((f"M={M} granite expert 1024->512", M, 1024, 512,
+                      False, "none", False))
     return cases
 
 
@@ -198,6 +219,7 @@ def check_mvm(torch, timer, pm, photonic):
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = ops / INT8_TOPS * 1e3
         row = {"case": label, "kernel": "photonic_mvm_fused",
+               "regime": pm.launch_plan(M, K, N, tr).regime,
                "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "torch._int_mm on the int8 operands (product "
@@ -221,48 +243,75 @@ def int_mm_ms(torch, timer, xq, wq, transpose, reps):
 
 
 def flash_cases():
-    """(label, B, Sq, L, q_offset, kv_len, H, KV, hd, hd_v): minitron-4b
-    attention (24 query heads, 8 KV heads: G = 3, hd 128) as a monolithic
-    2048-token causal prefill, two 600-token prompts, and a 512-wide chunk
-    at q_offset 512 against the 2048-slot capacity buffer with kv_len < L;
-    plus one hd_v != hd case (the layout MLA will need)."""
+    """(label, B, Sq, L, q_offset, kv_len, H, KV, hd, hd_v, dtype,
+    garbage): minitron-4b attention (24 query heads, 8 KV heads: G = 3, hd
+    128) as a monolithic 2048-token causal prefill, two 600-token prompts,
+    and a 512-wide chunk at q_offset 512 against the 2048-slot capacity
+    buffer with kv_len < L, once more with NaN and inf in that buffer past
+    kv_len (garbage: the output must be finite and equal the clean one);
+    one hd_v != hd case (the layout MLA will need), all bf16 (the
+    tensor-core variant); and a float32 hd 16 case, the CUDA-core variant
+    that the float32 smoke models run."""
     return [("B=1 Sq=L=2048 causal", 1, 2048, 2048, 0, 2048,
-             24, 8, 128, 128),
-            ("B=2 Sq=L=600 causal", 2, 600, 600, 0, 600, 24, 8, 128, 128),
+             24, 8, 128, 128, "bfloat16", False),
+            ("B=2 Sq=L=600 causal", 2, 600, 600, 0, 600, 24, 8, 128, 128,
+             "bfloat16", False),
             ("B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024", 1, 512,
-             2048, 512, 1024, 24, 8, 128, 128),
+             2048, 512, 1024, 24, 8, 128, 128, "bfloat16", False),
+            ("B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024, NaN/inf "
+             "past kv_len", 1, 512, 2048, 512, 1024, 24, 8, 128, 128,
+             "bfloat16", True),
             ("B=1 Sq=L=300 hd=64 hd_v=96 G=4", 1, 300, 300, 0, 300,
-             8, 2, 64, 96)]
+             8, 2, 64, 96, "bfloat16", False),
+            ("B=2 Sq=L=128 hd=16 G=2 float32", 2, 128, 128, 0, 128,
+             4, 2, 16, 16, "float32", False)]
+
+
+def poison_past(t, kv_len):
+    """Fill rows kv_len.. of a (BH, L, d) capacity buffer with NaN, inf and
+    -inf: keys no query may see."""
+    t[:, kv_len::3] = float("nan")
+    t[:, kv_len + 1::3] = float("inf")
+    t[:, kv_len + 2::3] = -float("inf")
 
 
 def check_flash(torch, timer, fa):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for label, B, Sq, L, off, kv_len, H, KV, hd, hdv in flash_cases():
-        q = torch.randn((B * H, Sq, hd), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        k = torch.randn((B * KV, L, hd), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        v = torch.randn((B * KV, L, hdv), generator=gen, device="cuda").to(
-            torch.bfloat16)
+    for (label, B, Sq, L, off, kv_len, H, KV, hd, hdv, dtype,
+         garbage) in flash_cases():
+        dt = getattr(torch, dtype)
+        q = torch.randn((B * H, Sq, hd), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B * KV, L, hd), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B * KV, L, hdv), generator=gen, device="cuda").to(dt)
         kw = dict(causal=True, q_offset=off, kv_len=kv_len)
-        got = fa.flash_attention(q, k, v, **kw)
         want = fa.flash_attention_plain(q, k, v, **kw)
+        clean = fa.flash_attention(q, k, v, **kw)
+        if garbage:
+            poison_past(k, kv_len)
+            poison_past(v, kv_len)
+        got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = rel_l2(got, want)
         max_abs = float((got.float() - want.float()).abs().max())
         if not (err <= FLASH_TOL and torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention {label}: rel-L2 {err} "
                                  f"> {FLASH_TOL}")
+        if garbage and not torch.equal(got, clean):
+            raise AssertionError(f"flash_attention {label}: keys past "
+                                 f"kv_len changed the output")
         ms = timer.ms(lambda: fa.flash_attention(q, k, v, **kw), 10)
         plain_ms = timer.ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                             5)
         # SDPA yardstick on the same data: (B, H, S, hd) views, causal mask
-        # on absolute positions, keys past kv_len masked
+        # on absolute positions, keys past kv_len masked (and, in the
+        # garbage case, clean keys: SDPA would spread the NaN)
         q4 = q.view(B, H, Sq, hd)
-        k4 = k.view(B, KV, L, hd)
-        v4 = v.view(B, KV, L, hdv)
+        k4 = (k.nan_to_num(0.0, 0.0, 0.0) if garbage else k).view(B, KV, L,
+                                                                  hd)
+        v4 = (v.nan_to_num(0.0, 0.0, 0.0) if garbage else v).view(B, KV, L,
+                                                                  hdv)
         qi = off + torch.arange(Sq, device="cuda")[:, None]
         kj = torch.arange(L, device="cuda")[None, :]
         mask = (kj <= qi) & (kj < kv_len)
@@ -270,16 +319,21 @@ def check_flash(torch, timer, fa):
             q4, k4, v4, attn_mask=mask, enable_gqa=True), 10)
         pairs = int(mask.sum())                 # visible (query, key) pairs
         flops = 2.0 * (hd + hdv) * pairs * B * H
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                     + got.numel())
         t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = flops / 989e12 * 1e3
-        row = {"case": label, "kernel": "flash_attention", "rel_l2": err,
-               "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms,
+        t_ops = flops / (BF16_FLOPS if dt == torch.bfloat16
+                         else FP32_FLOPS) * 1e3
+        row = {"case": label, "kernel": "flash_attention",
+               "variant": fa.flash_variant(dt, hd, hdv), "dtype": dtype,
+               "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "F.scaled_dot_product_attention(enable_gqa=True)",
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": flops}
+        if garbage:
+            row["garbage_equals_clean"] = True
         emit(row)
         rows.append(row)
     return rows
@@ -317,6 +371,26 @@ def small_model_check(torch):
             "small_model_greedy_tokens_equal": same}
 
 
+KERNEL_GROUPS = (
+    # (kernel of the port, substrings of its CUDA kernels' names)
+    ("photonic_mvm_fused", ("::gemv_kernel", "::gemv_t_kernel",
+                            "::mma_kernel", "::quantize_kernel")),
+    ("photonic_mvm_split", ("::split_kernel", "::split_reduce_kernel")),
+    ("photonic_mvm_resident", ("::resident_kernel",)),
+    ("blend_shuffle", ("::blend_kernel",)),
+    ("flash_attention", ("::flash_kernel", "::flash_mma_kernel")),
+    ("ssd_chunk", ("::ssd_chunk_kernel",)))
+
+
+def kernel_group(name: str) -> str:
+    """The port kernel a profiled CUDA kernel belongs to (by its name), or
+    "other torch kernels"."""
+    for group, keys in KERNEL_GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other torch kernels"
+
+
 def profile_generate(torch, prog, prompt):
     """Where the device time goes: ``torch.profiler`` over one
     ``Program.generate`` (one prefill + 7 decode steps), kernel time summed
@@ -334,22 +408,7 @@ def profile_generate(torch, prog, prompt):
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
-        name = ev.key
-        if name.startswith(("void (anonymous namespace)::mvm_kernel",
-                            "void (anonymous namespace)::reduce_kernel")):
-            group = "photonic_mvm_fused"
-        elif "::split_kernel" in name or "::split_reduce_kernel" in name:
-            group = "photonic_mvm_split"
-        elif "resident_kernel" in name:
-            group = "photonic_mvm_resident"
-        elif "blend_kernel" in name:
-            group = "blend_shuffle"
-        elif "flash_kernel" in name:
-            group = "flash_attention"
-        elif "ssd_chunk_kernel" in name:
-            group = "ssd_chunk"
-        else:
-            group = "other torch kernels"
+        group = kernel_group(ev.key)
         groups[group] = groups.get(group, 0.0) + ev.self_device_time_total
     busy = sum(groups.values())
     return {"phase": "profile", "what": f"generate {tuple(prompt.shape)} "
@@ -475,9 +534,11 @@ def serve(torch, pm, fa, blend, gpu):
     want = [(rid, n + 16, "length") for rid, n in enumerate(lens)]
     if got != want:
         raise AssertionError(f"completions {got} != {want}")
-    if mvm_launches <= 0 or flash_launches <= 0:
-        raise AssertionError(f"kernels not on the serving path: mvm "
-                             f"{mvm_launches}, flash {flash_launches}")
+    gemv = launches["photonic_mvm_fused_gemv"]
+    if not (0 < gemv < mvm_launches and flash_launches > 0
+            and launches["flash_attention_mma"] == flash_launches):
+        raise AssertionError(f"kernels not on the serving path (both fused "
+                             f"regimes, the tensor-core flash): {launches}")
     gen_tokens = 2 * 16
     sched_tokens = 16 * len(lens)
     result = {"phase": "serve", "gpu": gpu, "generate_s": gen_s,
@@ -623,18 +684,20 @@ WRITES_PER_ACCESS = 2e4     # drift stress per serving access: the first
 
 def kernel_counts(pm, fa, blend) -> dict:
     from repro_torch.kernels import ssd
-    return {"photonic_mvm_fused": pm.launches, "photonic_mvm": pm.launches_mvm,
+    return {"photonic_mvm_fused": pm.launches,
+            "photonic_mvm_fused_gemv": pm.launches_gemv,
+            "photonic_mvm": pm.launches_mvm,
             "photonic_mvm_t": pm.launches_mvm_t,
             "photonic_mvm_resident": pm.launches_resident,
             "blend_shuffle": blend.launches, "flash_attention": fa.launches,
-            "ssd_chunk": ssd.launches}
+            "flash_attention_mma": fa.launches_mma, "ssd_chunk": ssd.launches}
 
 
 def reset_counts(pm, fa, blend) -> None:
     from repro_torch.kernels import ssd
-    pm.launches = pm.launches_mvm = pm.launches_mvm_t = 0
+    pm.launches = pm.launches_gemv = pm.launches_mvm = pm.launches_mvm_t = 0
     pm.launches_resident = 0
-    fa.launches = blend.launches = ssd.launches = 0
+    fa.launches = fa.launches_mma = blend.launches = ssd.launches = 0
 
 
 def serve_noisy(torch, pm, fa, blend, gpu):

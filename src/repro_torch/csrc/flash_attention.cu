@@ -13,23 +13,37 @@
 //
 // What bounds it on an H100.  A 2048-long causal prefill does ~2*Sq*L*hd
 // FLOPs per head for QK^T and PV over the lower triangle against a few MB
-// of q/k/v, so it is bound by arithmetic.  This first version runs the
-// products on the fp32 CUDA cores (67 TFLOP/s peak), not the tensor cores
-// (989 TFLOP/s bf16): `mma.sync`/`wgmma` tiles are later work.
+// of q/k/v, so it is bound by arithmetic: 989 TFLOP/s on the bf16 tensor
+// cores, 67 on the fp32 CUDA cores.
 //
-// Design.  One block per (query row b, 64-query tile), 128 threads: two
-// threads per query row, each owning half of the head dims (interleaved in
-// float4 groups so the pair reads neighbouring shared-memory words).  The
-// block walks 32-key tiles of K and V staged in shared memory as fp32, and
-// updates the online softmax per 16-key chunk.
-//   * The key loop stops at the last key any row of the tile can see
+// Two variants, chosen by the wrapper from the dtype and head dims:
+//
+// `flash_mma_kernel` (bf16, hd and hd_v multiples of 16 up to 128): an
+// FA2-style kernel on the bf16 tensor cores.  A block takes 64 query rows
+// (four warps of 16, Q held in registers as `mma` A fragments) and walks
+// 64-key K/V tiles double-buffered with 16-byte `cp.async` in XOR-swizzled
+// shared memory.  S = Q K^T and O += P V run as `mma.sync.m16n8k16` bf16 ->
+// fp32 fed by `ldmatrix` (`.trans` for V); the running max, sum and O stay
+// in fp32 registers, and P is rounded to bf16 for the PV product (one more
+// rounding than the fp32 reference, ~1e-3 rel-L2).  Causal query tiles are
+// issued longest first.
+//
+// `flash_kernel` (float32, or head dims the tensor-core variant does not
+// take): one block per (query row b, 64-query tile), 128 threads, two per
+// query row, each owning half of the head dims (interleaved in float4
+// groups so the pair reads neighbouring shared-memory words); 32-key tiles
+// of K and V staged in shared memory as fp32, the online softmax updated
+// per 16-key chunk, products on the fp32 CUDA cores.
+//
+// Both variants:
+//   * stop the key loop at the last key any row of the tile can see
 //     (min(kv_len, q_offset + last row + 1) when causal): fully masked
-//     blocks are skipped as in the reference.
-//   * Keys past that end are staged as zeros and masked keys get p = 0, so
+//     blocks are skipped as in the reference;
+//   * stage keys past that end as zeros and give masked keys p = 0, so
 //     garbage in a capacity buffer beyond q_offset + C (chunked prefill)
-//     never enters m, l or the accumulator, even if it is not finite.
-//     Key 0 is always visible to every row, so for every row the first
-//     chunk sets a finite running max, exactly as in the reference.
+//     never enters m, l or the accumulator, even if it is not finite (in
+//     a tensor-core product 0 * NaN would be NaN).  Key 0 is always visible
+//     to every row, so every row's first tile sets a finite running max.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -166,17 +180,262 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
+__device__ __forceinline__ void cp_async_commit_f() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_f() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------------ tensor cores
+constexpr int MQ = 64;            // query rows per block: 4 warps x 16
+constexpr int MKV = 64;           // keys per K/V tile
+constexpr int MTHREADS = 128;
+constexpr int ROWB = MAXD * 2;    // bytes per shared-memory row (bf16)
+constexpr int MSMEM = (MQ + 4 * MKV) * ROWB;   // Q + 2 x (K, V): 80 KB
+
+// Byte offset of 16-byte chunk c (8 dims) of row r; chunks XOR-swizzled so
+// `ldmatrix` over 8 consecutive rows hits 8 distinct bank groups.
+__device__ __forceinline__ uint32_t fswz(int r, int c) {
+  return static_cast<uint32_t>(r * ROWB + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [r0, r0 + n) of a (rows, d) bf16 matrix into shared memory; rows at
+// or past `valid` are zero-filled (their source is never read).
+__device__ __forceinline__ void load_rows(uint32_t tile, const __nv_bfloat16* m,
+                                          int r0, int n, int valid, int d) {
+  const int chunks = d / 8;
+  for (int idx = threadIdx.x; idx < n * chunks; idx += MTHREADS) {
+    const int r = idx / chunks, c = idx % chunks;
+    const bool in = r0 + r < valid;
+    const __nv_bfloat16* src = m + (in ? static_cast<size_t>(r0 + r) * d + 8 * c : 0);
+    cp_async16_zfill(tile + fswz(r, c), src, in ? 16 : 0);
+  }
+}
+
+// grid (BH_q, ceil(Sq / 64)): blockIdx.y counts query tiles from the last
+// (longest under the causal mask) down.
+__global__ void __launch_bounds__(MTHREADS)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int Sq, int L, int hd, int hdv,
+                 int G, float scale_log2, int q_offset, int kv_len,
+                 int causal) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t qs = base;
+  auto ks_tile = [&](int buf) { return base + (MQ + 2 * buf * MKV) * ROWB; };
+  auto vs_tile = [&](int buf) { return base + (MQ + (2 * buf + 1) * MKV) * ROWB; };
+
+  const int b = blockIdx.x;
+  const int tile = gridDim.y - 1 - blockIdx.y;
+  const int q0 = tile * MQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kvb = b / G;
+  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Sq * hd;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(kvb) * L * hd;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(kvb) * L * hdv;
+
+  const int last_row = min(Sq, q0 + MQ) - 1;
+  int kend = min(kv_len, L);
+  if (causal) kend = min(kend, q_offset + last_row + 1);
+  const int ntiles = (kend + MKV - 1) / MKV;
+
+  load_rows(qs, qb, q0, MQ, Sq, hd);
+  cp_async_commit_f();
+  if (ntiles > 0) {
+    load_rows(ks_tile(0), kb, 0, MKV, kend, hd);
+    load_rows(vs_tile(0), vb, 0, MKV, kend, hdv);
+  }
+  cp_async_commit_f();
+  cp_async_wait_f<1>();
+  __syncthreads();
+
+  // Q fragments: k-step ks covers dims 16 ks .. 16 ks + 15
+  uint32_t qf[MAXD / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < MAXD / 16; ++ks)
+    if (16 * ks < hd)
+      ldsm_x4(qs + fswz(16 * warp + lane % 16, 2 * ks + lane / 16), qf[ks]);
+
+  float acc[MAXD / 8][4];
+#pragma unroll
+  for (int j = 0; j < MAXD / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  const int qpos0 = q_offset + q0 + 16 * warp + g;   // row g; row g+8 is +8
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {
+      load_rows(ks_tile(buf ^ 1), kb, (it + 1) * MKV, MKV, kend, hd);
+      load_rows(vs_tile(buf ^ 1), vb, (it + 1) * MKV, MKV, kend, hdv);
+    }
+    cp_async_commit_f();
+    cp_async_wait_f<1>();
+    __syncthreads();
+    const uint32_t kt = ks_tile(buf), vt = vs_tile(buf);
+    const int k0 = it * MKV;
+
+    // S = Q K^T: 8 MMA tiles of 8 keys
+    float s[MKV / 8][4];
+#pragma unroll
+    for (int j = 0; j < MKV / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < MAXD / 16; ++ks) {
+      if (16 * ks >= hd) break;
+#pragma unroll
+      for (int jj = 0; jj < MKV / 16; ++jj) {
+        uint32_t kf[4];
+        ldsm_x4(kt + fswz(16 * jj + lane % 8 + 8 * (lane / 16),
+                          2 * ks + (lane / 8) % 2), kf);
+        mma_bf16(s[2 * jj], qf[ks], kf[0], kf[1]);
+        mma_bf16(s[2 * jj + 1], qf[ks], kf[2], kf[3]);
+      }
+    }
+
+    // mask, tile max, online-softmax update (rows g and g + 8)
+    float tmax[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < MKV / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kj = k0 + 8 * j + 2 * t + (c & 1);
+        const int h = c >> 1;
+        const bool vis = kj < kend && (!causal || qpos0 + 8 * h >= kj);
+        s[j][c] = vis ? s[j][c] * scale_log2 : NEG_INF;
+        tmax[h] = fmaxf(tmax[h], s[j][c]);
+      }
+    float alpha[2], m_new[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+      m_new[h] = fmaxf(m_run[h], tmax[h]);
+      alpha[h] = exp2f(m_run[h] - m_new[h]);
+      m_run[h] = m_new[h];
+      l_run[h] *= alpha[h];
+    }
+    // P in bf16 as A fragments of the PV product; the sum takes the
+    // rounded values, so the weights that reach O sum to l exactly
+    uint32_t pf[MKV / 16][4];
+#pragma unroll
+    for (int j = 0; j < MKV / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        p[c] = s[j][c] > 0.5f * NEG_INF ? exp2f(s[j][c] - m_new[c >> 1]) : 0.f;
+      const uint32_t lo = pack_bf16(p[0], p[1]), hi = pack_bf16(p[2], p[3]);
+      const __nv_bfloat162 l2 = *reinterpret_cast<const __nv_bfloat162*>(&lo);
+      const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+      l_run[0] += __low2float(l2) + __high2float(l2);
+      l_run[1] += __low2float(h2) + __high2float(h2);
+      pf[j / 2][(j & 1) * 2] = lo;
+      pf[j / 2][(j & 1) * 2 + 1] = hi;
+    }
+#pragma unroll
+    for (int j = 0; j < MAXD / 8; ++j) {
+      acc[j][0] *= alpha[0]; acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1]; acc[j][3] *= alpha[1];
+    }
+    // O += P V: V tiles through ldmatrix.trans, 16 dims per x4 load
+#pragma unroll
+    for (int kk = 0; kk < MKV / 16; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < MAXD / 16; ++jj) {
+        if (16 * jj >= hdv) break;
+        uint32_t vf[4];
+        ldsm_x4_t(vt + fswz(16 * kk + lane % 8 + 8 * ((lane / 8) % 2),
+                            2 * jj + lane / 16), vf);
+        mma_bf16(acc[2 * jj], pf[kk], vf[0], vf[1]);
+        mma_bf16(acc[2 * jj + 1], pf[kk], vf[2], vf[3]);
+      }
+    __syncthreads();   // every warp is done with `buf` before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + 16 * warp + g + 8 * h;
+    if (qi >= Sq) continue;
+    const float inv = l_run[h] > 0.f ? 1.f / l_run[h] : 0.f;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * Sq + qi) * hdv;
+#pragma unroll
+    for (int j = 0; j < MAXD / 8; ++j) {
+      if (8 * j >= hdv) break;
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+    }
+  }
+}
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = CUDA cores (float32 or
+// bf16, head dims up to 128), 1 = bf16 tensor cores (hd and hd_v multiples
+// of 16 up to 128, 16-byte aligned rows).  Returns cudaGetLastError().
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    int dtype, int BHq, int BHkv, int Sq, int L, int hd,
-                    int hdv, float scale, int q_offset, int kv_len, int causal,
-                    void* stream) {
+                    int dtype, int variant, int BHq, int BHkv, int Sq, int L,
+                    int hd, int hdv, float scale, int q_offset, int kv_len,
+                    int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = BHq / BHkv;
+  if (variant == 1) {
+    if (dtype != 1 || hd % 16 || hdv % 16 || hd > MAXD || hdv > MAXD)
+      return static_cast<int>(cudaErrorInvalidValue);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MSMEM);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    dim3 grid(BHq, (Sq + MQ - 1) / MQ);
+    flash_mma_kernel<<<grid, MTHREADS, MSMEM, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+        Sq, L, hd, hdv, G, scale * 1.4426950408889634f, q_offset, kv_len,
+        causal);
+    return static_cast<int>(cudaGetLastError());
+  }
   dim3 grid((Sq + BQ - 1) / BQ, BHq);
   if (dtype == 0)
     flash_kernel<float><<<grid, THREADS, 0, st>>>(

@@ -4,8 +4,11 @@ Port of ``repro.kernels.flash_attention.flash_attention`` (the TPU
 prefill kernel): online-softmax attention over flattened heads, fp32
 running statistics, GQA by the kv-row map ``b // G``, causal masking on
 absolute positions (``q_offset``) and trailing keys masked by ``kv_len``.
-The CUDA kernel is ``csrc/flash_attention.cu``; unlike the reference,
-``q_offset`` and ``kv_len`` are run-time arguments of the kernel.
+The CUDA kernels are in ``csrc/flash_attention.cu``; unlike the reference,
+``q_offset`` and ``kv_len`` are run-time arguments.  Two variants, chosen
+by ``flash_variant`` from the dtype and head dims: "mma" (bf16 tensor
+cores; bf16 with hd and hd_v multiples of 16 up to 128) and "simt" (fp32
+CUDA cores; float32, or other head dims up to 128).
 
 Layout contract: q (BH_q, Sq, hd); k (BH_kv, L, hd); v (BH_kv, L, hd_v);
 returns (BH_q, Sq, hd_v) in q's dtype.  The wrapper takes the plain version
@@ -21,11 +24,24 @@ import torch
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
 
-MAX_HEAD_DIM = 128                 # the kernel's largest hd / hd_v
+MAX_HEAD_DIM = 128                 # the kernels' largest hd / hd_v
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODE = {"simt": 0, "mma": 1}
 
-# kernel launches on the CUDA path (the plain CPU path does not count)
+# kernel launches on the CUDA path (the plain CPU path does not count):
+# every launch, and those of the tensor-core variant
 launches = 0
+launches_mma = 0
+
+
+def flash_variant(dtype, hd: int, hd_v: int) -> str:
+    """The kernel variant for q/k/v of ``dtype`` and head dims (hd, hd_v):
+    "mma" (bf16 tensor cores) for bf16 with both head dims multiples of 16
+    up to MAX_HEAD_DIM, else "simt" (fp32 CUDA cores)."""
+    if (dtype == torch.bfloat16 and hd % 16 == 0 and hd_v % 16 == 0
+            and hd <= MAX_HEAD_DIM and hd_v <= MAX_HEAD_DIM):
+        return "mma"
+    return "simt"
 
 
 def flash_attention_plain(q, k, v, *, causal=True, q_offset=0, kv_len=None):
@@ -41,14 +57,14 @@ def _library():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, i,
-                   p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i,
+                   i, p]
     fn.restype = i
     return lib, fn
 
 
 def _launch(q, k, v, causal, q_offset, kv_len):
-    global launches
+    global launches, launches_mma
     BHq, Sq, hd = q.shape
     BHkv, L, hdk = k.shape
     hdv = v.shape[-1]
@@ -65,14 +81,20 @@ def _launch(q, k, v, causal, q_offset, kv_len):
             raise ValueError("q/k/v must be contiguous on one CUDA device")
     if not 0 <= kv_len <= L:
         raise ValueError(f"kv_len {kv_len} outside [0, {L}]")
+    variant = flash_variant(q.dtype, hd, hdv)
+    if variant == "mma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core flash kernel needs 16-byte aligned "
+                         "q/k/v")
     out = torch.empty((BHq, Sq, hdv), dtype=q.dtype, device=q.device)
     lib, fn = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], BHq, BHkv, Sq, L, hd, hdv, 1.0 / hd ** 0.5,
-            int(q_offset), int(kv_len), int(causal), stream)
+            _DTYPE_CODE[q.dtype], _VARIANT_CODE[variant], BHq, BHkv, Sq, L,
+            hd, hdv, 1.0 / hd ** 0.5, int(q_offset), int(kv_len),
+            int(causal), stream)
     _build.check(lib, "flash_attention_error_string", rc, "flash_attention")
     launches += 1
+    launches_mma += variant == "mma"
     return out
 
 

@@ -3,8 +3,12 @@
 Ports of ``repro.kernels.photonic_mvm``:
 
   * ``photonic_mvm_fused`` (the TPU megakernel): quantize -> offset-
-    decomposed MVM -> bias -> activation -> blocked output shuffle, in one
-    kernel (``csrc/photonic_mvm_fused.cu``);
+    decomposed MVM -> bias -> activation -> blocked output shuffle
+    (``csrc/photonic_mvm_fused.cu``), in two regimes that ``launch_plan``
+    picks from M: decode widths (M <= ``GEMV_MAX_M``) stream the bank once
+    with ``dp4a`` from registers, quantizing in the prologue; prefill
+    widths quantize x once into an int8 workspace, then run the product on
+    the s8 tensor cores (``csrc/photonic_mvm_mma.cuh``);
   * ``photonic_mvm`` / ``photonic_mvm_t`` (the split pipeline's MVM, both
     OBU orientations): int8 activations and an A8 scale in, the float32
     MVM out (``csrc/photonic_mvm_split.cu``, one library, both
@@ -25,8 +29,9 @@ The plain versions keep the reference kernels' float32 arithmetic (the
 offset decomposition above, first line), so on the CPU it tracks the JAX
 reference closely enough that no A8 rounding boundary flips between them
 on the test models.  The CUDA kernels compute the second line: an exact
-int32 product (``dp4a``) rescaled once, with one rescale expression in
-both libraries, so the split output cast to x's dtype equals the fused
+int32 product (``dp4a`` or s8 tensor cores) rescaled once, with one
+rescale expression in both libraries, so the split output cast to x's
+dtype equals the fused
 output.  Kernel and plain version differ only by the float32 rounding of
 the decomposition; ``chip_smoke.py`` holds them together within one bf16
 step (rel-L2 <= 2**-8).  The wrappers take the plain versions only for CPU
@@ -37,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,15 +54,33 @@ _ACT_CODE = {"none": 0, "relu": 1, "silu": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches on the CUDA path (the plain CPU path does not count):
-# photonic_mvm_fused, photonic_mvm, photonic_mvm_t and photonic_mvm_resident
+# photonic_mvm_fused (``launches_gemv`` of them in the decode regime),
+# photonic_mvm, photonic_mvm_t and photonic_mvm_resident
 launches = 0
+launches_gemv = 0
 launches_mvm = 0
 launches_mvm_t = 0
 launches_resident = 0
 
 QMAX = 127.0          # W8A8: the kernel's int8 grid
-BN, BK = 128, 64      # kernel output-column tile and reduction stage
+BN, BK = 128, 64      # split kernels' output-column tile and reduction stage
 _SMS_H100 = 132
+# the fused kernel (``csrc/photonic_mvm_fused.cu``, the same constants
+# there): decode regime up to GEMV_MAX_M rows; its blocks cover GEMV_COLS
+# columns of a (K, N) bank or GEMV_T_COLS channels of an (N, K) one and
+# hold rows x k_per_split <= GEMV_XS_BYTES quantized activations
+GEMV_MAX_M = 8
+GEMV_COLS, GEMV_T_COLS = 128, 64
+GEMV_XS_BYTES = 32768
+# decode blocks resident per SM (the kernels' launch bounds): 4 and 3 for
+# the (K, N) bank at rows = 4 and 8, 2 for the (N, K) bank
+GEMV_BLOCKS_PER_SM = {(False, 4): 4, (False, 8): 3, (True, 4): 2,
+                      (True, 8): 2}
+# the tensor-core regime's block tile (``pmma::BM, BN, BK``)
+MMA_BM, MMA_BN, MMA_BK = 128, 128, 128
+# a split tensor-core call keeps its int32 partials within this many bytes
+# (they stay in the 50 MB L2 until the last block of a tile adds them)
+MMA_PART_BYTES = 8 << 20
 # the resident kernel holds the full-depth (K, 32) bank tile in shared
 # memory: K up to this fits (``RESIDENT_MAX_K`` in the CUDA source)
 RESIDENT_MAX_K = 4096
@@ -94,10 +118,63 @@ def out_block_index(block_perm, block: int, N: int) -> np.ndarray:
     return np.argsort(perm).astype(np.int32)
 
 
-def launch_plan(M: int, K: int, N: int, sms: int = _SMS_H100) -> tuple:
-    """(bm, k_per_split) for an (M, K) x (K, N) launch.  Decode widths
-    (M <= 16) take the 16-row tile; K splits until the grid holds about two
-    blocks per SM (integer partials, so the split never changes results)."""
+class Plan(NamedTuple):
+    """How ``photonic_mvm_fused`` runs one (M, K) x (K, N) call.  ``regime``
+    "gemv" (decode widths, ``rows`` = 4 or 8 >= M) or "mma" (tensor
+    cores, ``rows`` = the 128-row tile); ``tiles`` output tiles, K split
+    into ``splits`` ranges of ``k_per_split``; workspaces: the int8 A8 grid
+    of x (``xq_bytes``, mma only) and the int32 split partials
+    (``part_bytes``, splits > 1 only)."""
+    regime: str
+    rows: int
+    tiles: int
+    k_per_split: int
+    splits: int
+    xq_bytes: int
+    part_bytes: int
+
+
+def launch_plan(M: int, K: int, N: int, transpose: bool = False,
+                sms: int = _SMS_H100) -> Plan:
+    """The fused kernel's plan for an (M, K) x (K, N) call.  Decode widths
+    stream the bank: K splits while the blocks fit one wave at
+    GEMV_BLOCKS_PER_SM and a block's quantized rows fit GEMV_XS_BYTES (an
+    (N, K) split keeps whole 512-byte row segments: one 16-byte load per
+    lane).  Prefill widths take 128 x 128 tensor-core tiles; K splits only
+    while the tiles fill less than one wave, each split keeping two k-tiles
+    and all partials within MMA_PART_BYTES.  The last block of a tile adds
+    the integer partials: the split never changes results."""
+    def rounded(n, unit):
+        return math.ceil(n / unit) * unit
+
+    if M <= GEMV_MAX_M:
+        rows = 4 if M <= 4 else 8
+        tiles = math.ceil(N / (GEMV_T_COLS if transpose else GEMV_COLS))
+        unit = 512 if transpose and K >= 512 else 64
+        per_sm = GEMV_BLOCKS_PER_SM[(bool(transpose), rows)]
+        splits = max(1, min((per_sm * sms) // tiles,
+                            K // (512 if transpose else 128), K // (8 * M)))
+        kps = min(rounded(math.ceil(K / splits), unit),
+                  GEMV_XS_BYTES // rows)
+        splits = math.ceil(K / kps)
+        return Plan("gemv", rows, tiles, kps, splits, 0,
+                    4 * splits * M * N if splits > 1 else 0)
+    tiles = math.ceil(M / MMA_BM) * math.ceil(N / MMA_BN)
+    ktiles = math.ceil(K / MMA_BK)
+    splits = 1
+    if tiles < sms:
+        splits = max(1, min(math.ceil(2 * sms / tiles), ktiles // 2,
+                            MMA_PART_BYTES // (4 * M * N)))
+    kps = math.ceil(ktiles / splits) * MMA_BK
+    splits = math.ceil(K / kps)
+    return Plan("mma", MMA_BM, tiles, kps, splits, M * rounded(K, 16),
+                4 * splits * M * N if splits > 1 else 0)
+
+
+def split_launch_plan(M: int, K: int, N: int, sms: int = _SMS_H100) -> tuple:
+    """(bm, k_per_split) of the split kernels (``photonic_mvm`` /
+    ``photonic_mvm_t``): decode widths (M <= 16) take the 16-row tile; K
+    splits until the grid holds about two blocks per SM."""
     bm = 16 if M <= 16 else 128
     tiles = math.ceil(M / bm) * math.ceil(N / BN)
     ksteps = max(1, math.ceil(K / BK))
@@ -139,6 +216,14 @@ def photonic_mvm_fused_plain(x, wq, x_scale, w_scale, *, bias=None,
     return apply_activation(y, activation)
 
 
+@functools.lru_cache(maxsize=64)
+def _inv_perm(block_perm: tuple, block: int, N: int, device) -> torch.Tensor:
+    """``out_block_index`` on the device, copied there once per
+    permutation."""
+    return torch.as_tensor(out_block_index(block_perm, block, N),
+                           device=device)
+
+
 def _check_operands(x, wq, x_scale, w_scale, bias, transpose):
     if x.ndim != 2 or wq.ndim != 2:
         raise ValueError(f"need x (M, K) and wq 2-D, got {tuple(x.shape)} "
@@ -170,14 +255,28 @@ def _library():
     lib = _build.load("photonic_mvm_fused")
     fn = lib.photonic_mvm_fused
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, i, i, i, p, p, p]
+    fn.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p,
+                   p, p]
     fn.restype = i
     return lib, fn
 
 
+# split-K grids stay under one wave: at most 4 x 132 / 2 decode tiles or
+# 132 tensor-core tiles carry arrival counters
+MAX_SPLIT_TILES = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_counters(device) -> torch.Tensor:
+    """Split-K arrival counters of one device, one int32 per output tile.
+    They are zero between calls: the kernel's last block of a tile re-arms
+    its counter, and calls on the device run in stream order."""
+    return torch.zeros(MAX_SPLIT_TILES, dtype=torch.int32, device=device)
+
+
 def _launch(x, wq, x_scale, w_scale, bias, transpose, activation,
             block_perm, block):
-    global launches
+    global launches, launches_gemv
     M, K, N = _check_operands(x, wq, x_scale, w_scale, bias, transpose)
     tensors = [x, wq, x_scale, w_scale] + ([bias] if bias is not None else [])
     for t in tensors:
@@ -189,25 +288,37 @@ def _launch(x, wq, x_scale, w_scale, bias, transpose, activation,
         raise ValueError(f"unsupported fused activation {activation!r}")
     inv = None
     if block_perm is not None:
-        inv = torch.as_tensor(out_block_index(block_perm, block, N),
-                              device=x.device)
+        inv = _inv_perm(tuple(int(b) for b in block_perm), int(block), N,
+                        x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    bm, kps = launch_plan(M, K, N, sms)
-    splits = math.ceil(K / kps)
-    work = (torch.empty((splits, M, N), dtype=torch.int32, device=x.device)
-            if splits > 1 else None)
+    plan = launch_plan(M, K, N, transpose, sms)
+    xq = (torch.empty(plan.xq_bytes, dtype=torch.int8, device=x.device)
+          if plan.xq_bytes else None)
+    part = counters = None
+    if plan.part_bytes:
+        part = torch.empty(plan.part_bytes // 4, dtype=torch.int32,
+                           device=x.device)
+        if plan.tiles > MAX_SPLIT_TILES:
+            raise ValueError(f"{plan.tiles} split tiles exceed the "
+                             f"{MAX_SPLIT_TILES} arrival counters")
+        counters = _tile_counters(x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib, fn = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    gemv = plan.regime == "gemv"
     rc = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], wq.data_ptr(), int(transpose),
             x_scale.data_ptr(), w_scale.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             inv.data_ptr() if inv is not None else None,
-            int(block), _ACT_CODE[activation], M, K, N, bm, kps,
-            work.data_ptr() if work is not None else None, out.data_ptr(),
-            stream)
+            int(block), _ACT_CODE[activation], M, K, N, 0 if gemv else 1,
+            plan.rows, plan.k_per_split,
+            xq.data_ptr() if xq is not None else None,
+            part.data_ptr() if part is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            out.data_ptr(), stream)
     _build.check(lib, "photonic_mvm_error_string", rc, "photonic_mvm_fused")
     launches += 1
+    launches_gemv += gemv
     return out
 
 
@@ -278,7 +389,7 @@ def _launch_split(xq, wq, x_scale, w_scale, transpose):
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
     sms = torch.cuda.get_device_properties(xq.device).multi_processor_count
-    bm, kps = launch_plan(M, K, N, sms)
+    bm, kps = split_launch_plan(M, K, N, sms)
     splits = math.ceil(K / kps)
     work = (torch.empty((splits, M, N), dtype=torch.int32, device=xq.device)
             if splits > 1 else None)

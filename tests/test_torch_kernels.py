@@ -9,6 +9,10 @@ bf16 rounding boundary), plus 1e-6 of the largest output for entries that
 cancel to near zero.  The CUDA kernels themselves run only on the card:
 ``chip_smoke.py`` holds each against its plain version there.
 """
+import importlib.util
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -209,7 +213,8 @@ def test_chunk_garbage_past_causal_window_never_counts():
 
 
 def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
-    before = (t_pm.launches, t_fa.launches)
+    before = (t_pm.launches, t_pm.launches_gemv, t_fa.launches,
+              t_fa.launches_mma)
     x = torch.randn(4, 64)
     wq = torch.randint(-127, 128, (64, 32), dtype=torch.int8)
     ws = torch.rand(32) + 0.01
@@ -219,15 +224,68 @@ def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
                                                                  ws))
     q = torch.randn(2, 5, 8)
     t_fa.flash_attention(q, q, q)
-    assert (t_pm.launches, t_fa.launches) == before
+    qb = torch.randn(2, 5, 16).to(torch.bfloat16)
+    t_fa.flash_attention(qb, qb, qb)
+    assert (t_pm.launches, t_pm.launches_gemv, t_fa.launches,
+            t_fa.launches_mma) == before
 
 
-@pytest.mark.parametrize("M,K,N", [(4, 3072, 3072), (4, 3072, 9216),
-                                   (4, 9216, 3072), (4, 3072, 256000),
-                                   (2048, 3072, 9216), (130, 72, 200),
-                                   (1, 64, 96)])
-def test_launch_plan(M, K, N):
-    bm, kps = t_pm.launch_plan(M, K, N)
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SPLIT_PLAN_SHAPES = [(4, 3072, 3072), (4, 3072, 9216), (4, 9216, 3072),
+                      (4, 3072, 256000), (2048, 3072, 9216), (130, 72, 200),
+                      (1, 64, 96)]
+# every chip_smoke MVM shape, plus the shapes the plan was first tested at
+# in both orientations (the small models' ragged 72 -> 200 among them)
+_FUSED_PLAN_SHAPES = sorted(
+    {(M, K, N, tr) for _, M, K, N, tr, _, _ in _chip_smoke().mvm_cases()}
+    | {(M, K, N, tr) for M, K, N in _SPLIT_PLAN_SHAPES for tr in (False, True)})
+
+
+@pytest.mark.parametrize("M,K,N,transpose", _FUSED_PLAN_SHAPES)
+def test_launch_plan(M, K, N, transpose):
+    """The fused kernel's plan: decode widths stream the bank ("gemv"),
+    prefill widths take the tensor cores ("mma"); every split has work; the
+    workspaces are the int8 A8 grid (mma) and the int32 partials (split)."""
+    plan = t_pm.launch_plan(M, K, N, transpose)
+    kps, splits = plan.k_per_split, plan.splits
+    assert kps % 64 == 0 and splits == -(-K // kps)
+    assert (splits - 1) * kps < K <= splits * kps       # every split has work
+    assert plan.part_bytes == (4 * splits * M * N if splits > 1 else 0)
+    if splits > 1:                      # one arrival counter per split tile
+        assert plan.tiles <= t_pm.MAX_SPLIT_TILES
+    if M <= t_pm.GEMV_MAX_M:
+        assert plan.regime == "gemv" and plan.xq_bytes == 0
+        assert plan.rows in (4, 8) and plan.rows >= M
+        assert plan.rows * kps <= t_pm.GEMV_XS_BYTES   # shared-memory rows
+        cols = t_pm.GEMV_T_COLS if transpose else t_pm.GEMV_COLS
+        assert plan.tiles == -(-N // cols)
+        per_sm = t_pm.GEMV_BLOCKS_PER_SM[(transpose, plan.rows)]
+        if splits > 1:             # one wave, unless the rows' cap splits
+            assert (plan.tiles * splits <= per_sm * 132
+                    or plan.rows * kps == t_pm.GEMV_XS_BYTES)
+        if transpose and K >= 512:
+            assert kps % 512 == 0       # whole 16-byte loads for every lane
+    else:
+        assert plan.regime == "mma" and plan.rows == t_pm.MMA_BM
+        assert kps % t_pm.MMA_BK == 0
+        assert plan.tiles == -(-M // t_pm.MMA_BM) * -(-N // t_pm.MMA_BN)
+        assert plan.xq_bytes == M * -(-K // 16) * 16
+        if plan.tiles >= 132:
+            assert splits == 1                  # a full wave: no split
+        if splits > 1:
+            assert plan.part_bytes <= t_pm.MMA_PART_BYTES
+
+
+@pytest.mark.parametrize("M,K,N", _SPLIT_PLAN_SHAPES)
+def test_split_launch_plan(M, K, N):
+    bm, kps = t_pm.split_launch_plan(M, K, N)
     assert bm == (16 if M <= 16 else 128)
     assert kps % t_pm.BK == 0 and kps >= t_pm.BK
     splits = -(-K // kps)
@@ -237,6 +295,40 @@ def test_launch_plan(M, K, N):
         assert splits == 1                              # big grids: no split
     else:
         assert tiles * splits >= min(2 * 132, tiles * -(-K // t_pm.BK)) // 2
+
+
+@pytest.mark.parametrize("dtype,hd,hd_v,variant", [
+    (torch.bfloat16, 128, 128, "mma"),      # minitron-4b
+    (torch.bfloat16, 64, 96, "mma"),        # hd_v != hd
+    (torch.bfloat16, 16, 16, "mma"),
+    (torch.bfloat16, 24, 24, "simt"),       # not a multiple of 16
+    (torch.bfloat16, 128, 72, "simt"),
+    (torch.bfloat16, 144, 144, "simt"),     # past 128: the launch refuses
+    (torch.float32, 16, 16, "simt"),        # the float32 smoke models
+    (torch.float32, 128, 128, "simt"),
+])
+def test_flash_variant_dispatch(dtype, hd, hd_v, variant):
+    assert t_fa.flash_variant(dtype, hd, hd_v) == variant
+
+
+def test_chip_smoke_profile_groups_every_kernel():
+    """``chip_smoke``'s profile attributes each CUDA kernel in ``csrc/`` to
+    the port kernel whose library defines it (none falls into "other torch
+    kernels")."""
+    cs = _chip_smoke()
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
+                     r"(?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(")
+    seen = 0
+    for name, src in t_build.SOURCES.items():
+        kernels = pat.findall((t_build.csrc_dir() / src).read_text())
+        assert kernels, src
+        for k in kernels:
+            assert cs.kernel_group(f"void (anonymous namespace)::{k}<float>"
+                                   f"(float const*)") == name, k
+            seen += 1
+    assert cs.kernel_group("void at::native::vectorized_elementwise_kernel"
+                           "<4>()") == "other torch kernels"
+    assert seen >= 11
 
 
 def test_block_perm_validation():
@@ -266,13 +358,19 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
                                        "photonic_mvm_split", "ssd_chunk"]
     for src in t_build.SOURCES.values():
         assert (t_build.csrc_dir() / src).is_file()
+    # the fused kernel's library is keyed by both MVM headers it includes
+    assert sorted(p.name for p in t_build.source_files("photonic_mvm_fused")) \
+        == ["photonic_mvm_common.cuh", "photonic_mvm_fused.cu",
+            "photonic_mvm_mma.cuh"]
 
 
 def test_library_path_hashes_the_headers_a_source_includes(monkeypatch,
                                                            tmp_path):
-    """Editing a ``csrc/`` header shared by three kernels rebuilds them,
-    and no other kernel: the library name hashes the ``.cu`` file and every
-    header it includes, directly or through another header."""
+    """Editing a ``csrc/`` header rebuilds exactly the kernels that include
+    it: the shared rescale header the three MVM libraries, the tensor-core
+    tile loop header the fused one.  The library name hashes the ``.cu``
+    file and every header it includes, directly or through another
+    header."""
     import shutil
     src = tmp_path / "csrc"
     shutil.copytree(t_build.csrc_dir(), src)
@@ -289,3 +387,8 @@ def test_library_path_hashes_the_headers_a_source_includes(monkeypatch,
     changed = sorted(n for n in before if before[n] != after[n])
     assert changed == ["photonic_mvm_fused", "photonic_mvm_resident",
                        "photonic_mvm_split"]
+    mma = src / "photonic_mvm_mma.cuh"
+    mma.write_text(mma.read_text() + "\n// edited\n")
+    again = {n: t_build.library_path(n) for n in t_build.SOURCES}
+    assert sorted(n for n in after if after[n] != again[n]) == \
+        ["photonic_mvm_fused"]

@@ -254,3 +254,34 @@ def test_chip_ssd_check_sees_every_tile(decay, H, N):
         assert seen > 0.1 > cs.SSD_TOL, seen
     else:
         assert max(_rel(y_cut, y), _rel(st_cut, st)) < cs.SSD_TOL
+
+
+def test_chip_mvm_and_flash_cases_cover_regimes_and_variants():
+    """``chip_smoke.py``'s kernel cases reach every code path of the two
+    redesigned kernels on the card: both fused-MVM regimes in both bank
+    orientations, both sides of the regime boundary, a ragged N; both flash
+    variants, a float32 hd 16 case, and a case with a capacity buffer
+    poisoned (NaN / inf) past kv_len."""
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.kernels import photonic_mvm as t_pm
+    cs = _chip_smoke()
+    mvm = cs.mvm_cases()
+    seen = {(t_pm.launch_plan(M, K, N, tr).regime, tr)
+            for _, M, K, N, tr, _, _ in mvm}
+    assert seen == {("gemv", False), ("gemv", True), ("mma", False),
+                    ("mma", True)}
+    widths = {M for _, M, _, _, _, _, _ in mvm}
+    assert {t_pm.GEMV_MAX_M, t_pm.GEMV_MAX_M + 1, 40, 512, 600} <= widths
+    assert any(N % 128 for _, _, _, N, _, _, _ in mvm)
+    flash = cs.flash_cases()
+    variants = {t_fa.flash_variant(getattr(torch, c[10]), c[8], c[9])
+                for c in flash}
+    assert variants == {"mma", "simt"}
+    assert any(c[10] == "float32" and c[8] == 16 for c in flash)
+    poisoned = [c for c in flash if c[11]]
+    assert poisoned and all(c[5] < c[3] for c in poisoned)   # kv_len < L
+    k = torch.zeros(2, 10, 4)
+    cs.poison_past(k, 6)
+    assert torch.isfinite(k[:, :6]).all() and not torch.isfinite(k[:, 6:]
+                                                                 ).any()
+    assert torch.isnan(k[:, 6:]).any() and torch.isinf(k[:, 6:]).any()
