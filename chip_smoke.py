@@ -18,11 +18,16 @@ the script exits non-zero without printing the final ``ok`` line):
    widths) and flash attention (slice 1; since slice 5 a bf16 tensor-core
    variant "mma" beside the float32 CUDA-core one "simt", and a case with
    NaN/inf past kv_len), the split MVMs in both orientations and the
-   blend (slice 2), the reuse-resident MVM (slice 3, also held bit for
-   bit to T launches of the split MVM), the intra-chunk SSD (slice 4, at
-   mamba2-780m's and a jamba-width chunk, with stride-0 and materialised
-   B/C, which must agree bit for bit, each at mamba2's decay spread and at
-   a slow decay under which every key tile and state row carries weight);
+   blend (slice 2; since slice 6 ``photonic_mvm_t`` runs the fused
+   kernel's regimes on int8 rows, each row naming its own, and equals
+   ``photonic_mvm`` on the transposed bank bit for bit), the
+   reuse-resident MVM (slice 3, also held bit for bit to T launches of the
+   split MVM; since slice 6 on the s8 tensor cores, any K, with a
+   jamba-width bank past the first kernel's limit), the intra-chunk SSD
+   (slice 4, at mamba2-780m's and a jamba-width chunk, with stride-0 and
+   materialised B/C, which must agree bit for bit, each at mamba2's decay
+   spread and at a slow decay under which every key tile and state row
+   carries weight);
 3. the fused serving path: minitron-4b with its R&B plan (8 physical
    blocks x 4 reuses) at full width, photonic, bf16, seeded random weights,
    through ``Program.generate`` and a ``ContinuousScheduler`` with chunked
@@ -235,7 +240,10 @@ def check_mvm(torch, timer, pm, photonic):
 def int_mm_ms(torch, timer, xq, wq, transpose, reps):
     """Yardstick: cuBLAS int8 x int8 -> int32 (``torch._int_mm``) on the
     same quantized operands.  It needs more than 16 rows, so decode widths
-    pad the rows to 32 with zeros."""
+    pad the rows to 32 with zeros; it takes no K or N that is not a
+    multiple of 8, so those cases have none (None)."""
+    if xq.shape[1] % 8 or wq.shape[0 if transpose else 1] % 8:
+        return None
     if xq.shape[0] < 32:
         xq = torch.cat([xq, xq.new_zeros((32 - xq.shape[0], xq.shape[1]))])
     w = wq.t() if transpose else wq
@@ -375,8 +383,9 @@ KERNEL_GROUPS = (
     # (kernel of the port, substrings of its CUDA kernels' names)
     ("photonic_mvm_fused", ("::gemv_kernel", "::gemv_t_kernel",
                             "::mma_kernel", "::quantize_kernel")),
-    ("photonic_mvm_split", ("::split_kernel", "::split_reduce_kernel")),
-    ("photonic_mvm_resident", ("::resident_kernel",)),
+    ("photonic_mvm", ("::split_kernel", "::split_reduce_kernel")),
+    ("photonic_mvm_t", ("::split_t_gemv_kernel", "::split_t_mma_kernel")),
+    ("photonic_mvm_resident", ("::resident_mma_kernel",)),
     ("blend_shuffle", ("::blend_kernel",)),
     ("flash_attention", ("::flash_kernel", "::flash_mma_kernel")),
     ("ssd_chunk", ("::ssd_chunk_kernel",)))
@@ -394,7 +403,9 @@ def kernel_group(name: str) -> str:
 def profile_generate(torch, prog, prompt):
     """Where the device time goes: ``torch.profiler`` over one
     ``Program.generate`` (one prefill + 7 decode steps), kernel time summed
-    by kernel, and the device's idle share of the wall time."""
+    by port kernel, the ten largest CUDA kernels inside "other torch
+    kernels" by name (time and launches), and the device's idle share of
+    the wall time."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     with profile(activities=[ProfilerActivity.CPU,
@@ -405,17 +416,24 @@ def profile_generate(torch, prog, prompt):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups: dict = {}
+    other = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         group = kernel_group(ev.key)
         groups[group] = groups.get(group, 0.0) + ev.self_device_time_total
+        if group == "other torch kernels":
+            other.append(ev)
     busy = sum(groups.values())
+    other.sort(key=lambda ev: -ev.self_device_time_total)
     return {"phase": "profile", "what": f"generate {tuple(prompt.shape)} "
             f"+ 8 tokens", "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us if wall_us else None,
-            "kernel_ms": {k: v / 1e3 for k, v in sorted(groups.items())}}
+            "kernel_ms": {k: v / 1e3 for k, v in sorted(groups.items())},
+            "other_top10": [{"kernel": ev.key[:200],
+                             "ms": ev.self_device_time_total / 1e3,
+                             "launches": ev.count} for ev in other[:10]]}
 
 
 def decode_step_costs(torch, prog):
@@ -565,11 +583,21 @@ def split_cases():
     fused kernel's serving shapes — minitron-4b's 3072->3072 (wq, wo),
     3072->1024 (wk, wv), 3072->9216 (w_gate, w_up), 9216->3072 (w_down)
     and the 3072->256000 lm head — in both orientations, at decode M = 4
-    and prefill M = 2048."""
+    and prefill M = 2048.  Then the row counts the fault-model path gives
+    the kernels: M = 1 (its generate's decode), 40 and 512 (the
+    scheduler's short prompt and prefill chunk) and 600 (the generate
+    prompt: a partly filled last row tile), at 3072->3072, 3072->9216 and
+    9216->3072; and ragged shapes: K = 4100 (rows not 16-byte aligned), N
+    = 300 and 200 (part-filled column tiles), at M = 5 and 8 (the 8-row
+    decode stream) and 600."""
     shapes = [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072),
               (3072, 256000)]
+    cases = [(M, K, N) for M in (4, 2048) for K, N in shapes]
+    cases += [(M, K, N) for M in (1, 40, 512, 600)
+              for K, N in ((3072, 3072), (3072, 9216), (9216, 3072))]
+    cases += [(5, 4100, 300), (8, 4100, 300), (600, 4100, 200)]
     return [(f"M={M} {K}->{N}{' ^T' if tr else ''}", M, K, N, tr)
-            for M in (4, 2048) for K, N in shapes for tr in (False, True)]
+            for M, K, N in cases for tr in (False, True)]
 
 
 def check_split(torch, timer, pm, photonic, ops):
@@ -584,6 +612,7 @@ def check_split(torch, timer, pm, photonic, ops):
         ws = torch.rand((N,), generator=gen, device="cuda") * 0.05 + 0.01
         kernel = pm.photonic_mvm_t if tr else pm.photonic_mvm
         plain = pm.photonic_mvm_t_plain if tr else pm.photonic_mvm_plain
+        name = "photonic_mvm_t" if tr else "photonic_mvm"
         got = kernel(xq, wq, xs, ws)
         want = plain(xq, wq, xs, ws)
         # the fused-vs-split gate at kernel level: the split output cast to
@@ -593,29 +622,49 @@ def check_split(torch, timer, pm, photonic, ops):
         err = rel_l2(got, want)
         max_abs = float((got - want).abs().max())
         if not (err <= MVM_TOL and torch.isfinite(got).all()):
-            raise AssertionError(f"{'photonic_mvm_t' if tr else 'photonic_mvm'}"
-                                 f" {label}: rel-L2 {err} > {MVM_TOL}")
-        fused_equal = bool(torch.equal(got.to(x.dtype), fused))
+            raise AssertionError(f"{name} {label}: rel-L2 {err} > {MVM_TOL}")
+        if not torch.equal(got.to(x.dtype), fused):
+            raise AssertionError(f"{name} {label}: cast to {x.dtype}, "
+                                 f"differs from the fused kernel")
         del fused
+        if tr:
+            # the (N, K) kernel against the (K, N) one on the transposed
+            # bank: one integer product, one rescale
+            kn = pm.photonic_mvm(xq, wq.t().contiguous(), xs, ws)
+            if not torch.equal(got, kn):
+                raise AssertionError(f"{name} {label}: differs from "
+                                     f"photonic_mvm on the transposed bank")
+            del kn
         big = M * K * N > 1e12
         reps = 5 if big else 20
         ms = timer.ms(lambda: kernel(xq, wq, xs, ws), reps)
         plain_ms = timer.ms(lambda: plain(xq, wq, xs, ws), 3 if big else 10)
         lib_ms = int_mm_ms(torch, timer, xq, wq, tr, reps)
+        # the fused kernel on the same bank (its A8 scale precomputed): the
+        # yardstick of the (N, K) decode regime, which runs its stream
+        xs_fused = photonic.a8_scale(x)
+        fused_ms = timer.ms(lambda: pm.photonic_mvm_fused(
+            x, wq, xs_fused, ws, transpose=tr), reps)
         nbytes = M * K + K * N + 4 * N + 4 + 4 * M * N
         ops_n = 2.0 * M * K * N
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = ops_n / INT8_TOPS * 1e3
-        row = {"case": label,
-               "kernel": "photonic_mvm_t" if tr else "photonic_mvm",
+        row = {"case": label, "kernel": name,
+               "regime": (pm.split_t_launch_plan(M, K, N).regime if tr
+                          else "dp4a"),
+               "splits": (pm.split_t_launch_plan(M, K, N).splits if tr
+                          else -(-K // pm.split_launch_plan(M, K, N)[1])),
                "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "torch._int_mm on the int8 operands (product "
                           "only; rows padded to >= 32)",
+               "fused_ms": fused_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": ops_n,
-               "split_cast_equals_fused": fused_equal}
+               "split_cast_equals_fused": True}
+        if tr:
+            row["equals_photonic_mvm_on_transposed_bank"] = True
         emit(row)
         rows.append(row)
         del got, want, x, xq, wq
@@ -867,9 +916,21 @@ def resident_cases():
     (d 1024, d_ff_expert 512) with T = E / R_e = 4 streams per bank:
     gate/up 1024->512 and down 512->1024 at M = G * C rows per stream —
     8 in a capacity-4 decode step, 160 in a 512-token chunk, 640 in a
-    2048-row prefill."""
+    2048-row prefill; jamba-v0.1-52b's blended ``w_down`` (d_ff_expert
+    14336 -> d 4096, a 58.7 MB bank, K past the 4096 the first kernel held
+    in shared memory) and ``w_gate`` (4096 -> 14336) with two streams of
+    64 rows; and ragged shapes: K = 4100 (rows not 16-byte aligned), N =
+    40 and 200 (part-filled column tiles), one stream of 5 rows and three
+    of 50 (a row tile that straddles streams)."""
     return [(f"T=4 M={M} {K}->{N}", 4, M, K, N)
-            for M in (8, 160, 640) for K, N in ((1024, 512), (512, 1024))]
+            for M in (8, 160, 640) for K, N in ((1024, 512), (512, 1024))] + \
+        [("T=2 M=64 14336->4096 (jamba w_down)", 2, 64, 14336, 4096),
+         ("T=2 M=64 4096->14336 (jamba w_gate)", 2, 64, 4096, 14336),
+         ("T=1 M=5 4100->40", 1, 5, 4100, 40),
+         ("T=3 M=50 4100->200", 3, 50, 4100, 200)]
+
+
+RESIDENT_SPLITS = (1, 2, 4, 8)
 
 
 def check_resident(torch, timer, pm, photonic):
@@ -901,16 +962,33 @@ def check_resident(torch, timer, pm, photonic):
         split_ms = timer.ms(lambda: [pm.photonic_mvm(xq[t], wq, xs[t], ws)
                                      for t in range(T)], 20)
         lib_ms = int_mm_ms(torch, timer, xq.reshape(T * M, K), wq, False, 20)
+        # the kernel under every K split the bank allows, bit for bit the
+        # plan's output: what a split costs, measured beside the plan
+        by_splits = {}
+        for n in RESIDENT_SPLITS:
+            made = pm.resident_launch_plan(T, M, K, N, splits=n).splits
+            if made in by_splits:
+                continue
+            alt = pm.photonic_mvm_resident(xq, wq, xs, ws, splits=n)
+            if not torch.equal(alt, got):
+                raise AssertionError(f"photonic_mvm_resident {label}: "
+                                     f"{made} K splits change the output")
+            del alt
+            by_splits[made] = timer.ms(lambda: pm.photonic_mvm_resident(
+                xq, wq, xs, ws, splits=n), 20)
         nbytes = T * M * K + K * N + 4 * T + 4 * N + 4 * T * M * N
         ops_n = 2.0 * T * M * K * N
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = ops_n / INT8_TOPS * 1e3
         row = {"case": label, "kernel": "photonic_mvm_resident",
+               "regime": pm.resident_launch_plan(T, M, K, N).regime,
+               "splits": pm.resident_launch_plan(T, M, K, N).splits,
                "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "torch._int_mm on the stacked (T*M, K) int8 rows "
                           "(product only; rows padded to >= 32)",
                "t_split_ms": split_ms, "streams_equal_split": True,
+               "by_splits": by_splits,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": ops_n}

@@ -12,11 +12,14 @@ Ports of ``repro.kernels.photonic_mvm``:
   * ``photonic_mvm`` / ``photonic_mvm_t`` (the split pipeline's MVM, both
     OBU orientations): int8 activations and an A8 scale in, the float32
     MVM out (``csrc/photonic_mvm_split.cu``, one library, both
-    orientations).  Quantization and the epilogue are separate passes
-    (``kernels/ops.py``, ``kernels/blend.py``);
+    orientations).  ``photonic_mvm_t`` runs the fused kernel's two regimes
+    (``split_t_launch_plan``) on its int8 rows: the (N, K) decode stream,
+    or the s8 tensor cores.  Quantization and the epilogue are separate
+    passes (``kernels/ops.py``, ``kernels/blend.py``);
   * ``photonic_mvm_resident`` (the PRM-blended MoE experts' MVM): T int8
     activation streams, each with its own A8 scale, through ONE programmed
-    (K, N) bank held in shared memory (``csrc/photonic_mvm_resident.cu``).
+    (K, N) bank (``csrc/photonic_mvm_resident.cu``): the T * M rows as one
+    matrix on the s8 tensor cores, any K (``resident_launch_plan``).
 
 Both versions compute the same function:
 
@@ -81,9 +84,13 @@ MMA_BM, MMA_BN, MMA_BK = 128, 128, 128
 # a split tensor-core call keeps its int32 partials within this many bytes
 # (they stay in the 50 MB L2 until the last block of a tile adds them)
 MMA_PART_BYTES = 8 << 20
-# the resident kernel holds the full-depth (K, 32) bank tile in shared
-# memory: K up to this fits (``RESIDENT_MAX_K`` in the CUDA source)
-RESIDENT_MAX_K = 4096
+# the resident kernel splits the K of a full row tile from this depth on,
+# each split keeping at least RESIDENT_SPLIT_MIN_KTILES k-tiles: granite's
+# 4-8 k-tiles ran fastest unsplit, 33 k-tiles over 4 tiles fastest at 7
+# splits (not 33), jamba's w_down (112 over 32 tiles) at 8 (chip_smoke
+# ``by_splits``, PERF.md); a depth between 8 and 33 is unmeasured
+RESIDENT_SPLIT_KTILES = 16
+RESIDENT_SPLIT_MIN_KTILES = 4
 
 
 def apply_activation(y: torch.Tensor, activation: str) -> torch.Tensor:
@@ -119,12 +126,13 @@ def out_block_index(block_perm, block: int, N: int) -> np.ndarray:
 
 
 class Plan(NamedTuple):
-    """How ``photonic_mvm_fused`` runs one (M, K) x (K, N) call.  ``regime``
+    """How a planned MVM kernel (``photonic_mvm_fused``, ``photonic_mvm_t``,
+    ``photonic_mvm_resident``) runs one (M, K) x (K, N) call.  ``regime``
     "gemv" (decode widths, ``rows`` = 4 or 8 >= M) or "mma" (tensor
     cores, ``rows`` = the 128-row tile); ``tiles`` output tiles, K split
     into ``splits`` ranges of ``k_per_split``; workspaces: the int8 A8 grid
-    of x (``xq_bytes``, mma only) and the int32 split partials
-    (``part_bytes``, splits > 1 only)."""
+    of x (``xq_bytes``, the fused kernel's mma regime only) and the int32
+    split partials (``part_bytes``, splits > 1 only)."""
     regime: str
     rows: int
     tiles: int
@@ -134,19 +142,39 @@ class Plan(NamedTuple):
     part_bytes: int
 
 
+def _rounded(n, unit):
+    return math.ceil(n / unit) * unit
+
+
+def _mma_plan(M, K, N, sms, xq_bytes, min_ktiles=2, splits=None) -> Plan:
+    """128 x 128 tensor-core tiles; K splits only while the tiles fill
+    less than one wave, each split keeping ``min_ktiles`` k-tiles and all
+    partials within MMA_PART_BYTES.  ``splits`` asks for that many K
+    ranges instead (fewer where K has fewer k-tiles)."""
+    tiles = math.ceil(M / MMA_BM) * math.ceil(N / MMA_BN)
+    ktiles = math.ceil(K / MMA_BK)
+    if splits is None:
+        splits = 1
+        if tiles < sms:
+            splits = max(1, min(math.ceil(2 * sms / tiles),
+                                ktiles // min_ktiles,
+                                MMA_PART_BYTES // (4 * M * N)))
+    splits = min(splits, ktiles)
+    kps = math.ceil(ktiles / splits) * MMA_BK
+    splits = math.ceil(K / kps)
+    return Plan("mma", MMA_BM, tiles, kps, splits, xq_bytes,
+                4 * splits * M * N if splits > 1 else 0)
+
+
 def launch_plan(M: int, K: int, N: int, transpose: bool = False,
                 sms: int = _SMS_H100) -> Plan:
     """The fused kernel's plan for an (M, K) x (K, N) call.  Decode widths
     stream the bank: K splits while the blocks fit one wave at
     GEMV_BLOCKS_PER_SM and a block's quantized rows fit GEMV_XS_BYTES (an
     (N, K) split keeps whole 512-byte row segments: one 16-byte load per
-    lane).  Prefill widths take 128 x 128 tensor-core tiles; K splits only
-    while the tiles fill less than one wave, each split keeping two k-tiles
-    and all partials within MMA_PART_BYTES.  The last block of a tile adds
-    the integer partials: the split never changes results."""
-    def rounded(n, unit):
-        return math.ceil(n / unit) * unit
-
+    lane).  Prefill widths take 128 x 128 tensor-core tiles
+    (``_mma_plan``).  The last block of a tile adds the integer partials:
+    the split never changes results."""
     if M <= GEMV_MAX_M:
         rows = 4 if M <= 4 else 8
         tiles = math.ceil(N / (GEMV_T_COLS if transpose else GEMV_COLS))
@@ -154,27 +182,51 @@ def launch_plan(M: int, K: int, N: int, transpose: bool = False,
         per_sm = GEMV_BLOCKS_PER_SM[(bool(transpose), rows)]
         splits = max(1, min((per_sm * sms) // tiles,
                             K // (512 if transpose else 128), K // (8 * M)))
-        kps = min(rounded(math.ceil(K / splits), unit),
+        kps = min(_rounded(math.ceil(K / splits), unit),
                   GEMV_XS_BYTES // rows)
         splits = math.ceil(K / kps)
         return Plan("gemv", rows, tiles, kps, splits, 0,
                     4 * splits * M * N if splits > 1 else 0)
-    tiles = math.ceil(M / MMA_BM) * math.ceil(N / MMA_BN)
+    return _mma_plan(M, K, N, sms, M * _rounded(K, 16))
+
+
+def split_t_launch_plan(M: int, K: int, N: int,
+                        sms: int = _SMS_H100) -> Plan:
+    """``photonic_mvm_t``'s plan: the fused kernel's (N, K) plan, whose
+    regimes it runs on int8 rows (no A8 workspace): the decode stream at
+    M <= GEMV_MAX_M, the tensor cores above."""
+    return launch_plan(M, K, N, True, sms)._replace(xq_bytes=0)
+
+
+def resident_launch_plan(T: int, M: int, K: int, N: int,
+                         sms: int = _SMS_H100, splits=None) -> Plan:
+    """``photonic_mvm_resident``'s plan for T streams of M rows: the T * M
+    rows are one matrix on the tensor-core tiles (no A8 workspace: the
+    rows are int8 already).  A K split adds a finish whose cost grows with
+    the rows of a tile, so K splits (the fused kernel's rule, down to one
+    k-tile per split: ``_mma_plan``) only at decode widths (at most half a
+    row tile: the MoE path's 32 rows) or on deep banks
+    (RESIDENT_SPLIT_KTILES k-tiles or more, RESIDENT_SPLIT_MIN_KTILES per
+    split), not on granite's prefill tiles of 8 k-tiles or fewer, where no
+    split was fastest (PERF.md; chip_smoke times every case under 1, 2, 4
+    and 8 splits).  ``splits`` forces the
+    number of K ranges, which never changes the result."""
+    rows = T * M
     ktiles = math.ceil(K / MMA_BK)
-    splits = 1
-    if tiles < sms:
-        splits = max(1, min(math.ceil(2 * sms / tiles), ktiles // 2,
-                            MMA_PART_BYTES // (4 * M * N)))
-    kps = math.ceil(ktiles / splits) * MMA_BK
-    splits = math.ceil(K / kps)
-    return Plan("mma", MMA_BM, tiles, kps, splits, M * rounded(K, 16),
-                4 * splits * M * N if splits > 1 else 0)
+    if rows <= MMA_BM // 2:
+        min_ktiles = 1
+    elif ktiles >= RESIDENT_SPLIT_KTILES:
+        min_ktiles = RESIDENT_SPLIT_MIN_KTILES
+    else:
+        min_ktiles = ktiles
+    return _mma_plan(rows, K, N, sms, 0, min_ktiles=min_ktiles,
+                     splits=splits)
 
 
 def split_launch_plan(M: int, K: int, N: int, sms: int = _SMS_H100) -> tuple:
-    """(bm, k_per_split) of the split kernels (``photonic_mvm`` /
-    ``photonic_mvm_t``): decode widths (M <= 16) take the 16-row tile; K
-    splits until the grid holds about two blocks per SM."""
+    """(bm, k_per_split) of the split (K, N) kernel (``photonic_mvm``):
+    decode widths (M <= 16) take the 16-row tile; K splits until the grid
+    holds about two blocks per SM."""
     bm = 16 if M <= 16 else 128
     tiles = math.ceil(M / bm) * math.ceil(N / BN)
     ksteps = max(1, math.ceil(K / BK))
@@ -268,10 +320,38 @@ MAX_SPLIT_TILES = 1024
 
 @functools.lru_cache(maxsize=None)
 def _tile_counters(device) -> torch.Tensor:
-    """Split-K arrival counters of one device, one int32 per output tile.
-    They are zero between calls: the kernel's last block of a tile re-arms
-    its counter, and calls on the device run in stream order."""
+    """Split-K arrival counters of one device, one int32 per output tile,
+    shared by every one-launch split (the fused, ``photonic_mvm_t`` and
+    resident kernels).  They are zero between calls: the kernel's last
+    block of a tile re-arms its counter, and calls on the device run in
+    stream order."""
     return torch.zeros(MAX_SPLIT_TILES, dtype=torch.int32, device=device)
+
+
+_partials: dict = {}
+
+
+def _split_workspace(plan: Plan, device):
+    """(partials, counters) of a one-launch split call, or (None, None).
+    The int32 partials live in one buffer per device, grown to the largest
+    call so far (at most MMA_PART_BYTES for a tensor-core split): like the
+    counters, it relies on the device's calls running in stream order, and
+    a split call costs no allocation (no aten op) on the host."""
+    if not plan.part_bytes:
+        return None, None
+    if plan.tiles > MAX_SPLIT_TILES:
+        raise ValueError(f"{plan.tiles} split tiles exceed the "
+                         f"{MAX_SPLIT_TILES} arrival counters")
+    part = _partials.get(device)
+    if part is None or 4 * part.numel() < plan.part_bytes:
+        part = torch.empty(plan.part_bytes // 4, dtype=torch.int32,
+                           device=device)
+        _partials[device] = part
+    return part, _tile_counters(device)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def _launch(x, wq, x_scale, w_scale, bias, transpose, activation,
@@ -290,32 +370,19 @@ def _launch(x, wq, x_scale, w_scale, bias, transpose, activation,
     if block_perm is not None:
         inv = _inv_perm(tuple(int(b) for b in block_perm), int(block), N,
                         x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = launch_plan(M, K, N, transpose, sms)
+    plan = launch_plan(M, K, N, transpose, _sms(x.device))
     xq = (torch.empty(plan.xq_bytes, dtype=torch.int8, device=x.device)
           if plan.xq_bytes else None)
-    part = counters = None
-    if plan.part_bytes:
-        part = torch.empty(plan.part_bytes // 4, dtype=torch.int32,
-                           device=x.device)
-        if plan.tiles > MAX_SPLIT_TILES:
-            raise ValueError(f"{plan.tiles} split tiles exceed the "
-                             f"{MAX_SPLIT_TILES} arrival counters")
-        counters = _tile_counters(x.device)
+    part, counters = _split_workspace(plan, x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib, fn = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     gemv = plan.regime == "gemv"
     rc = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], wq.data_ptr(), int(transpose),
-            x_scale.data_ptr(), w_scale.data_ptr(),
-            bias.data_ptr() if bias is not None else None,
-            inv.data_ptr() if inv is not None else None,
+            x_scale.data_ptr(), w_scale.data_ptr(), _ptr(bias), _ptr(inv),
             int(block), _ACT_CODE[activation], M, K, N, 0 if gemv else 1,
-            plan.rows, plan.k_per_split,
-            xq.data_ptr() if xq is not None else None,
-            part.data_ptr() if part is not None else None,
-            counters.data_ptr() if counters is not None else None,
-            out.data_ptr(), stream)
+            plan.rows, plan.k_per_split, _ptr(xq), _ptr(part),
+            _ptr(counters), out.data_ptr(), stream)
     _build.check(lib, "photonic_mvm_error_string", rc, "photonic_mvm_fused")
     launches += 1
     launches_gemv += gemv
@@ -359,15 +426,19 @@ def photonic_mvm_t_plain(xq, wq, x_scale, w_scale):
 
 @functools.lru_cache(maxsize=1)
 def _split_library():
+    """The split library and its two launchers: (K, N) and (N, K)."""
     lib = _build.load("photonic_mvm_split")
-    fn = lib.photonic_mvm_split
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, p, i, i, i, i, i, p, p, p]
+    fn = lib.photonic_mvm_split
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
     fn.restype = i
-    return lib, fn
+    fn_t = lib.photonic_mvm_split_t
+    fn_t.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p]
+    fn_t.restype = i
+    return lib, fn, fn_t
 
 
-def _launch_split(xq, wq, x_scale, w_scale, transpose):
+def _check_split(xq, wq, x_scale, w_scale, transpose):
     if xq.ndim != 2 or wq.ndim != 2:
         raise ValueError(f"need xq (M, K) and wq 2-D, got {tuple(xq.shape)} "
                          f"and {tuple(wq.shape)}")
@@ -388,20 +459,41 @@ def _launch_split(xq, wq, x_scale, w_scale, transpose):
             raise ValueError("all operands must be on the same CUDA device")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
-    sms = torch.cuda.get_device_properties(xq.device).multi_processor_count
-    bm, kps = split_launch_plan(M, K, N, sms)
+    return M, K, N
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_split(xq, wq, x_scale, w_scale):
+    M, K, N = _check_split(xq, wq, x_scale, w_scale, False)
+    bm, kps = split_launch_plan(M, K, N, _sms(xq.device))
     splits = math.ceil(K / kps)
     work = (torch.empty((splits, M, N), dtype=torch.int32, device=xq.device)
             if splits > 1 else None)
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
-    lib, fn = _split_library()
+    lib, fn, _ = _split_library()
     stream = torch.cuda.current_stream(xq.device).cuda_stream
-    rc = fn(xq.data_ptr(), wq.data_ptr(), int(transpose), x_scale.data_ptr(),
-            w_scale.data_ptr(), M, K, N, bm, kps,
-            work.data_ptr() if work is not None else None, out.data_ptr(),
+    rc = fn(xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), M, K, N, bm, kps, _ptr(work), out.data_ptr(),
             stream)
-    _build.check(lib, "photonic_mvm_split_error_string", rc,
-                 "photonic_mvm_t" if transpose else "photonic_mvm")
+    _build.check(lib, "photonic_mvm_split_error_string", rc, "photonic_mvm")
+    return out
+
+
+def _launch_split_t(xq, wq, x_scale, w_scale):
+    M, K, N = _check_split(xq, wq, x_scale, w_scale, True)
+    plan = split_t_launch_plan(M, K, N, _sms(xq.device))
+    part, counters = _split_workspace(plan, xq.device)
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    lib, _, fn = _split_library()
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    rc = fn(xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), M, K, N, 0 if plan.regime == "gemv" else 1,
+            plan.rows, plan.k_per_split, _ptr(part), _ptr(counters),
+            out.data_ptr(), stream)
+    _build.check(lib, "photonic_mvm_split_error_string", rc, "photonic_mvm_t")
     return out
 
 
@@ -413,19 +505,22 @@ def photonic_mvm(xq, wq, x_scale, w_scale):
     global launches_mvm
     if xq.device.type == "cpu":
         return photonic_mvm_plain(xq, wq, x_scale, w_scale)
-    out = _launch_split(xq, wq, x_scale.reshape(()), w_scale, False)
+    out = _launch_split(xq, wq, x_scale.reshape(()), w_scale)
     launches_mvm += 1
     return out
 
 
 def photonic_mvm_t(xq, wq, x_scale, w_scale):
     """``xq @ wq.T`` for wq int8 (N, K) per-row quantized (the OBU
-    transpose), w_scale (N,).  Returns float32 (M, N).  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    transpose), w_scale (N,).  Returns float32 (M, N), on the card bit for
+    bit ``photonic_mvm(xq, wq.T.contiguous(), x_scale, w_scale)``.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (the
+    decode stream at M <= GEMV_MAX_M, the tensor cores above:
+    ``split_t_launch_plan``)."""
     global launches_mvm_t
     if xq.device.type == "cpu":
         return photonic_mvm_t_plain(xq, wq, x_scale, w_scale)
-    out = _launch_split(xq, wq, x_scale.reshape(()), w_scale, True)
+    out = _launch_split_t(xq, wq, x_scale.reshape(()), w_scale)
     launches_mvm_t += 1
     return out
 
@@ -455,10 +550,6 @@ def _check_resident(xq, wq, x_scale, w_scale):
     if K != K2:
         raise ValueError(f"reduction dims differ: xq {tuple(xq.shape)}, "
                          f"wq {tuple(wq.shape)}")
-    if K > RESIDENT_MAX_K:
-        raise ValueError(f"photonic_mvm_resident holds the full-depth bank "
-                         f"tile in shared memory: K = {K} exceeds its limit "
-                         f"RESIDENT_MAX_K = {RESIDENT_MAX_K}")
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"xq and wq must be int8, got {xq.dtype}/{wq.dtype}")
     if tuple(x_scale.shape) != (T,) or x_scale.dtype != torch.float32:
@@ -475,12 +566,12 @@ def _resident_library():
     lib = _build.load("photonic_mvm_resident")
     fn = lib.photonic_mvm_resident
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p]
     fn.restype = i
     return lib, fn
 
 
-def _launch_resident(xq, wq, x_scale, w_scale, T, M, K, N):
+def _launch_resident(xq, wq, x_scale, w_scale, T, M, K, N, splits):
     global launches_resident
     for t in (xq, wq, x_scale, w_scale):
         if t.device != xq.device:
@@ -488,26 +579,31 @@ def _launch_resident(xq, wq, x_scale, w_scale, T, M, K, N):
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
     out = torch.empty((T, M, N), dtype=torch.float32, device=xq.device)
+    if out.numel() == 0:
+        return out
+    plan = resident_launch_plan(T, M, K, N, _sms(xq.device), splits)
+    part, counters = _split_workspace(plan, xq.device)
     lib, fn = _resident_library()
     stream = torch.cuda.current_stream(xq.device).cuda_stream
-    tm = 2 if T * M <= 64 else 8          # row blocks of 32 or 128
     rc = fn(xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
-            w_scale.data_ptr(), T, M, K, N, tm, out.data_ptr(), stream)
+            w_scale.data_ptr(), T, M, K, N, plan.k_per_split, _ptr(part),
+            _ptr(counters), out.data_ptr(), stream)
     _build.check(lib, "photonic_mvm_resident_error_string", rc,
                  "photonic_mvm_resident")
     launches_resident += 1
     return out
 
 
-def photonic_mvm_resident(xq, wq, x_scale, w_scale):
+def photonic_mvm_resident(xq, wq, x_scale, w_scale, *, splits=None):
     """Reuse-resident MVM: T int8 activation streams ``xq`` (T, M, K), each
     with its own A8 scale ``x_scale`` (T,), through ONE programmed bank
-    ``wq`` int8 (K, N) with per-column ``w_scale`` (N,).  Returns float32
-    (T, M, N); stream t equals ``photonic_mvm(xq[t], wq, x_scale[t],
-    w_scale)`` (bit for bit on the card).  K is limited to
-    ``RESIDENT_MAX_K`` (ValueError beyond it).  CPU tensors take the plain
+    ``wq`` int8 (K, N) with per-column ``w_scale`` (N,), any K.  Returns
+    float32 (T, M, N); stream t equals ``photonic_mvm(xq[t], wq,
+    x_scale[t], w_scale)`` (bit for bit on the card).  ``splits``
+    overrides the plan's number of K ranges (``resident_launch_plan``),
+    for measuring it; the result is the same.  CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     T, M, K, N = _check_resident(xq, wq, x_scale, w_scale)
     if xq.device.type == "cpu":
         return photonic_mvm_resident_plain(xq, wq, x_scale, w_scale)
-    return _launch_resident(xq, wq, x_scale, w_scale, T, M, K, N)
+    return _launch_resident(xq, wq, x_scale, w_scale, T, M, K, N, splits)

@@ -297,6 +297,152 @@ def test_split_launch_plan(M, K, N):
         assert tiles * splits >= min(2 * 132, tiles * -(-K // t_pm.BK)) // 2
 
 
+# every chip_smoke ^T case, plus ragged ones: 72 -> 200, M = 1, K = 4100
+_SPLIT_T_PLAN_SHAPES = sorted(
+    {(M, K, N) for _, M, K, N, tr in _chip_smoke().split_cases() if tr}
+    | {(130, 72, 200), (1, 64, 96), (1, 4100, 300), (40, 4100, 300),
+       (8, 3072, 9216), (9, 3072, 9216)})
+
+
+@pytest.mark.parametrize("M,K,N", _SPLIT_T_PLAN_SHAPES)
+def test_split_t_launch_plan(M, K, N):
+    """``photonic_mvm_t`` runs the fused kernel's (N, K) regimes on int8
+    rows: the same tiles and K split, no A8 workspace; every split has
+    work; the boundary is GEMV_MAX_M."""
+    plan = t_pm.split_t_launch_plan(M, K, N)
+    assert plan == t_pm.launch_plan(M, K, N, True)._replace(xq_bytes=0)
+    assert plan.regime == ("gemv" if M <= t_pm.GEMV_MAX_M else "mma")
+    kps, splits = plan.k_per_split, plan.splits
+    assert kps % 64 == 0 and splits == -(-K // kps)
+    assert (splits - 1) * kps < K <= splits * kps       # every split has work
+    assert plan.xq_bytes == 0
+    assert plan.part_bytes == (4 * splits * M * N if splits > 1 else 0)
+    if splits > 1:
+        assert plan.tiles <= t_pm.MAX_SPLIT_TILES
+    if plan.regime == "gemv":
+        assert plan.tiles == -(-N // t_pm.GEMV_T_COLS)
+        assert plan.rows * kps <= t_pm.GEMV_XS_BYTES
+    else:
+        assert plan.tiles == -(-M // t_pm.MMA_BM) * -(-N // t_pm.MMA_BN)
+
+
+# every chip_smoke resident case (with jamba's w_down past the old K
+# limit), plus ragged ones: 72 -> 200, M = 1, K = 4100
+_RESIDENT_PLAN_SHAPES = sorted(
+    {(T, M, K, N) for _, T, M, K, N in _chip_smoke().resident_cases()}
+    | {(1, 40, 72, 200), (3, 1, 72, 200), (1, 1, 4100, 40), (2, 13, 4100, 130),
+       (4, 8, 4160, 512), (1, 32, 512, 1024), (1, 33, 512, 1024)})
+
+
+@pytest.mark.parametrize("T,M,K,N", _RESIDENT_PLAN_SHAPES)
+def test_resident_launch_plan(T, M, K, N):
+    """The resident kernel's plan over the T * M stacked rows: the
+    tensor-core tiles at every width (no decode regime: the tile loop with
+    a split K measured faster than the decode stream at the MoE path's 32
+    rows); K splits, down to one k-tile per split while the tiles fill
+    less than a wave, only at decode widths (at most 64 rows) or from
+    RESIDENT_SPLIT_KTILES k-tiles on (RESIDENT_SPLIT_MIN_KTILES per split
+    there); every split has work; the partials
+    are the size the wrapper uses and split tiles fit the arrival
+    counters."""
+    rows = T * M
+    ktiles = -(-K // t_pm.MMA_BK)
+    plan = t_pm.resident_launch_plan(T, M, K, N)
+    kps, splits = plan.k_per_split, plan.splits
+    assert plan.regime == "mma" and plan.rows == t_pm.MMA_BM
+    assert plan.tiles == -(-rows // t_pm.MMA_BM) * -(-N // t_pm.MMA_BN)
+    assert kps % t_pm.MMA_BK == 0 and splits == -(-K // kps)
+    assert (splits - 1) * kps < K <= splits * kps       # every split has work
+    assert plan.xq_bytes == 0
+    assert plan.part_bytes == (4 * splits * rows * N if splits > 1 else 0)
+    if splits > 1:
+        assert plan.tiles < 132                     # less than a wave
+        assert plan.tiles <= t_pm.MAX_SPLIT_TILES
+        assert plan.part_bytes <= t_pm.MMA_PART_BYTES
+        assert rows <= t_pm.MMA_BM // 2 or ktiles >= t_pm.RESIDENT_SPLIT_KTILES
+        if rows > t_pm.MMA_BM // 2:         # a deep bank's full tiles
+            assert kps >= t_pm.RESIDENT_SPLIT_MIN_KTILES * t_pm.MMA_BK
+    if rows <= t_pm.MMA_BM // 2 and plan.tiles * ktiles <= 2 * 132 and \
+            4 * ktiles * rows * N <= t_pm.MMA_PART_BYTES:
+        assert kps == t_pm.MMA_BK           # decode: one k-tile per split
+    if rows > t_pm.MMA_BM // 2 and ktiles < t_pm.RESIDENT_SPLIT_KTILES:
+        assert splits == 1                  # prefill tiles: no finish
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("T,M,K,N", _RESIDENT_PLAN_SHAPES)
+def test_resident_launch_plan_forced_splits(T, M, K, N, splits):
+    """``splits`` (chip_smoke's ``by_splits`` rows) forces the number of K
+    ranges: at most the k-tiles of K, each range with work, the default
+    plan's tiles, and partials the size the wrapper allocates."""
+    rows = T * M
+    ktiles = -(-K // t_pm.MMA_BK)
+    plan = t_pm.resident_launch_plan(T, M, K, N, splits=splits)
+    kps, made = plan.k_per_split, plan.splits
+    assert plan.tiles == t_pm.resident_launch_plan(T, M, K, N).tiles
+    assert kps == -(-ktiles // min(splits, ktiles)) * t_pm.MMA_BK
+    assert 1 <= made <= min(splits, ktiles) and made == -(-K // kps)
+    assert (made - 1) * kps < K <= made * kps           # every split has work
+    assert plan.part_bytes == (4 * made * rows * N if made > 1 else 0)
+    assert plan.tiles <= t_pm.MAX_SPLIT_TILES
+    if splits <= ktiles and ktiles % splits == 0:
+        assert made == splits
+
+
+_CSRC = Path(t_build.__file__).resolve().parents[1] / "csrc"
+
+
+def _device_function(path: Path, name: str) -> str:
+    """The body of device function ``name`` in a CUDA source, comments
+    dropped and whitespace collapsed."""
+    code = re.sub(r"//[^\n]*", "", path.read_text())
+    head = re.search(r"__device__ __forceinline__ \w+ " + name + r"\(", code)
+    assert head is not None, f"{name} not in {path.name}"
+    start = code.index("{", head.end())
+    depth = 0
+    for i in range(start, len(code)):
+        depth += {"{": 1, "}": -1}.get(code[i], 0)
+        if depth == 0:
+            return " ".join(code[start:i + 1].split())
+    raise AssertionError(f"{name}: unbalanced braces")
+
+
+def _between(body: str, first: str, last: str) -> str:
+    i = body.index(first)
+    return body[i:body.index(last, i) + len(last)]
+
+
+_FINISH_STORE = "#pragma unroll for (int e = 0; e < EC; ++e) { if (!ok[e])"
+_PASS_LOOP = ("for (int p = 0; p < PASSES; ++p) {",
+              "butterfly<1>(acc, lane);")
+
+
+@pytest.mark.parametrize("fused_name,copy_name,where,part", [
+    ("last_arrival", "last_arrival", "photonic_mvm_int8.cuh", None),
+    ("finish_tile", "finish_tile", "photonic_mvm_int8.cuh", "finish"),
+    ("load_rows_nk", "load_rows_nk", "photonic_mvm_split.cu", None),
+    ("butterfly", "butterfly", "photonic_mvm_split.cu", None),
+    ("gemv_nk", "gemv_t", "photonic_mvm_split.cu", "passes"),
+])
+def test_split_kernels_copy_the_fused_kernels_code(fused_name, copy_name,
+                                                   where, part):
+    """The split and resident libraries carry copies of the fused kernel's
+    split-K finish and (N, K) decode stream: shared through one header,
+    the same code changed the fused tensor-core kernel's register
+    allocation and slowed it.  The copies stay the fused kernel's code
+    apart from their interfaces: whole functions, the finish up to its
+    epilogue store, and the decode stream's pass loop."""
+    fused = _device_function(_CSRC / "photonic_mvm_fused.cu", fused_name)
+    copy = _device_function(_CSRC / where, copy_name)
+    if part == "finish":
+        fused = fused.replace("o.part", "part").split(_FINISH_STORE)[0]
+        copy = copy.split(_FINISH_STORE)[0]
+    elif part == "passes":
+        fused, copy = _between(fused, *_PASS_LOOP), _between(copy, *_PASS_LOOP)
+    assert len(copy) > 200
+    assert copy == fused
+
+
 @pytest.mark.parametrize("dtype,hd,hd_v,variant", [
     (torch.bfloat16, 128, 128, "mma"),      # minitron-4b
     (torch.bfloat16, 64, 96, "mma"),        # hd_v != hd
@@ -313,22 +459,30 @@ def test_flash_variant_dispatch(dtype, hd, hd_v, variant):
 
 def test_chip_smoke_profile_groups_every_kernel():
     """``chip_smoke``'s profile attributes each CUDA kernel in ``csrc/`` to
-    the port kernel whose library defines it (none falls into "other torch
-    kernels")."""
+    a port kernel whose library defines it (none falls into "other torch
+    kernels"); the split library's two orientations are separate groups."""
     cs = _chip_smoke()
     pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
                      r"(?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(")
-    seen = 0
+    library = {"photonic_mvm": "photonic_mvm_split",
+               "photonic_mvm_t": "photonic_mvm_split"}
+    seen = {}
     for name, src in t_build.SOURCES.items():
         kernels = pat.findall((t_build.csrc_dir() / src).read_text())
         assert kernels, src
         for k in kernels:
-            assert cs.kernel_group(f"void (anonymous namespace)::{k}<float>"
-                                   f"(float const*)") == name, k
-            seen += 1
+            group = cs.kernel_group(f"void (anonymous namespace)::{k}<float>"
+                                    f"(float const*)")
+            assert library.get(group, group) == name, k
+            seen[k] = group
     assert cs.kernel_group("void at::native::vectorized_elementwise_kernel"
                            "<4>()") == "other torch kernels"
-    assert seen >= 11
+    assert len(seen) >= 12
+    assert {seen["split_kernel"], seen["split_reduce_kernel"]} == \
+        {"photonic_mvm"}
+    assert {seen["split_t_gemv_kernel"], seen["split_t_mma_kernel"]} == \
+        {"photonic_mvm_t"}
+    assert seen["resident_mma_kernel"] == "photonic_mvm_resident"
 
 
 def test_block_perm_validation():
@@ -367,28 +521,30 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 def test_library_path_hashes_the_headers_a_source_includes(monkeypatch,
                                                            tmp_path):
     """Editing a ``csrc/`` header rebuilds exactly the kernels that include
-    it: the shared rescale header the three MVM libraries, the tensor-core
-    tile loop header the fused one.  The library name hashes the ``.cu``
-    file and every header it includes, directly or through another
-    header."""
+    it: the shared rescale and tile-loop headers the three MVM libraries,
+    the int8 tile header (with the one-launch split-K finish) the split
+    and resident ones.
+    The library name hashes the ``.cu`` file and every header it includes,
+    directly or through another header."""
     import shutil
     src = tmp_path / "csrc"
     shutil.copytree(t_build.csrc_dir(), src)
     monkeypatch.setattr(t_build, "csrc_dir", lambda: src)
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "k"))
     names = [p.name for p in t_build.source_files("photonic_mvm_split")]
-    assert names == ["photonic_mvm_split.cu", "photonic_mvm_common.cuh"]
+    assert names[0] == "photonic_mvm_split.cu"
+    assert sorted(names[1:]) == ["photonic_mvm_common.cuh",
+                                 "photonic_mvm_int8.cuh",
+                                 "photonic_mvm_mma.cuh"]
     assert [p.name for p in t_build.source_files("blend_shuffle")] == \
         ["blend_shuffle.cu"]
-    before = {n: t_build.library_path(n) for n in t_build.SOURCES}
-    header = src / "photonic_mvm_common.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: t_build.library_path(n) for n in t_build.SOURCES}
-    changed = sorted(n for n in before if before[n] != after[n])
-    assert changed == ["photonic_mvm_fused", "photonic_mvm_resident",
-                       "photonic_mvm_split"]
-    mma = src / "photonic_mvm_mma.cuh"
-    mma.write_text(mma.read_text() + "\n// edited\n")
-    again = {n: t_build.library_path(n) for n in t_build.SOURCES}
-    assert sorted(n for n in after if after[n] != again[n]) == \
-        ["photonic_mvm_fused"]
+    mvm = ["photonic_mvm_fused", "photonic_mvm_resident", "photonic_mvm_split"]
+    for header, want in (("photonic_mvm_common.cuh", mvm),
+                         ("photonic_mvm_mma.cuh", mvm),
+                         ("photonic_mvm_int8.cuh", mvm[1:])):
+        before = {n: t_build.library_path(n) for n in t_build.SOURCES}
+        path = src / header
+        path.write_text(path.read_text() + "\n// edited\n")
+        after = {n: t_build.library_path(n) for n in t_build.SOURCES}
+        assert sorted(n for n in before if before[n] != after[n]) == want, \
+            header

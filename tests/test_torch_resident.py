@@ -3,7 +3,8 @@
 and the reference oracle, the per-stream A8 pass of
 ``reuse_resident_matmul_prepared``, ``Backend.reuse_dot`` in every form
 (xla, photonic fp weight, photonic bank, fault model) against the JAX
-Backend, and the wrapper's refusals.
+Backend, the wrapper's refusals, and a depth past the 4096 the first CUDA
+kernel held in shared memory (any K is taken now).
 
 Tolerances: float32 MVM outputs rel-L2 <= 1e-5 (the same float32
 arithmetic summed in another order); bf16 stacks within one bf16 step of
@@ -12,6 +13,7 @@ float32 difference can cross a bf16 rounding boundary).  The A8 grid is an
 integer artifact: bitwise.
 """
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -184,19 +186,55 @@ def test_resident_wrapper_refusals_and_cpu_counts_no_launch():
         t_pm.photonic_mvm_resident(xq, wq, xs[:1], ws)
     with pytest.raises(TypeError):
         t_pm.photonic_mvm_resident(xq.float(), wq, xs, ws)
-    K = t_pm.RESIDENT_MAX_K + 4
-    big = torch.zeros((1, 2, K), dtype=torch.int8)
-    with pytest.raises(ValueError, match="RESIDENT_MAX_K = 4096"):
-        t_pm.photonic_mvm_resident(big, torch.zeros((K, 8), dtype=torch.int8),
-                                   torch.ones(1), torch.ones(8))
+
+
+@pytest.mark.parametrize("K", [4160, 4100])
+def test_resident_plain_matches_pallas_kernel_past_old_limit(K):
+    """Past the former RESIDENT_MAX_K = 4096 (4100 is not a multiple of
+    16): the plain version and ``reuse_resident_matmul_prepared`` against
+    the JAX Pallas kernel in interpret mode, which takes any K."""
+    T, M, N = 2, 3, 40
+    xq, wq, xs, ws = _resident_inputs(T, M, K, N, seed=K)
+    want = np.asarray(j_pm.photonic_mvm_resident(
+        jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(xs), jnp.asarray(ws),
+        interpret=True))
+    got = t_pm.photonic_mvm_resident(*(torch.as_tensor(a)
+                                       for a in (xq, wq, xs, ws)))
+    assert tuple(got.shape) == (T, M, N)
+    assert _rel(got.numpy(), want) <= F32_TOL
+    # the per-stream A8 pass too: float streams through a programmed bank
+    rng = np.random.default_rng(K + 1)
+    x = rng.standard_normal((T, M, K)).astype(np.float32)
+    x[1] *= 3.0
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    jwq, jws = j_prep.quantize_weight(jnp.asarray(w))
+    twq, tws = t_prep.quantize_weight(torch.as_tensor(w))
+    jq, js = j_quant(jnp.asarray(x), 8, axis=(1, 2))
+    want = np.asarray(j_pm.photonic_mvm_resident(
+        jq, jwq, js.reshape(T), jws.reshape(-1), interpret=True))
+    got = t_ops.reuse_resident_matmul_prepared(torch.as_tensor(x), twq, tws)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (T, M, N)
+    assert _rel(got.numpy(), want) <= F32_TOL
 
 
 def test_resident_limit_matches_the_cuda_source():
-    """The wrapper's K limit is the kernel's shared-memory limit, and the
-    source is one of the five the build compiles."""
+    """The resident library is built from its source and the MVM headers
+    it reaches (the int8 tensor-core tile with its split-K finish, the tile
+    loop, the shared rescale); the plan's tile is the kernel's, and no K
+    limit remains in the source or the wrapper."""
     assert "photonic_mvm_resident" in t_build.SOURCES
-    src = (t_build.csrc_dir() / t_build.SOURCES["photonic_mvm_resident"])
-    m = re.search(r"RESIDENT_MAX_K = (\d+);", src.read_text())
-    assert m and int(m.group(1)) == t_pm.RESIDENT_MAX_K
     names = [p.name for p in t_build.source_files("photonic_mvm_resident")]
-    assert names == ["photonic_mvm_resident.cu", "photonic_mvm_common.cuh"]
+    assert names[0] == "photonic_mvm_resident.cu"
+    assert sorted(names[1:]) == ["photonic_mvm_common.cuh",
+                                 "photonic_mvm_int8.cuh",
+                                 "photonic_mvm_mma.cuh"]
+    mma = (t_build.csrc_dir() / "photonic_mvm_mma.cuh").read_text()
+    for name, value in (("BM", t_pm.MMA_BM), ("BN", t_pm.MMA_BN),
+                        ("BK", t_pm.MMA_BK)):
+        m = re.search(rf"constexpr int {name} = (\d+);", mma)
+        assert m and int(m.group(1)) == value, name
+    src = (t_build.csrc_dir() / names[0]).read_text()
+    wrapper = Path(t_pm.__file__).read_text()
+    for text in (src, wrapper):
+        assert "RESIDENT_MAX_K" not in text and "max_k" not in text
+    assert not hasattr(t_pm, "RESIDENT_MAX_K")

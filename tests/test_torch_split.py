@@ -90,6 +90,37 @@ def test_split_mvm_plain_matches_pallas_kernel(case):
     assert _rel(got.numpy(), j_oracle(*args)) <= F32_TOL
 
 
+@pytest.mark.parametrize("case", SPLIT_CASES + [(9, 4100, 72, True),
+                                                 (40, 144, 300, True)])
+def test_split_t_equals_split_on_transposed_bank(case):
+    """``photonic_mvm_t`` on an (N, K) bank and ``photonic_mvm`` on the
+    same bank stored (K, N): one function, in the reference kernels too
+    (the card holds its two kernels to this bit for bit); wrong operands
+    are refused."""
+    M, K, N, _ = case
+    rng = np.random.default_rng(M + K + N)
+    xq = rng.integers(-128, 128, (M, K), dtype=np.int8)
+    wq_t = rng.integers(-127, 128, (N, K), dtype=np.int8)
+    ws = (rng.random(N) * 0.05 + 0.01).astype(np.float32)
+    xs = np.float32(0.0071)
+    args = [torch.as_tensor(xq), torch.as_tensor(wq_t), torch.tensor(xs),
+            torch.as_tensor(ws)]
+    got = t_pm.photonic_mvm_t(*args)
+    kn = t_pm.photonic_mvm(args[0], args[1].T.contiguous(), *args[2:])
+    assert _rel(got.numpy(), kn.numpy()) <= F32_TOL
+    want = j_pm.photonic_mvm(jnp.asarray(xq), jnp.asarray(wq_t.T.copy()),
+                             jnp.asarray(xs), jnp.asarray(ws), bm=8, bk=128,
+                             bn=128, interpret=True)
+    assert _rel(got.numpy(), want) <= F32_TOL
+    before = t_pm.launches_mvm_t
+    with pytest.raises(ValueError, match="reduction dims"):
+        t_pm._check_split(args[0], args[1][:, :-1].contiguous(), args[2],
+                          args[3], True)
+    with pytest.raises(TypeError):
+        t_pm._check_split(args[0].float(), args[1], args[2], args[3], True)
+    assert t_pm.launches_mvm_t == before           # the CPU path counts none
+
+
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_split_ops_match_reference_ops(transpose, dtype):
