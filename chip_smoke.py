@@ -18,9 +18,11 @@ the script exits non-zero without printing the final ``ok`` line):
    widths) and flash attention (slice 1; since slice 5 a bf16 tensor-core
    variant "mma" beside the float32 CUDA-core one "simt", and a case with
    NaN/inf past kv_len), the split MVMs in both orientations and the
-   blend (slice 2; since slice 6 ``photonic_mvm_t`` runs the fused
-   kernel's regimes on int8 rows, each row naming its own, and equals
-   ``photonic_mvm`` on the transposed bank bit for bit), the
+   blend (slice 2; since slice 6 ``photonic_mvm_t`` and since slice 7
+   ``photonic_mvm`` run the fused kernel's regimes on int8 rows, each row
+   naming its own, and each orientation equals the other on the
+   transposed bank bit for bit; since slice 7 the blend's cases cover its
+   16-byte vector pass and its element pass, in bf16 and float32), the
    reuse-resident MVM (slice 3, also held bit for bit to T launches of the
    split MVM; since slice 6 on the s8 tensor cores, any K, with a
    jamba-width bank past the first kernel's limit), the intra-chunk SSD
@@ -383,10 +385,10 @@ KERNEL_GROUPS = (
     # (kernel of the port, substrings of its CUDA kernels' names)
     ("photonic_mvm_fused", ("::gemv_kernel", "::gemv_t_kernel",
                             "::mma_kernel", "::quantize_kernel")),
-    ("photonic_mvm", ("::split_kernel", "::split_reduce_kernel")),
+    ("photonic_mvm", ("::split_gemv_kernel", "::split_mma_kernel")),
     ("photonic_mvm_t", ("::split_t_gemv_kernel", "::split_t_mma_kernel")),
     ("photonic_mvm_resident", ("::resident_mma_kernel",)),
-    ("blend_shuffle", ("::blend_kernel",)),
+    ("blend_shuffle", ("::blend_kernel", "::blend_vec_kernel")),
     ("flash_attention", ("::flash_kernel", "::flash_mma_kernel")),
     ("ssd_chunk", ("::ssd_chunk_kernel",)))
 
@@ -613,6 +615,8 @@ def check_split(torch, timer, pm, photonic, ops):
         kernel = pm.photonic_mvm_t if tr else pm.photonic_mvm
         plain = pm.photonic_mvm_t_plain if tr else pm.photonic_mvm_plain
         name = "photonic_mvm_t" if tr else "photonic_mvm"
+        plan = (pm.split_t_launch_plan if tr else pm.split_kn_launch_plan)(
+            M, K, N)
         got = kernel(xq, wq, xs, ws)
         want = plain(xq, wq, xs, ws)
         # the fused-vs-split gate at kernel level: the split output cast to
@@ -627,21 +631,22 @@ def check_split(torch, timer, pm, photonic, ops):
             raise AssertionError(f"{name} {label}: cast to {x.dtype}, "
                                  f"differs from the fused kernel")
         del fused
-        if tr:
-            # the (N, K) kernel against the (K, N) one on the transposed
-            # bank: one integer product, one rescale
-            kn = pm.photonic_mvm(xq, wq.t().contiguous(), xs, ws)
-            if not torch.equal(got, kn):
-                raise AssertionError(f"{name} {label}: differs from "
-                                     f"photonic_mvm on the transposed bank")
-            del kn
+        # each orientation against the other on the transposed bank: one
+        # integer product, one rescale
+        other = (pm.photonic_mvm if tr else pm.photonic_mvm_t)(
+            xq, wq.t().contiguous(), xs, ws)
+        other_name = "photonic_mvm" if tr else "photonic_mvm_t"
+        if not torch.equal(got, other):
+            raise AssertionError(f"{name} {label}: differs from {other_name} "
+                                 f"on the transposed bank")
+        del other
         big = M * K * N > 1e12
         reps = 5 if big else 20
         ms = timer.ms(lambda: kernel(xq, wq, xs, ws), reps)
         plain_ms = timer.ms(lambda: plain(xq, wq, xs, ws), 3 if big else 10)
         lib_ms = int_mm_ms(torch, timer, xq, wq, tr, reps)
         # the fused kernel on the same bank (its A8 scale precomputed): the
-        # yardstick of the (N, K) decode regime, which runs its stream
+        # yardstick of the decode regime, which runs its stream
         xs_fused = photonic.a8_scale(x)
         fused_ms = timer.ms(lambda: pm.photonic_mvm_fused(
             x, wq, xs_fused, ws, transpose=tr), reps)
@@ -649,11 +654,8 @@ def check_split(torch, timer, pm, photonic, ops):
         ops_n = 2.0 * M * K * N
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = ops_n / INT8_TOPS * 1e3
-        row = {"case": label, "kernel": name,
-               "regime": (pm.split_t_launch_plan(M, K, N).regime if tr
-                          else "dp4a"),
-               "splits": (pm.split_t_launch_plan(M, K, N).splits if tr
-                          else -(-K // pm.split_launch_plan(M, K, N)[1])),
+        row = {"case": label, "kernel": name, "regime": plan.regime,
+               "splits": plan.splits,
                "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "torch._int_mm on the int8 operands (product "
@@ -662,9 +664,8 @@ def check_split(torch, timer, pm, photonic, ops):
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": ops_n,
-               "split_cast_equals_fused": True}
-        if tr:
-            row["equals_photonic_mvm_on_transposed_bank"] = True
+               "split_cast_equals_fused": True,
+               f"equals_{other_name}_on_transposed_bank": True}
         emit(row)
         rows.append(row)
         del got, want, x, xq, wq
@@ -672,27 +673,45 @@ def check_split(torch, timer, pm, photonic, ops):
 
 
 def blend_cases():
-    """(label, M, act, with_bias): ``Backend.shuffle``'s blocked shuffle of
-    minitron-4b's 3072 channels in blocks of 128 (24 blocks, no bias, no
-    activation), at decode M = 4 and a 2048-row prefill, and once with a
-    bias and silu."""
-    return [(f"M={M} C=3072 block=128 {act}{' +bias' if b else ''}", M, act,
-             b) for M in (4, 2048) for act, b in (("none", False),
-                                                   ("silu", True))]
+    """(label, M, C, block, dtype, act, with_bias, offset):
+    ``Backend.shuffle``'s blocked shuffle of minitron-4b's 3072 channels in
+    blocks of 128 (24 blocks, no bias, no activation), bf16, at decode M =
+    4 and a 2048-row prefill, and once with a bias and silu (the vector
+    pass).  Then each side of the kernel's choice of pass: float32 (4-wide
+    vectors), 3000 channels in blocks of 100 (a multiple of 4 float32 but
+    not of 8 bf16: the element pass in bf16), and an x that is contiguous
+    but starts one element into its buffer (not 16-byte aligned: the
+    element pass)."""
+    cases = [(M, 3072, 128, "bfloat16", act, b, 0) for M in (4, 2048)
+             for act, b in (("none", False), ("silu", True))]
+    cases += [(2048, 3072, 128, "float32", "none", False, 0),
+              (4, 3072, 128, "float32", "silu", True, 0),
+              (2048, 3000, 100, "bfloat16", "none", False, 0),
+              (2048, 3000, 100, "bfloat16", "silu", True, 0),
+              (2048, 3000, 100, "float32", "none", False, 0),
+              (2048, 3072, 128, "bfloat16", "none", False, 1),
+              (4, 3072, 128, "bfloat16", "silu", True, 1)]
+    return [(f"M={M} C={C} block={block} {act}{' +bias' if b else ''}"
+             f"{'' if dt == 'bfloat16' else ' ' + dt}"
+             f"{f' x at +{off}' if off else ''}", M, C, block, dt, act, b,
+             off) for M, C, block, dt, act, b, off in cases]
 
 
 def check_blend(torch, timer, blend):
     gen = torch.Generator(device="cuda").manual_seed(4)
-    C, block = 3072, 128
-    perm = tuple(torch.randperm(C // block, generator=torch.Generator()
-                                .manual_seed(5)).tolist())
-    idx = torch.as_tensor(blend.gather_index(perm, block), device="cuda")
     rows = []
-    for label, M, act, with_bias in blend_cases():
-        x = torch.randn((M, C), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        bias = (torch.randn((C,), generator=gen, device="cuda").to(
-            torch.bfloat16) if with_bias else None)
+    for label, M, C, block, dt, act, with_bias, off in blend_cases():
+        dtype = getattr(torch, dt)
+        perm = tuple(torch.randperm(C // block, generator=torch.Generator()
+                                    .manual_seed(5)).tolist())
+        idx = torch.as_tensor(blend.gather_index(perm, block), device="cuda")
+        # an (M, C) view of a flat buffer from element `off` on: contiguous,
+        # and not 16-byte aligned when off > 0
+        flat = torch.randn((M * C + off,), generator=gen, device="cuda").to(
+            dtype)
+        x = flat[off:].view(M, C)
+        bias = (torch.randn((C,), generator=gen, device="cuda").to(dtype)
+                if with_bias else None)
         kw = dict(block=block, activation=act)
         got = blend.blend_shuffle(x, bias, perm, **kw)
         want = blend.blend_shuffle_plain(x, bias, perm, **kw)
@@ -708,11 +727,14 @@ def check_blend(torch, timer, blend):
             lambda: blend.blend_shuffle_plain(x, bias, perm, **kw), 20)
         lib_ms = (timer.ms(lambda: x.index_select(-1, idx), 20)
                   if act == "none" and bias is None else None)
-        nbytes = 2 * M * C * 2 + 4 * (C // block) + (2 * C if bias is not None
-                                                      else 0)
-        row = {"case": label, "kernel": "blend_shuffle", "rel_l2": err,
-               "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms,
+        esize = x.element_size()
+        nbytes = (2 * M * C * esize + 4 * (C // block)
+                  + (esize * C if bias is not None else 0))
+        row = {"case": label, "kernel": "blend_shuffle",
+               "pass": ("vector" if blend.vector_path(block, x, bias)
+                        else "element"),
+               "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "x.index_select(-1, idx) (no bias/activation "
                           "only)",
                "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",

@@ -1,6 +1,6 @@
 // The int8-in, float32-out photonic MVM tile on Hopper's s8 tensor cores,
-// shared by the split (N, K) kernel (`photonic_mvm_split.cu`) and the
-// reuse-resident kernel (`photonic_mvm_resident.cu`).
+// shared by the split kernels of both orientations (`photonic_mvm_split.cu`)
+// and the reuse-resident kernel (`photonic_mvm_resident.cu`).
 //
 // out[m][n] = pmvm::rescale(sum_k a[m][k] W[k][n], xs[m / group], sw[n])
 // for int8 rows `a` (M rows of K bytes, already on the A8 grid: no
@@ -31,8 +31,8 @@
 
 namespace pint8 {
 
-// The one-launch split-K finish (also used by the split kernel's decode
-// stream) is the fused kernel's (`photonic_mvm_fused.cu`), which keeps its
+// The one-launch split-K finish (also used by the split kernels' decode
+// streams) is the fused kernel's (`photonic_mvm_fused.cu`), which keeps its
 // own copy: moved into a shared header, the same code changed the fused
 // tensor-core kernel's register allocation and slowed it at M = 2048
 // (PERF.md).  A CPU test holds the two copies equal

@@ -18,30 +18,27 @@
 // PyTorch version (`kernels/photonic_mvm.py`) keeps the reference's fp32
 // decomposition; the two differ only by its rounding.
 //
-// What bounds it on an H100.  At decode widths (M = 2..8) every int8 weight
+// What bounds it on an H100.  At decode widths (M = 1..8) every int8 weight
 // byte is read once for a few MACs: device-memory bytes (28.3 MB for a
 // 3072 x 9216 bank, >= 8.4 us at 3.35 TB/s).  At prefill widths (M ~ 2048)
 // integer operations.
 //
-// (N, K) bank, `photonic_mvm_t`: two regimes, chosen by the wrapper from M
-// (`split_t_launch_plan`), the fused kernel's with an int8 source:
-//   * decode (M <= 8): `split_t_gemv_kernel`, the fused kernel's (N, K)
-//     decode stream (`gemv_t_kernel` there) with the rows copied into
-//     shared memory instead of quantized.  It is a copy: shared through a
-//     header, the same code changed the fused kernel's register allocation
-//     and slowed its tensor-core kernel (PERF.md).  A CPU test holds the
-//     copied code equal to the fused kernel's
-//     (`tests/test_torch_kernels.py`);
-//   * prefill: `split_t_mma_kernel`, `pint8::mma_tile<true>` straight on
-//     xq (the bank is K-major already, as the s8 tensor cores read it).
-// Both split K in one launch (per-tile arrival counters; the last block of
-// a tile adds the int32 partials and rescales).
-//
-// (K, N) bank, `photonic_mvm`: the CUDA-core main loop of
-// `photonic_mvm_common.cuh`, BM x 128 output tiles (BM = 16 for M <= 16,
-// else 128), the bank transposed byte-wise into shared memory, `__dp4a`
-// on 32-bit words.  Split-K (grid.z) writes int32 partials that a second
-// kernel adds before the rescale.  Its redesign is later work.
+// Both orientations run the fused kernel's two regimes on int8 rows, chosen
+// by the wrapper from M (`split_kn_launch_plan`, `split_t_launch_plan`):
+//   * decode (M <= 8): the fused kernel's decode stream of that orientation
+//     (`gemv_kernel` / `gemv_t_kernel` there) with the rows copied into
+//     shared memory instead of quantized: `split_gemv_kernel` for the
+//     (K, N) bank, `split_t_gemv_kernel` for the (N, K) one.  They are
+//     copies: shared through a header, the same code changed the fused
+//     kernel's register allocation and slowed its tensor-core kernel
+//     (PERF.md).  A CPU test holds the copied code equal to the fused
+//     kernel's (`tests/test_torch_kernels.py`);
+//   * prefill: `pint8::mma_tile` straight on xq, one stream of M rows at
+//     one scale: `split_mma_kernel` transposes the (K, N) bank in registers
+//     on its way to the s8 tensor cores, `split_t_mma_kernel` reads the
+//     (N, K) bank as it is (K-major already).
+// Every kernel splits K in one launch (per-tile arrival counters; the last
+// block of a tile adds the int32 partials and rescales).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,89 +48,6 @@
 
 namespace {
 
-using pmvm::BKW;
-using pmvm::BN;
-using pmvm::THREADS;
-
-// ------------------------------------------------------ (K, N) bank
-template <int TM>
-__global__ void __launch_bounds__(THREADS)
-split_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
-             const float* __restrict__ sx_ptr, const float* __restrict__ sw,
-             int M, int K, int N, int k_per_split,
-             int32_t* __restrict__ part, float* __restrict__ out) {
-  constexpr int BM = 16 * TM;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  const bool xvec = (reinterpret_cast<uintptr_t>(xq) % 4 == 0) && (K % 4 == 0);
-
-  auto load_a = [&](int32_t (*As)[BKW + 1], int k0, int kend) {
-    for (int idx = threadIdx.x; idx < BM * BKW; idx += THREADS) {
-      const int r = idx / BKW, kw = idx % BKW;
-      const int m = m0 + r, kb = k0 + kw * 4;
-      uint32_t packed = 0;
-      if (m < M) {
-        const int8_t* src = xq + static_cast<size_t>(m) * K + kb;
-        if (xvec && kb + 4 <= kend) {
-          packed = *reinterpret_cast<const uint32_t*>(src);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (kb + i < kend)
-              packed |= static_cast<uint32_t>(static_cast<uint8_t>(src[i])) << (8 * i);
-        }
-      }
-      As[r][kw] = static_cast<int32_t>(packed);
-    }
-  };
-  int32_t acc[TM][8];
-  pmvm::mainloop<TM>(load_a, w, n0, k_begin, k_end, N, acc);
-
-  const bool split = gridDim.z > 1;
-  const float sx = *sx_ptr;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const size_t o = static_cast<size_t>(m) * N + n;
-      if (split) {
-        part[static_cast<size_t>(blockIdx.z) * M * N + o] = acc[i][j];
-      } else {
-        out[o] = pmvm::rescale(acc[i][j], sx, sw[n]);
-      }
-    }
-  }
-}
-
-// Split-K finish: add the int32 partials of every split, then rescale.
-__global__ void split_reduce_kernel(const int32_t* __restrict__ part,
-                                    int ksplit, int M, int N,
-                                    const float* __restrict__ sx_ptr,
-                                    const float* __restrict__ sw,
-                                    float* __restrict__ out) {
-  const size_t total = static_cast<size_t>(M) * N;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  int32_t s = 0;
-  for (int z = 0; z < ksplit; ++z) s += part[static_cast<size_t>(z) * total + idx];
-  out[idx] = pmvm::rescale(s, *sx_ptr, sw[idx % N]);
-}
-
-template <int TM>
-void launch(dim3 grid, cudaStream_t st, const int8_t* xq, const int8_t* w,
-            const float* sx, const float* sw, int M, int K, int N,
-            int k_per_split, int32_t* part, float* out) {
-  split_kernel<TM><<<grid, THREADS, 0, st>>>(xq, w, sx, sw, M, K, N,
-                                             k_per_split, part, out);
-}
-
-// ------------------------------------------------------ (N, K) bank
 // Copy int8 rows x[0..M)[k_begin..k_end) into xs[MT][ks] (int8 words), zero
 // past M and past k_end.
 template <int MT>
@@ -160,6 +74,7 @@ __device__ __forceinline__ void copy_rows(const int8_t* __restrict__ x, int M,
   }
 }
 
+// ------------------------------------------------------ (N, K) bank
 // Decode: M <= MT rows; grid (ceil(N / 64), splits); dynamic shared memory
 // MT * k_per_split bytes of int8 rows.  A bank row is bound by its bytes:
 // each is read once, with eight 16-byte loads in flight per lane, the
@@ -317,7 +232,156 @@ split_t_gemv_kernel(const int8_t* __restrict__ xq,
                       out, xs);
 }
 
-// Prefill: grid (ceil(M / 128), ceil(N / 128), splits).
+// ------------------------------------------------------ (K, N) bank
+// Decode: M <= MT rows; grid (ceil(N / 128), splits); dynamic shared memory
+// MT * k_per_split bytes of int8 rows + MT x 128 int32.  A bank row is
+// bound by its bytes: each lane owns 4 adjacent columns and has KN_UNROLL k
+// quads (4 rows each) of 32-bit loads in flight per iteration, the first
+// issued before the rows are copied; it transposes a quad in registers
+// (`pmma::transpose4x4`), so one `__dp4a` word holds four k of one column.
+// The block's warps split its K range and merge through shared-memory
+// atomics.
+constexpr int KN_THREADS = 256;
+constexpr int KN_COLS = 128;     // columns per block
+constexpr int KN_UNROLL = 4;     // k quads in flight per lane
+
+template <bool FAST>
+__device__ __forceinline__ void load_quads_kn(
+    uint32_t (&raw)[KN_UNROLL][4], const int8_t* __restrict__ w, int K,
+    int N, int n, int k_begin, int k_end, int q0) {
+#pragma unroll
+  for (int u = 0; u < KN_UNROLL; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k_begin + 4 * (q0 + u) + i;
+      if (FAST) {
+        // rows past the range multiply zero activations (or are dropped),
+        // columns past N are dropped: load a valid address instead
+        raw[u][i] = __ldg(reinterpret_cast<const uint32_t*>(
+            w + static_cast<size_t>(min(k, K - 1)) * N + min(n, N - 4)));
+      } else {
+        uint32_t v = 0u;
+        if (k < k_end) {
+          const int8_t* src = w + static_cast<size_t>(k) * N + n;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (n + j < N)
+              v |= static_cast<uint32_t>(static_cast<uint8_t>(src[j]))
+                   << (8 * j);
+        }
+        raw[u][i] = v;
+      }
+    }
+}
+
+template <int MT, bool FAST>
+__device__ __forceinline__ void gemv_kn(const int8_t* __restrict__ xq,
+                                        const int8_t* __restrict__ w,
+                                        const float* __restrict__ sx_ptr,
+                                        const float* __restrict__ sw, int M,
+                                        int K, int N, int k_per_split,
+                                        int32_t* part, unsigned* counters,
+                                        float* out, uint32_t* xs) {
+  __shared__ float sws[KN_COLS];
+  int32_t* red = reinterpret_cast<int32_t*>(xs + MT * (k_per_split / 4));
+  const int k_begin = blockIdx.y * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int n0 = blockIdx.x * KN_COLS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = n0 + 4 * lane;
+  const int nquads = (k_end - k_begin + 3) / 4;
+  const int xrow = k_per_split / 4;            // words per row of xs
+  const bool split = gridDim.y > 1;
+  uint32_t raw[KN_UNROLL][4];
+  load_quads_kn<FAST>(raw, w, K, N, n, k_begin, k_end, warp * KN_UNROLL);
+  const float sx = *sx_ptr;
+  const int t = threadIdx.x;
+  const float swt = t < KN_COLS && n0 + t < N ? sw[n0 + t] : 0.f;
+  copy_rows<MT>(xq, M, K, k_begin, k_end, k_per_split, xs);
+  if (t < KN_COLS) sws[t] = swt;
+  for (int i = threadIdx.x; i < MT * KN_COLS; i += KN_THREADS) red[i] = 0;
+  __syncthreads();
+
+  int32_t acc[4][MT];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[j][m] = 0;
+#pragma unroll 1
+  for (int q0 = warp * KN_UNROLL; q0 < nquads; q0 += 8 * KN_UNROLL) {
+    if (q0 != warp * KN_UNROLL)
+      load_quads_kn<FAST>(raw, w, K, N, n, k_begin, k_end, q0);
+#pragma unroll
+    for (int u = 0; u < KN_UNROLL; ++u) {
+      if (q0 + u >= nquads) break;
+      uint32_t col[4];
+      pmma::transpose4x4(raw[u][0], raw[u][1], raw[u][2], raw[u][3], col[0],
+                         col[1], col[2], col[3]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int xw = static_cast<int>(xs[m * xrow + q0 + u]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[j][m] = __dp4a(static_cast<int>(col[j]), xw, acc[j][m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (m >= M) break;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      atomicAdd(&red[m * KN_COLS + 4 * lane + j], acc[j][m]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < M * KN_COLS; i += KN_THREADS) {
+    const int m = i / KN_COLS, c = i % KN_COLS;
+    if (n0 + c >= N) continue;
+    if (split)
+      part[(static_cast<size_t>(blockIdx.y) * M + m) * N + n0 + c] = red[i];
+    else
+      out[static_cast<size_t>(m) * N + n0 + c] =
+          pmvm::rescale(red[i], sx, sws[c]);
+  }
+  if (split && pint8::last_arrival(counters + blockIdx.x, gridDim.y))
+    pint8::finish_tile<2, 8>(
+        part, gridDim.y, M, N, 0, M, n0, KN_COLS,
+        [&](int, int col, size_t at, int32_t sum) {
+          out[at] = pmvm::rescale(sum, sx, sws[col]);
+        });
+}
+
+// Decode blocks per SM, fixed by the launch bounds (the fused kernel's):
+// the wrapper sizes the K split to one wave of them (GEMV_BLOCKS_PER_SM in
+// kernels/photonic_mvm.py).
+template <int MT>
+__global__ void __launch_bounds__(KN_THREADS, MT == 4 ? 4 : 3)
+split_gemv_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
+                  const float* __restrict__ sx, const float* __restrict__ sw,
+                  int M, int K, int N, int k_per_split, int32_t* part,
+                  unsigned* counters, float* out) {
+  extern __shared__ __align__(16) uint32_t xs[];
+  if (N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0)
+    gemv_kn<MT, true>(xq, w, sx, sw, M, K, N, k_per_split, part, counters,
+                      out, xs);
+  else
+    gemv_kn<MT, false>(xq, w, sx, sw, M, K, N, k_per_split, part, counters,
+                       out, xs);
+}
+
+// ------------------------------------------------------ prefill
+// grid (ceil(M / 128), ceil(N / 128), splits); one stream: group = M rows
+// at the scale sx.
+__global__ void __launch_bounds__(pmma::THREADS, 2)
+split_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
+                 const float* __restrict__ sx, const float* __restrict__ sw,
+                 int M, int K, int N, int k_per_split, int32_t* part,
+                 unsigned* counters, float* out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  pint8::mma_tile<false>(xq, w, sx, M, sw, M, K, N, k_per_split, part,
+                         counters, out, smem);
+}
+
 __global__ void __launch_bounds__(pmma::THREADS, 2)
 split_t_mma_kernel(const int8_t* __restrict__ xq,
                    const int8_t* __restrict__ w, const float* __restrict__ sx,
@@ -329,45 +393,39 @@ split_t_mma_kernel(const int8_t* __restrict__ xq,
                         counters, out, smem);
 }
 
+template <int MT>
+cudaError_t launch_gemv(int trans, const int8_t* xq, const int8_t* w,
+                        const float* sx, const float* sw, int M, int K, int N,
+                        int kps, int splits, int32_t* part,
+                        unsigned* counters, float* out, cudaStream_t st) {
+  if (trans) {
+    dim3 grid((N + T_COLS - 1) / T_COLS, splits);
+    split_t_gemv_kernel<MT><<<grid, T_THREADS, MT * kps, st>>>(
+        xq, w, sx, sw, M, K, N, kps, part, counters, out);
+  } else {
+    dim3 grid((N + KN_COLS - 1) / KN_COLS, splits);
+    split_gemv_kernel<MT><<<grid, KN_THREADS, MT * kps + 4 * MT * KN_COLS,
+                            st>>>(xq, w, sx, sw, M, K, N, kps, part,
+                                  counters, out);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// photonic_mvm: xq int8 (M, K), w int8 (K, N).  bm: 16 or 128.
-// k_per_split: multiple of 64; ceil(K / k_per_split) splits, which need an
-// int32 workspace of splits * M * N when there is more than one.  Returns
-// cudaGetLastError() after the launches (0 on success).
-int photonic_mvm_split(const void* xq, const void* w, const float* sx,
-                       const float* sw, int M, int K, int N, int bm,
-                       int k_per_split, void* workspace, void* out,
-                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ksplit = (K + k_per_split - 1) / k_per_split;
-  dim3 grid((N + BN - 1) / BN, (M + bm - 1) / bm, ksplit);
-  const int8_t* x8 = static_cast<const int8_t*>(xq);
-  const int8_t* w8 = static_cast<const int8_t*>(w);
-  int32_t* part = static_cast<int32_t*>(workspace);
-  float* y = static_cast<float*>(out);
-  if (bm == 16) launch<1>(grid, st, x8, w8, sx, sw, M, K, N, k_per_split, part, y);
-  else launch<8>(grid, st, x8, w8, sx, sw, M, K, N, k_per_split, part, y);
-  if (ksplit > 1) {
-    const size_t total = static_cast<size_t>(M) * N;
-    const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-    split_reduce_kernel<<<blocks, 256, 0, st>>>(part, ksplit, M, N, sx, sw, y);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// photonic_mvm_t: xq int8 (M, K), w int8 (N, K).  regime: 0 = decode
-// (`rows` = 4 or 8 >= M), 1 = tensor cores.  k_per_split: a multiple of 64;
-// ceil(K / k_per_split) splits, which need an int32 workspace `part` of
-// splits * M * N and `counters`, one zero word per output tile (the
-// kernels leave them zero), when there is more than one.  Returns
-// cudaGetLastError() after the launch (0 on success).
-int photonic_mvm_split_t(const void* xq, const void* w, const float* sx,
-                         const float* sw, int M, int K, int N, int regime,
-                         int rows, int k_per_split, void* part,
-                         void* counters, void* out, void* stream) {
+// xq int8 (M, K); w int8 (K, N) (`photonic_mvm`), or (N, K) with trans
+// (`photonic_mvm_t`).  regime: 0 = decode (`rows` = 4 or 8 >= M), 1 =
+// tensor cores.  k_per_split: a multiple of 64; ceil(K / k_per_split)
+// splits, which need an int32 workspace `part` of splits * M * N and
+// `counters`, one zero word per output tile (the kernels leave them zero),
+// when there is more than one.  One launch; returns cudaGetLastError()
+// after it (0 on success).
+int photonic_mvm_split(const void* xq, const void* w, int trans,
+                       const float* sx, const float* sw, int M, int K, int N,
+                       int regime, int rows, int k_per_split, void* part,
+                       void* counters, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int splits = (K + k_per_split - 1) / k_per_split;
   const int8_t* x8 = static_cast<const int8_t*>(xq);
@@ -376,27 +434,34 @@ int photonic_mvm_split_t(const void* xq, const void* w, const float* sx,
   unsigned* c = static_cast<unsigned*>(counters);
   float* y = static_cast<float*>(out);
   if (regime == 0) {
-    dim3 grid((N + T_COLS - 1) / T_COLS, splits);
-    const int smem = rows * k_per_split;
     if (rows == 4)
-      split_t_gemv_kernel<4><<<grid, T_THREADS, smem, st>>>(
-          x8, w8, sx, sw, M, K, N, k_per_split, p, c, y);
-    else if (rows == 8)
-      split_t_gemv_kernel<8><<<grid, T_THREADS, smem, st>>>(
-          x8, w8, sx, sw, M, K, N, k_per_split, p, c, y);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(cudaGetLastError());
+      return static_cast<int>(launch_gemv<4>(trans, x8, w8, sx, sw, M, K, N,
+                                             k_per_split, splits, p, c, y,
+                                             st));
+    if (rows == 8)
+      return static_cast<int>(launch_gemv<8>(trans, x8, w8, sx, sw, M, K, N,
+                                             k_per_split, splits, p, c, y,
+                                             st));
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  // more than 48 KB of dynamic shared memory: say so once
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      split_t_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      pmma::SMEM_BYTES);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((M + pmma::BM - 1) / pmma::BM, (N + pmma::BN - 1) / pmma::BN,
             splits);
-  split_t_mma_kernel<<<grid, pmma::THREADS, pmma::SMEM_BYTES, st>>>(
-      x8, w8, sx, sw, M, K, N, k_per_split, p, c, y);
+  // more than 48 KB of dynamic shared memory: say so once per kernel
+  if (trans) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        split_t_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pmma::SMEM_BYTES);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    split_t_mma_kernel<<<grid, pmma::THREADS, pmma::SMEM_BYTES, st>>>(
+        x8, w8, sx, sw, M, K, N, k_per_split, p, c, y);
+  } else {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        split_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pmma::SMEM_BYTES);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    split_mma_kernel<<<grid, pmma::THREADS, pmma::SMEM_BYTES, st>>>(
+        x8, w8, sx, sw, M, K, N, k_per_split, p, c, y);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

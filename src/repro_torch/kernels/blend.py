@@ -6,8 +6,10 @@ paper's blocked random shuffle, §3.2 method 1, as grid index remapping):
 
     y[:, block j] = act(x[:, block perm[j]] + bias[block j])
 
-The CUDA kernel is ``csrc/blend_shuffle.cu``.  Both versions add the bias
-in x's dtype and round silu per op (``apply_activation``), as the
+The CUDA kernel is ``csrc/blend_shuffle.cu``: one pass of 16-byte vector
+loads and stores where ``block`` and the operands' alignment allow it
+(``vector_path``), else one element per thread.  Both versions add the
+bias in x's dtype and round silu per op (``apply_activation``), as the
 reference does.  ``bias=None`` skips the add (the reference adds zeros:
 the same values).  The block permutation lives on the device once per
 (permutation, device) — a host-to-device copy per call would make the host
@@ -71,12 +73,22 @@ def blend_shuffle_plain(x, bias, block_perm, *, block: int,
     return apply_activation(y, activation)
 
 
+def vector_path(block: int, *tensors) -> bool:
+    """Whether the kernel takes its 16-byte vector pass: ``block`` a
+    multiple of the vector width (16 bytes of the first tensor's dtype: 8
+    bf16 or 4 float32) and every tensor given (x, out, bias; None is
+    skipped) starting 16-byte aligned.  Else the element pass."""
+    width = 16 // tensors[0].element_size()
+    return block % width == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
 @functools.lru_cache(maxsize=1)
 def _library():
     lib = _build.load("blend_shuffle")
     fn = lib.blend_shuffle
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, i, i, ctypes.c_longlong, i, p, p]
+    fn.argtypes = [p, i, p, p, i, i, ctypes.c_longlong, i, i, p, p]
     fn.restype = i
     return lib, fn
 
@@ -104,7 +116,8 @@ def _launch(x, bias, perm, block, activation):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), _DTYPE_CODE[x.dtype],
             bias.data_ptr() if bias is not None else None, dperm.data_ptr(),
-            block, _ACT_CODE[activation], M, C, out.data_ptr(), stream)
+            block, _ACT_CODE[activation], M, C,
+            int(vector_path(block, x, out, bias)), out.data_ptr(), stream)
     _build.check(lib, "blend_shuffle_error_string", rc, "blend_shuffle")
     launches += 1
     return out

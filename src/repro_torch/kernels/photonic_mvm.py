@@ -11,11 +11,11 @@ Ports of ``repro.kernels.photonic_mvm``:
     the s8 tensor cores (``csrc/photonic_mvm_mma.cuh``);
   * ``photonic_mvm`` / ``photonic_mvm_t`` (the split pipeline's MVM, both
     OBU orientations): int8 activations and an A8 scale in, the float32
-    MVM out (``csrc/photonic_mvm_split.cu``, one library, both
-    orientations).  ``photonic_mvm_t`` runs the fused kernel's two regimes
-    (``split_t_launch_plan``) on its int8 rows: the (N, K) decode stream,
-    or the s8 tensor cores.  Quantization and the epilogue are separate
-    passes (``kernels/ops.py``, ``kernels/blend.py``);
+    MVM out (``csrc/photonic_mvm_split.cu``, one library, one launch per
+    call).  Both run the fused kernel's two regimes on their int8 rows
+    (``split_kn_launch_plan``, ``split_t_launch_plan``): the decode stream
+    of their orientation, or the s8 tensor cores.  Quantization and the
+    epilogue are separate passes (``kernels/ops.py``, ``kernels/blend.py``);
   * ``photonic_mvm_resident`` (the PRM-blended MoE experts' MVM): T int8
     activation streams, each with its own A8 scale, through ONE programmed
     (K, N) bank (``csrc/photonic_mvm_resident.cu``): the T * M rows as one
@@ -66,7 +66,6 @@ launches_mvm_t = 0
 launches_resident = 0
 
 QMAX = 127.0          # W8A8: the kernel's int8 grid
-BN, BK = 128, 64      # split kernels' output-column tile and reduction stage
 _SMS_H100 = 132
 # the fused kernel (``csrc/photonic_mvm_fused.cu``, the same constants
 # there): decode regime up to GEMV_MAX_M rows; its blocks cover GEMV_COLS
@@ -126,13 +125,14 @@ def out_block_index(block_perm, block: int, N: int) -> np.ndarray:
 
 
 class Plan(NamedTuple):
-    """How a planned MVM kernel (``photonic_mvm_fused``, ``photonic_mvm_t``,
-    ``photonic_mvm_resident``) runs one (M, K) x (K, N) call.  ``regime``
-    "gemv" (decode widths, ``rows`` = 4 or 8 >= M) or "mma" (tensor
-    cores, ``rows`` = the 128-row tile); ``tiles`` output tiles, K split
-    into ``splits`` ranges of ``k_per_split``; workspaces: the int8 A8 grid
-    of x (``xq_bytes``, the fused kernel's mma regime only) and the int32
-    split partials (``part_bytes``, splits > 1 only)."""
+    """How a planned MVM kernel (``photonic_mvm_fused``, ``photonic_mvm``,
+    ``photonic_mvm_t``, ``photonic_mvm_resident``) runs one (M, K) x
+    (K, N) call.  ``regime`` "gemv" (decode widths, ``rows`` = 4 or 8 >=
+    M) or "mma" (tensor cores, ``rows`` = the 128-row tile); ``tiles``
+    output tiles, K split into ``splits`` ranges of ``k_per_split``;
+    workspaces: the int8 A8 grid of x (``xq_bytes``, the fused kernel's
+    mma regime only) and the int32 split partials (``part_bytes``, splits
+    > 1 only)."""
     regime: str
     rows: int
     tiles: int
@@ -190,6 +190,18 @@ def launch_plan(M: int, K: int, N: int, transpose: bool = False,
     return _mma_plan(M, K, N, sms, M * _rounded(K, 16))
 
 
+def split_kn_launch_plan(M: int, K: int, N: int,
+                         sms: int = _SMS_H100) -> Plan:
+    """``photonic_mvm``'s plan on the (K, N) bank: the fused kernel's (K, N)
+    decode plan at M <= GEMV_MAX_M (the stream on int8 rows), the
+    resident kernel's tensor-core plan for one stream above (K splits only
+    where the tiles fill less than a wave at decode-like widths, or on a
+    deep bank).  No A8 workspace: the rows are int8 already."""
+    if M <= GEMV_MAX_M:
+        return launch_plan(M, K, N, False, sms)
+    return resident_launch_plan(1, M, K, N, sms)
+
+
 def split_t_launch_plan(M: int, K: int, N: int,
                         sms: int = _SMS_H100) -> Plan:
     """``photonic_mvm_t``'s plan: the fused kernel's (N, K) plan, whose
@@ -221,18 +233,6 @@ def resident_launch_plan(T: int, M: int, K: int, N: int,
         min_ktiles = ktiles
     return _mma_plan(rows, K, N, sms, 0, min_ktiles=min_ktiles,
                      splits=splits)
-
-
-def split_launch_plan(M: int, K: int, N: int, sms: int = _SMS_H100) -> tuple:
-    """(bm, k_per_split) of the split (K, N) kernel (``photonic_mvm``):
-    decode widths (M <= 16) take the 16-row tile; K splits until the grid
-    holds about two blocks per SM."""
-    bm = 16 if M <= 16 else 128
-    tiles = math.ceil(M / bm) * math.ceil(N / BN)
-    ksteps = max(1, math.ceil(K / BK))
-    want = max(1, min(ksteps, math.ceil(2 * sms / tiles)))
-    k_per_split = math.ceil(ksteps / want) * BK
-    return bm, k_per_split
 
 
 def _offset_mvm(xq, wq, x_scale, w_scale, transpose):
@@ -321,7 +321,7 @@ MAX_SPLIT_TILES = 1024
 @functools.lru_cache(maxsize=None)
 def _tile_counters(device) -> torch.Tensor:
     """Split-K arrival counters of one device, one int32 per output tile,
-    shared by every one-launch split (the fused, ``photonic_mvm_t`` and
+    shared by every one-launch split (the fused, both split and the
     resident kernels).  They are zero between calls: the kernel's last
     block of a tile re-arms its counter, and calls on the device run in
     stream order."""
@@ -426,16 +426,13 @@ def photonic_mvm_t_plain(xq, wq, x_scale, w_scale):
 
 @functools.lru_cache(maxsize=1)
 def _split_library():
-    """The split library and its two launchers: (K, N) and (N, K)."""
+    """The split library and its launcher (both orientations)."""
     lib = _build.load("photonic_mvm_split")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.photonic_mvm_split
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
+    fn.argtypes = [p, p, i, p, p, i, i, i, i, i, i, p, p, p, p]
     fn.restype = i
-    fn_t = lib.photonic_mvm_split_t
-    fn_t.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p]
-    fn_t.restype = i
-    return lib, fn, fn_t
+    return lib, fn
 
 
 def _check_split(xq, wq, x_scale, w_scale, transpose):
@@ -466,46 +463,34 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch_split(xq, wq, x_scale, w_scale):
-    M, K, N = _check_split(xq, wq, x_scale, w_scale, False)
-    bm, kps = split_launch_plan(M, K, N, _sms(xq.device))
-    splits = math.ceil(K / kps)
-    work = (torch.empty((splits, M, N), dtype=torch.int32, device=xq.device)
-            if splits > 1 else None)
-    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
-    lib, fn, _ = _split_library()
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    rc = fn(xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
-            w_scale.data_ptr(), M, K, N, bm, kps, _ptr(work), out.data_ptr(),
-            stream)
-    _build.check(lib, "photonic_mvm_split_error_string", rc, "photonic_mvm")
-    return out
-
-
-def _launch_split_t(xq, wq, x_scale, w_scale):
-    M, K, N = _check_split(xq, wq, x_scale, w_scale, True)
-    plan = split_t_launch_plan(M, K, N, _sms(xq.device))
+def _launch_split(xq, wq, x_scale, w_scale, transpose):
+    M, K, N = _check_split(xq, wq, x_scale, w_scale, transpose)
+    plan = (split_t_launch_plan if transpose else split_kn_launch_plan)(
+        M, K, N, _sms(xq.device))
     part, counters = _split_workspace(plan, xq.device)
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
-    lib, _, fn = _split_library()
+    lib, fn = _split_library()
     stream = torch.cuda.current_stream(xq.device).cuda_stream
-    rc = fn(xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(),
+    rc = fn(xq.data_ptr(), wq.data_ptr(), int(transpose), x_scale.data_ptr(),
             w_scale.data_ptr(), M, K, N, 0 if plan.regime == "gemv" else 1,
             plan.rows, plan.k_per_split, _ptr(part), _ptr(counters),
             out.data_ptr(), stream)
-    _build.check(lib, "photonic_mvm_split_error_string", rc, "photonic_mvm_t")
+    _build.check(lib, "photonic_mvm_split_error_string", rc,
+                 "photonic_mvm_t" if transpose else "photonic_mvm")
     return out
 
 
 def photonic_mvm(xq, wq, x_scale, w_scale):
     """Split W8A8 MVM: xq int8 (M, K), wq int8 (K, N) per-column quantized,
     x_scale the float32 A8 scale, w_scale (N,) float32.  Returns float32
-    (M, N).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    (M, N), on the card bit for bit ``photonic_mvm_t(xq,
+    wq.T.contiguous(), x_scale, w_scale)``.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (the decode stream at M <=
+    GEMV_MAX_M, the tensor cores above: ``split_kn_launch_plan``)."""
     global launches_mvm
     if xq.device.type == "cpu":
         return photonic_mvm_plain(xq, wq, x_scale, w_scale)
-    out = _launch_split(xq, wq, x_scale.reshape(()), w_scale)
+    out = _launch_split(xq, wq, x_scale.reshape(()), w_scale, False)
     launches_mvm += 1
     return out
 
@@ -520,7 +505,7 @@ def photonic_mvm_t(xq, wq, x_scale, w_scale):
     global launches_mvm_t
     if xq.device.type == "cpu":
         return photonic_mvm_t_plain(xq, wq, x_scale, w_scale)
-    out = _launch_split_t(xq, wq, x_scale.reshape(()), w_scale)
+    out = _launch_split(xq, wq, x_scale.reshape(()), w_scale, True)
     launches_mvm_t += 1
     return out
 

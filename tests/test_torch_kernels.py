@@ -283,18 +283,43 @@ def test_launch_plan(M, K, N, transpose):
             assert plan.part_bytes <= t_pm.MMA_PART_BYTES
 
 
-@pytest.mark.parametrize("M,K,N", _SPLIT_PLAN_SHAPES)
+# the first plan shapes, every chip_smoke (K, N) case, plus ragged ones
+_SPLIT_KN_PLAN_SHAPES = sorted(
+    set(_SPLIT_PLAN_SHAPES)
+    | {(M, K, N) for _, M, K, N, tr in _chip_smoke().split_cases() if not tr}
+    | {(1, 4100, 300), (40, 4100, 300), (8, 3072, 9216), (9, 3072, 9216),
+       (64, 3072, 9216), (65, 9216, 3072)})
+
+
+@pytest.mark.parametrize("M,K,N", _SPLIT_KN_PLAN_SHAPES)
 def test_split_launch_plan(M, K, N):
-    bm, kps = t_pm.split_launch_plan(M, K, N)
-    assert bm == (16 if M <= 16 else 128)
-    assert kps % t_pm.BK == 0 and kps >= t_pm.BK
-    splits = -(-K // kps)
+    """``photonic_mvm``'s plan on the (K, N) bank (``split_kn_launch_plan``):
+    the fused kernel's (K, N) decode plan at M <= GEMV_MAX_M (the stream on
+    int8 rows, no A8 workspace), the resident kernel's tensor-core plan
+    for one stream above; every split has work, its partials fit
+    MMA_PART_BYTES and its tiles the arrival counters."""
+    plan = t_pm.split_kn_launch_plan(M, K, N)
+    kps, splits = plan.k_per_split, plan.splits
+    assert plan.xq_bytes == 0
+    assert kps % 64 == 0 and splits == -(-K // kps)
     assert (splits - 1) * kps < K <= splits * kps       # every split has work
-    tiles = -(-M // bm) * -(-N // t_pm.BN)
-    if tiles >= 2 * 132:
-        assert splits == 1                              # big grids: no split
+    assert plan.part_bytes == (4 * splits * M * N if splits > 1 else 0)
+    assert plan.part_bytes <= t_pm.MMA_PART_BYTES
+    if splits > 1:
+        assert plan.tiles <= t_pm.MAX_SPLIT_TILES
+    if M <= t_pm.GEMV_MAX_M:
+        assert plan == t_pm.launch_plan(M, K, N, False)
+        assert plan.regime == "gemv" and plan.rows in (4, 8)
+        assert plan.rows >= M
+        assert plan.tiles == -(-N // t_pm.GEMV_COLS)
+        assert plan.rows * kps <= t_pm.GEMV_XS_BYTES   # shared-memory rows
     else:
-        assert tiles * splits >= min(2 * 132, tiles * -(-K // t_pm.BK)) // 2
+        assert plan == t_pm.resident_launch_plan(1, M, K, N)
+        assert plan.regime == "mma" and plan.rows == t_pm.MMA_BM
+        assert kps % t_pm.MMA_BK == 0
+        assert plan.tiles == -(-M // t_pm.MMA_BM) * -(-N // t_pm.MMA_BN)
+        if plan.tiles >= 132:
+            assert splits == 1                  # a full wave: no split
 
 
 # every chip_smoke ^T case, plus ragged ones: 72 -> 200, M = 1, K = 4100
@@ -417,21 +442,28 @@ _PASS_LOOP = ("for (int p = 0; p < PASSES; ++p) {",
               "butterfly<1>(acc, lane);")
 
 
+_KN_LOOP = ("int32_t acc[4][MT];",
+            "acc[j][m] = __dp4a(static_cast<int>(col[j]), xw, acc[j][m]);")
+
+
 @pytest.mark.parametrize("fused_name,copy_name,where,part", [
     ("last_arrival", "last_arrival", "photonic_mvm_int8.cuh", None),
     ("finish_tile", "finish_tile", "photonic_mvm_int8.cuh", "finish"),
     ("load_rows_nk", "load_rows_nk", "photonic_mvm_split.cu", None),
     ("butterfly", "butterfly", "photonic_mvm_split.cu", None),
     ("gemv_nk", "gemv_t", "photonic_mvm_split.cu", "passes"),
+    ("load_quads_kn", "load_quads_kn", "photonic_mvm_split.cu", None),
+    ("gemv_kn", "gemv_kn", "photonic_mvm_split.cu", "kn_loop"),
 ])
 def test_split_kernels_copy_the_fused_kernels_code(fused_name, copy_name,
                                                    where, part):
     """The split and resident libraries carry copies of the fused kernel's
-    split-K finish and (N, K) decode stream: shared through one header,
+    split-K finish and both decode streams: shared through one header,
     the same code changed the fused tensor-core kernel's register
     allocation and slowed it.  The copies stay the fused kernel's code
     apart from their interfaces: whole functions, the finish up to its
-    epilogue store, and the decode stream's pass loop."""
+    epilogue store, the (N, K) stream's pass loop and the (K, N) stream's
+    main loop."""
     fused = _device_function(_CSRC / "photonic_mvm_fused.cu", fused_name)
     copy = _device_function(_CSRC / where, copy_name)
     if part == "finish":
@@ -439,8 +471,38 @@ def test_split_kernels_copy_the_fused_kernels_code(fused_name, copy_name,
         copy = copy.split(_FINISH_STORE)[0]
     elif part == "passes":
         fused, copy = _between(fused, *_PASS_LOOP), _between(copy, *_PASS_LOOP)
+    elif part == "kn_loop":
+        fused, copy = _between(fused, *_KN_LOOP), _between(copy, *_KN_LOOP)
     assert len(copy) > 200
     assert copy == fused
+
+
+def test_split_decode_streams_keep_the_fused_kernels_tiles():
+    """The split library's decode streams run the fused kernel's plans
+    (``split_kn_launch_plan``, ``split_t_launch_plan``), so their column
+    tiles, unroll and blocks per SM are the fused kernel's constants."""
+    fused = (_CSRC / "photonic_mvm_fused.cu").read_text()
+    split = (_CSRC / "photonic_mvm_split.cu").read_text()
+
+    def const(src, name):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m, name
+        return int(m.group(1))
+
+    assert const(split, "KN_COLS") == const(fused, "GEMV_COLS") == \
+        t_pm.GEMV_COLS
+    assert const(split, "T_COLS") == const(fused, "GEMV_T_COLS") == \
+        t_pm.GEMV_T_COLS
+    assert const(split, "KN_UNROLL") == const(fused, "KN_UNROLL")
+    assert const(split, "KN_THREADS") == const(split, "T_THREADS") == \
+        const(fused, "GEMV_THREADS")
+    # blocks per SM: the fused kernel's launch bounds, the split kernels',
+    # and the plan's table
+    assert "return TRANS ? 2 : (MT == 4 ? 4 : 3);" in fused
+    assert "__launch_bounds__(KN_THREADS, MT == 4 ? 4 : 3)" in split
+    assert "__launch_bounds__(T_THREADS, 2)" in split
+    assert t_pm.GEMV_BLOCKS_PER_SM == {(False, 4): 4, (False, 8): 3,
+                                       (True, 4): 2, (True, 8): 2}
 
 
 @pytest.mark.parametrize("dtype,hd,hd_v,variant", [
@@ -478,10 +540,12 @@ def test_chip_smoke_profile_groups_every_kernel():
     assert cs.kernel_group("void at::native::vectorized_elementwise_kernel"
                            "<4>()") == "other torch kernels"
     assert len(seen) >= 12
-    assert {seen["split_kernel"], seen["split_reduce_kernel"]} == \
+    assert {seen["split_gemv_kernel"], seen["split_mma_kernel"]} == \
         {"photonic_mvm"}
     assert {seen["split_t_gemv_kernel"], seen["split_t_mma_kernel"]} == \
         {"photonic_mvm_t"}
+    assert {seen["blend_kernel"], seen["blend_vec_kernel"]} == \
+        {"blend_shuffle"}
     assert seen["resident_mma_kernel"] == "photonic_mvm_resident"
 
 

@@ -212,6 +212,30 @@ def test_blend_refuses_ragged_channels_and_non_permutations():
         t_ops.blend_shuffle(x.reshape(2, 2, 96), None, (3, 1, 0), block=32)
 
 
+@pytest.mark.parametrize("dtype,block,x_off,bias_off,vector", [
+    (torch.bfloat16, 128, 0, 0, True),     # minitron-4b's blocked shuffle
+    (torch.float32, 128, 0, 0, True),
+    (torch.bfloat16, 100, 0, 0, False),    # not a multiple of 8 bf16
+    (torch.float32, 100, 0, 0, True),      # a multiple of 4 float32
+    (torch.float32, 50, 0, 0, False),
+    (torch.bfloat16, 128, 1, 0, False),    # x one element into its buffer
+    (torch.float32, 128, 4, 0, True),      # 16 bytes in: aligned again
+    (torch.bfloat16, 128, 0, 1, False),    # a bias off the 16-byte grid
+])
+def test_blend_vector_path_choice(dtype, block, x_off, bias_off, vector):
+    """The kernel's 16-byte vector pass takes a block that is a multiple of
+    16 bytes of x's dtype and 16-byte aligned x, out and bias (None is
+    skipped); anything else takes the element pass."""
+    M, C = 3, 4 * block
+    x = torch.zeros(M * C + x_off, dtype=dtype)[x_off:].view(M, C)
+    bias = torch.zeros(C + bias_off, dtype=dtype)[bias_off:]
+    out = torch.empty_like(x)
+    assert x.is_contiguous() and out.data_ptr() % 16 == 0
+    assert t_blend.vector_path(block, x, out, bias) == vector
+    assert t_blend.vector_path(block, x, out, None) == \
+        (vector or bias_off != 0)
+
+
 def test_blend_ops_leading_dims_and_device_index_cache():
     rng = np.random.default_rng(7)
     x = torch.as_tensor(rng.standard_normal((2, 3, 64)).astype(np.float32))
