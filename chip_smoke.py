@@ -29,7 +29,10 @@ the script exits non-zero without printing the final ``ok`` line):
    (slice 4, at mamba2-780m's and a jamba-width chunk, with stride-0 and
    materialised B/C, which must agree bit for bit, each at mamba2's decay
    spread and at a slow decay under which every key tile and state row
-   carries weight);
+   carries weight; since slice 8 on the TF32 tensor cores in 3xTF32, with
+   C B^T once per group of heads, at b * nc = 1, 2, 6 and 8 and a ragged
+   chunk whose every tile is partial, bit for bit the same under another
+   grouping of heads, its SASS holding TF32 wgmma);
 3. the fused serving path: minitron-4b with its R&B plan (8 physical
    blocks x 4 reuses) at full width, photonic, bf16, seeded random weights,
    through ``Program.generate`` and a ``ContinuousScheduler`` with chunked
@@ -62,6 +65,9 @@ the script exits non-zero without printing the final ``ok`` line):
 3g. the mamba2 smoke model (R&B, 2 x 2) and the jamba smoke model (SSM,
    attention and MoE layers), float32, on the card against the CPU plain
    path;
+3h. a small dense model's card logits against the same CPU program with
+   the MVM kernels' own arithmetic (``photonic_mvm.exact_mvm``: the exact
+   integer product, rescaled once), at a kernel-level tolerance;
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
@@ -78,8 +84,13 @@ activation, rel-L2 <= 2**-8 with silu (the card's exp may differ from the
 plain version's in the last bit).  The SSD kernel sums its float32 products
 and its cumsum in another order than the plain version: rel-L2 <= 2**-8
 for y and the states (at the slow decay, a kernel that dropped a key tile
-or a block of state rows would miss it: ``tests/test_torch_ssd.py``).
-Model-level checks use the repository's W8A8 bound, rel-L2 <= 0.055.
+or a block of state rows would miss it: ``tests/test_torch_ssd.py``), and
+since slice 8, which runs its products in 3xTF32, rel-L2 <= 1e-4 for each
+(float32 level: one-pass TF32 reads ~4e-4, ``tests/test_torch_ssd.py``).
+Model-level checks use the repository's W8A8 bound, rel-L2 <= 0.055; the
+small dense model's card logits are also held to the CPU program with the
+kernels' integer arithmetic at rel-L2 <= 1e-5 (what is left is float32
+summation order and flash's softmax).
 """
 from __future__ import annotations
 
@@ -99,10 +110,16 @@ MVM_TOL = 2.0 ** -8
 FLASH_TOL = 2.0 ** -8
 BLEND_TOL = 2.0 ** -8
 W8A8_BOUND = 0.055
-SSD_TOL = 2.0 ** -8
+SSD_TOL = 2.0 ** -8         # the PR 14 kernel's gate; SSD_F32_TOL below
+SSD_F32_TOL = 1e-4          # is tighter and replaces it for the TF32
+                            # kernel (one-pass TF32 reads ~4e-4)
+EXACT_ARITH_TOL = 1e-5      # card logits vs the CPU program with the
+                            # MVM kernels' integer arithmetic
 INT8_TOPS = 1979e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12          # H100 SXM, CUDA cores (no tensor cores)
+TF32_FLOPS = 495e12         # H100 SXM, tensor cores, dense
+TF32X3_FLOPS = TF32_FLOPS / 3   # a 3xTF32 product: three TF32 products
 HBM_BYTES_S = 3.35e12
 
 
@@ -370,15 +387,51 @@ def small_model_check(torch):
     bk = Backend("photonic", flash_min_seq=64)
     gpu = api.Program.build(cfg, params, execution=bk)
     cpu = api.Program.build(cfg, params, execution=bk, device="cpu")
+    exact = api.Program.build(cfg, params, device="cpu",
+                              execution=exact_backend(flash_min_seq=64))
     toks = np.random.default_rng(3).integers(0, 97, (2, 96))
     lg_gpu, _ = gpu.prefill({"tokens": toks}, 112)
     lg_cpu, _ = cpu.prefill({"tokens": toks}, 112)
+    lg_exact, _ = exact.prefill({"tokens": toks}, 112)
     err = rel_l2(lg_gpu.cpu(), lg_cpu)
     if not (err <= W8A8_BOUND and torch.isfinite(lg_gpu).all()):
         raise AssertionError(f"small model GPU vs CPU rel-L2 {err}")
+    err_exact = rel_l2(lg_gpu.cpu(), lg_exact)
+    if not err_exact <= EXACT_ARITH_TOL:
+        raise AssertionError(f"small model GPU vs the CPU program with the "
+                             f"kernels' arithmetic: rel-L2 {err_exact} > "
+                             f"{EXACT_ARITH_TOL}")
     same = bool((gpu.generate(toks, 8).cpu() == cpu.generate(toks, 8)).all())
     return {"small_model_gpu_vs_cpu_rel_l2": err,
+            "small_model_gpu_vs_exact_arith_rel_l2": err_exact,
+            "small_model_plain_vs_exact_arith_rel_l2": rel_l2(lg_cpu,
+                                                              lg_exact),
             "small_model_greedy_tokens_equal": same}
+
+
+def exact_backend(**kw):
+    """A photonic ``Backend`` whose matmuls run the MVM kernels' arithmetic
+    on the CPU (``photonic_mvm.exact_mvm``: the exact integer product,
+    rescaled once) where the plain versions keep the reference's offset
+    decomposition; the rest (A8 grid, epilogue, attention) is the plain
+    path's.  Only this script's check uses it."""
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.core.photonic import quantize_symmetric
+    from repro_torch.kernels import photonic_mvm as pm
+
+    class ExactBackend(backend_lib.Backend):
+        def _photonic_matmul(self, x, wq, wscale, *, transpose, bias,
+                             block_perm, block, activation, bank_tag):
+            if self.noise_active:
+                raise ValueError("the exact arithmetic has no fault model")
+            q, xs = quantize_symmetric(x, 8)
+            y = pm.exact_mvm(q.reshape(-1, x.shape[-1]), wq, xs,
+                             wscale.reshape(1, -1), transpose)
+            y = y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
+            return backend_lib._epilogue_unfused(y, bias, block_perm, block,
+                                                 activation)
+
+    return ExactBackend("photonic", **kw)
 
 
 KERNEL_GROUPS = (
@@ -390,7 +443,7 @@ KERNEL_GROUPS = (
     ("photonic_mvm_resident", ("::resident_mma_kernel",)),
     ("blend_shuffle", ("::blend_kernel", "::blend_vec_kernel")),
     ("flash_attention", ("::flash_kernel", "::flash_mma_kernel")),
-    ("ssd_chunk", ("::ssd_chunk_kernel",)))
+    ("ssd_chunk", ("::ssd_mma_kernel",)))
 
 
 def kernel_group(name: str) -> str:
@@ -1160,26 +1213,31 @@ def small_moe_check(torch):
 # phase 2, slice 4: the intra-chunk SSD
 # -------------------------------------------------------------------------
 def ssd_cases():
-    """(label, b, nc, H, N, stride0, decay): mamba2-780m's chunks (L 256, 48
-    heads of 64, d_state 128) for one prompt, for a batch of two prompts of
-    768 tokens and for one 2048-token prompt, each with B/C as the serving
-    path passes them (a stride-0 view over the heads: one group) and
-    materialised; plus a jamba-width chunk pair (128 heads of 64, d_state
-    16), where a tile sized for N 128 must still be right.  Each at two
+    """(label, b, nc, L, H, P, N, stride0, decay): mamba2-780m's chunks (L
+    256, 48 heads of 64, d_state 128) for one prompt of up to 256 tokens,
+    one of 300 or 512 (nc 2), a batch of two prompts of 768 tokens and one
+    2048-token prompt, each with B/C as the serving path passes them (a
+    stride-0 view over the heads: one group) and materialised; a
+    jamba-width chunk pair (128 heads of 64, d_state 16), where a tile
+    sized for N 128 must still be right; and a ragged chunk whose every
+    tile is partial (L 100, 6 heads, P 40, N 20), both ways.  Each at two
     decays (``ssd_inputs``): mamba2's spread, where only the diagonal and
     the adjacent key tile and the last 64 state rows carry weight, and a
     slow one, where every key tile and every state row does."""
     cases = []
     for decay in ("mamba2", "slow"):
-        for b, nc in ((1, 1), (2, 3), (1, 8)):
+        tail = "" if decay == "mamba2" else " slow decay"
+        for b, nc in ((1, 1), (1, 2), (2, 3), (1, 8)):
             for s0 in (True, False):
                 cases.append((f"b={b} nc={nc} L=256 H=48 P=64 N=128 "
                               f"{'stride-0' if s0 else 'materialised'} B/C"
-                              + ("" if decay == "mamba2" else " slow decay"),
-                              b, nc, 48, 128, s0, decay))
-        cases.append(("b=1 nc=2 L=256 H=128 P=64 N=16 stride-0 B/C"
-                      + ("" if decay == "mamba2" else " slow decay"),
-                      1, 2, 128, 16, True, decay))
+                              + tail, b, nc, 256, 48, 64, 128, s0, decay))
+        cases.append(("b=1 nc=2 L=256 H=128 P=64 N=16 stride-0 B/C" + tail,
+                      1, 2, 256, 128, 64, 16, True, decay))
+        for s0 in (True, False):
+            cases.append((f"b=1 nc=1 L=100 H=6 P=40 N=20 "
+                          f"{'stride-0' if s0 else 'materialised'} B/C"
+                          + tail, 1, 1, 100, 6, 40, 20, s0, decay))
     return cases
 
 
@@ -1206,57 +1264,101 @@ def ssd_inputs(torch, gen, b, nc, H, N, stride0, decay, L=256, P=64,
     return x, dA, Bh, Ch
 
 
-def ssd_bound(b, nc, L, H, P, N, stride0):
-    """(bound ms, bound_by, bytes, flops): each input read once (a stride-0
-    B/C is one head's data), y and the states written once; the lower
-    triangle's products (the upper one is zero by definition) and the
-    state's, at the fp32 CUDA-core peak (the kernel's and the plain
-    version's type)."""
+def ssd_ops(b, nc, L, H, P, N, stride0):
+    """Multiply-adds x 2 of a call: the causal triangle's scores C B^T
+    (the upper triangle is zero by definition), once per group (a stride-0
+    B/C is one group; materialised, one per head), its product with x and
+    the states, per head."""
     pairs = L * (L + 1) // 2
-    flops = 2.0 * b * nc * H * (pairs * (N + P) + L * N * P)
+    groups = 1 if stride0 else H
+    return 2.0 * b * nc * (pairs * N * groups
+                           + H * (pairs * P + L * N * P))
+
+
+def ssd_bound(b, nc, L, H, P, N, stride0):
+    """(bound ms, bound_by, bytes, flops, fp32 bound ms): each input read
+    once (a stride-0 B/C is one head's data), y and the states written
+    once; the operations of ``ssd_ops`` at the 3xTF32 rate (a third of
+    TF32's 495 TFLOP/s, the kernel's arithmetic).  The bound of the first
+    CUDA-core kernel beside it: every head's scores, at the CUDA cores'
+    67 TFLOP/s fp32."""
+    flops = ssd_ops(b, nc, L, H, P, N, stride0)
     bc = 2 * b * nc * L * N * (1 if stride0 else H)
     nbytes = 4 * (2 * b * nc * L * H * P + b * nc * H * L + bc
                   + b * nc * H * N * P)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / TF32X3_FLOPS * 1e3
+    pairs = L * (L + 1) // 2
+    fp32_ops = 2.0 * b * nc * H * (pairs * (N + P) + L * N * P)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, flops)
+            else "operations", nbytes, flops,
+            max(t_bytes, fp32_ops / FP32_FLOPS * 1e3))
+
+
+def ssd_sass_tf32(ssd):
+    """TF32 wgmma instructions in the built SSD library's SASS
+    (``cuobjdump -sass``, beside nvcc; raises without it)."""
+    from repro_torch.kernels import build
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        raise FileNotFoundError(f"no cuobjdump beside nvcc: {tool}")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.library_path("ssd_chunk"))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum("GMMA" in line and "TF32" in line
+               for line in sass.splitlines())
 
 
 def check_ssd(torch, timer, ssd):
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
-    for label, b, nc, H, N, s0, decay in ssd_cases():
-        args = ssd_inputs(torch, gen, b, nc, H, N, s0, decay)
+    for label, b, nc, L, H, P, N, s0, decay in ssd_cases():
+        args = ssd_inputs(torch, gen, b, nc, H, N, s0, decay, L=L, P=P)
         y, st = ssd.ssd_chunk(*args)
         want_y, want_st = ssd.ssd_chunk_plain(*args)
         x, dA, Bh, Ch = args
         y2, st2 = ssd.ssd_chunk(x, dA, Bh.contiguous(), Ch.contiguous())
+        # groups of 3 heads (partial at H=128), which no plan picks
+        y3, st3 = ssd._launch(*args, b, nc, L, H, P, N,
+                              ssd._plan(b, nc, L, H, P, N, s0, 3, 3))
         torch.cuda.synchronize()
-        err = max(rel_l2(y, want_y), rel_l2(st, want_st))
+        err_y, err_st = rel_l2(y, want_y), rel_l2(st, want_st)
+        err = max(err_y, err_st)
         max_abs = max(float((y - want_y).abs().max()),
                       float((st - want_st).abs().max()))
-        if not (err <= SSD_TOL and torch.isfinite(y).all()
-                and torch.isfinite(st).all()):
-            raise AssertionError(f"ssd_chunk {label}: rel-L2 {err} > "
-                                 f"{SSD_TOL}")
+        if not (err <= SSD_F32_TOL and torch.isfinite(y).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"ssd_chunk {label}: rel-L2 y {err_y}, "
+                                 f"states {err_st} > {SSD_F32_TOL}")
         if not (torch.equal(y, y2) and torch.equal(st, st2)):
             raise AssertionError(f"ssd_chunk {label}: stride-0 and "
                                  f"materialised B/C differ")
+        if not (torch.equal(y, y3) and torch.equal(st, st3)):
+            raise AssertionError(f"ssd_chunk {label}: groups of 3 heads "
+                                 f"change the result")
         ms = timer.ms(lambda: ssd.ssd_chunk(*args), 20)
         plain_ms = timer.ms(lambda: ssd.ssd_chunk_plain(*args), 5)
-        bound, by, nbytes, flops = ssd_bound(b, nc, 256, H, 64, N, s0)
+        bound, by, nbytes, flops, bound_fp32 = ssd_bound(b, nc, L, H, P, N,
+                                                         s0)
+        plan = ssd.ssd_launch_plan(b, nc, L, H, P, N, s0)
         row = {"case": label, "kernel": "ssd_chunk", "decay": decay,
-               "rel_l2": err, "rel_l2_y": rel_l2(y, want_y),
-               "rel_l2_states": rel_l2(st, want_st), "max_abs_err": max_abs,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "rel_l2": err, "rel_l2_y": err_y, "rel_l2_states": err_st,
+               "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None,
                "library": "none: no single PyTorch call computes it (the "
                           "plain version is the einsum/bmm chain)",
                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-               "ops": flops, "stride0_equals_materialised": True}
+               "ops": flops, "bound_fp32_ms": bound_fp32,
+               "heads_per_block": plan.heads_per_block,
+               "state_heads_per_block": plan.state_heads_per_block,
+               "blocks": plan.blocks, "stride0_equals_materialised": True,
+               "any_grouping_equal": True}
         emit(row)
         rows.append(row)
-        del args, y, st, want_y, want_st, y2, st2
+        del args, y, st, want_y, want_st, y2, st2, y3, st3
+    hgmma = ssd_sass_tf32(ssd)
+    emit({"phase": "ssd_sass", "tf32_wgmma_instructions": hgmma})
+    if not hgmma:
+        raise AssertionError("no TF32 wgmma in the SSD library's SASS")
     return rows
 
 

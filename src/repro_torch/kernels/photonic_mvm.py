@@ -249,6 +249,21 @@ def _offset_mvm(xq, wq, x_scale, w_scale, transpose):
     return 2.0 * (acc - 0.5 * xsum) * (x_scale * w_scale)
 
 
+def exact_mvm(xq, wq, x_scale, w_scale, transpose=False):
+    """The CUDA kernels' arithmetic (``csrc/photonic_mvm_common.cuh``
+    ``rescale``): the exact integer product ``acc = q @ wq``, then
+    ``float(acc) * (s_x * s_w) / 127`` in float32.  ``xq`` holds the A8
+    grid values (any dtype), ``wq`` is (K, N), or (N, K) with
+    ``transpose``; ``w_scale`` broadcasts over the rows.  The plain
+    versions keep the reference's offset decomposition (``_offset_mvm``);
+    this is what the card computes, for holding its outputs to a
+    kernel-level tolerance.  The product runs in float64, exact while
+    |acc| < 2**53 (K below ~5e11)."""
+    w = wq.to(torch.float64)
+    acc = xq.to(torch.float64) @ (w.T if transpose else w)
+    return acc.to(torch.float32) * (x_scale * w_scale) / QMAX
+
+
 def photonic_mvm_fused_plain(x, wq, x_scale, w_scale, *, bias=None,
                              transpose=False, activation="none",
                              block_perm=None, block=0):

@@ -13,16 +13,21 @@ H, N) head-broadcast; everything float32.  Returns y_diag (b, nc, L, H, P)
 and states (b, nc, H, N, P), the reference's (N, P) state layout.  The
 inter-chunk recurrence stays in ``models/ssm.py``.
 
-The CUDA kernel is ``csrc/ssd_chunk.cu``.  It reads every input through
-its strides, so B and C may be stride-0 views over the head axis (the
-group broadcast of ``models/ssm.ssd_chunked``, nothing copied).  The
-wrapper takes the plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.
+The CUDA kernel is ``csrc/ssd_chunk.cu``: all three products on the TF32
+tensor cores, each operand split into two TF32 halves (3xTF32, float32
+accuracy).  It reads every input through its strides, so B and C may be
+stride-0 views over the head axis (the group broadcast of
+``models/ssm.ssd_chunked``, nothing copied); then a block computes the
+scores C B^T once for the group of heads it serves (``ssd_launch_plan``).
+The wrapper takes the plain version only for CPU tensors; for CUDA tensors
+it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,7 +36,11 @@ from repro_torch.kernels import ref as _ref
 
 MAX_L = 4096                 # the kernel's longest chunk (shared memory)
 MAX_P = 64                   # the kernel's widest head (one register tile)
-_MAX_GRID_YZ = 65535
+TILE = 64                    # query, key and state rows per block tile
+MAX_HEADS_PER_BLOCK = 4
+BLOCKS_PER_SM = 2            # at L <= 256 (launch bounds, shared memory)
+_SMS_H100 = 132
+_MAX_BLOCKS = 2 ** 31 - 1
 
 # kernel launches on the CUDA path (the plain CPU path does not count)
 launches = 0
@@ -59,17 +68,87 @@ def ssd_chunk_plain(x, dA, B, C):
     return _ref.ssd_chunk_ref(x, dA, B.contiguous(), C.contiguous())
 
 
+class SSDPlan(NamedTuple):
+    """How one ``ssd_chunk`` launch covers its work.  A query block owns a
+    64-row query tile of ``heads_per_block`` heads (with stride-0 B/C one
+    scores tile C B^T serves them all), a state block 64 state rows of
+    ``state_heads_per_block`` heads.  Per batch * chunk: ``query_tiles``
+    query blocks for each group of heads (``query_cells`` in all) and
+    ``state_tiles`` state blocks for each state group (``state_cells``).
+    The ``heavy`` longest query tiles of every cell launch first, then the
+    state blocks, then the other query tiles."""
+    heads_per_block: int
+    state_heads_per_block: int
+    query_tiles: int
+    state_tiles: int
+    query_cells: int
+    state_cells: int
+    heavy: int
+    blocks: int
+
+
+def _blocks(b, nc, H, nq, nn, hb, hbs):
+    """(query cells, state cells, blocks) of groups of hb and hbs heads."""
+    qcells = b * nc * math.ceil(H / hb)
+    scells = b * nc * math.ceil(H / hbs)
+    return qcells, scells, nq * qcells + nn * scells
+
+
+def _plan(b, nc, L, H, P, N, shared, hb, hbs) -> SSDPlan:
+    """The grid of groups of ``hb`` query and ``hbs`` state heads (clamped
+    to 1..H); any grouping gives the same result bit for bit."""
+    nq, nn = math.ceil(L / TILE), math.ceil(N / TILE)
+    hb, hbs = max(1, min(hb, H)), max(1, min(hbs, H))
+    qcells, scells, blocks = _blocks(b, nc, H, nq, nn, hb, hbs)
+    # multiply-adds in 64^3 units: a query tile's scores (once per group
+    # with stride-0 B/C) and x products over qt + 1 key tiles; a state
+    # block's over all nq key tiles
+    state = hbs * nq * P / TILE
+    heavy = sum((qt + 1) * (N / TILE * (1 if shared else hb) + hb * P / TILE)
+                > state for qt in range(nq))
+    return SSDPlan(hb, hbs, nq, nn, qcells, scells, heavy, blocks)
+
+
+def ssd_launch_plan(b, nc, L, H, P, N, shared, sms=_SMS_H100) -> SSDPlan:
+    """The kernel's grid for one call.  With ``shared`` (stride-0) B/C a
+    query block serves the largest group of heads (4, 2 or 1) that still
+    leaves a block for every block slot of the card, so the scores C B^T
+    are computed once per group while the card stays full; a state block,
+    which shares nothing, takes half as many.  Materialised B/C gain
+    nothing from a group: one head per block.  On an H100 (132 SMs, two
+    blocks each) at mamba2's widths that is 1 head at b * nc = 1, 2 at 2
+    and 4 from 3 on."""
+    nq, nn = math.ceil(L / TILE), math.ceil(N / TILE)
+    hb = 1
+    if shared:
+        for cand in (MAX_HEADS_PER_BLOCK, 2):
+            if _blocks(b, nc, H, nq, nn, cand,
+                       max(1, cand // 2))[2] >= BLOCKS_PER_SM * sms:
+                hb = cand
+                break
+    return _plan(b, nc, L, H, P, N, shared, hb, max(1, hb // 2))
+
+
 @functools.lru_cache(maxsize=1)
 def _library():
     lib = _build.load("ssd_chunk")
     fn = lib.ssd_chunk
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p]
     fn.restype = i
     return lib, fn
 
 
-def _launch(x, dA, B, C, b, nc, L, H, P, N):
+def _vec16(t) -> bool:
+    """16-byte copies allowed: unit stride along the last axis, every other
+    stride a multiple of 4 elements (0 too) and a 16-byte aligned base."""
+    return (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def _launch(x, dA, B, C, b, nc, L, H, P, N, plan=None):
+    """Launch the kernel on CUDA tensors, on the grid of
+    ``ssd_launch_plan`` unless a ``plan`` is given."""
     global launches
     for t in (x, dA, B, C):
         if t.dtype != torch.float32:
@@ -80,20 +159,32 @@ def _launch(x, dA, B, C, b, nc, L, H, P, N):
         raise ValueError(f"ssd_chunk needs 1 <= L <= {MAX_L}, "
                          f"1 <= P <= {MAX_P} and N >= 1; got L={L} P={P} "
                          f"N={N}")
-    if H > _MAX_GRID_YZ or b * nc > _MAX_GRID_YZ:
-        raise ValueError(f"H={H} and b*nc={b * nc} must be <= {_MAX_GRID_YZ}")
+    if plan is None:
+        plan = ssd_launch_plan(b, nc, L, H, P, N,
+                               B.stride(3) == 0 and C.stride(3) == 0,
+                               _sms(x.device))
+    if plan.blocks > _MAX_BLOCKS:
+        raise ValueError(f"{plan.blocks} blocks exceed the grid's "
+                         f"{_MAX_BLOCKS}")
     strides = (ctypes.c_longlong * 19)(
         *x.stride(), *dA.stride(), *B.stride(), *C.stride())
+    vec = _vec16(x) | _vec16(B) << 1 | _vec16(C) << 2
     y = torch.empty((b, nc, L, H, P), dtype=torch.float32, device=x.device)
     st = torch.empty((b, nc, H, N, P), dtype=torch.float32, device=x.device)
     lib, fn = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), b, nc, L, H, P, N,
-            y.data_ptr(), st.data_ptr(), stream)
+            plan.heads_per_block, plan.state_heads_per_block, plan.heavy,
+            vec, y.data_ptr(),
+            st.data_ptr(), stream)
     _build.check(lib, "ssd_chunk_error_string", rc, "ssd_chunk")
     launches += 1
     return y, st
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ssd_chunk(x, dA, B, C):

@@ -549,6 +549,30 @@ def test_chip_smoke_profile_groups_every_kernel():
     assert seen["resident_mma_kernel"] == "photonic_mvm_resident"
 
 
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("M,K,N", [(4, 96, 40), (33, 300, 17), (1, 4100, 8)])
+def test_exact_mvm_is_the_integer_product_rescaled(M, K, N, transpose):
+    """``exact_mvm`` (the CUDA kernels' arithmetic, held against the card's
+    model logits by ``chip_smoke.py``) is the int64 product of the same
+    int8 grid, rescaled as ``float(acc) * (s_x * s_w) / 127`` in float32:
+    rel-L2 <= 1e-6, in both bank orientations, near the largest grid
+    values too."""
+    rng = np.random.default_rng(M * K + N + transpose)
+    q = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    q[0, :] = -128                                   # the extreme products
+    wq = rng.integers(-127, 128, (N, K) if transpose else (K, N)).astype(
+        np.int8)
+    sx = np.float32(rng.uniform(0.01, 0.05))
+    sw = rng.uniform(0.001, 0.01, (1, N)).astype(np.float32)
+    acc = q.astype(np.int64) @ (wq.T if transpose else wq).astype(np.int64)
+    want = acc.astype(np.float32) * (sx * sw) / np.float32(127.0)
+    got = t_pm.exact_mvm(torch.as_tensor(q).to(torch.float32),
+                         torch.as_tensor(wq), torch.tensor(sx),
+                         torch.as_tensor(sw), transpose)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
+    assert _rel(got.numpy(), want) <= 1e-6
+
+
 def test_block_perm_validation():
     with pytest.raises(ValueError):
         t_pm.out_block_index((0, 0, 1), 32, 96)

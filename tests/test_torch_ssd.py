@@ -26,8 +26,17 @@ against the JAX reference, on the same inputs (numpy seeds).
   row, and only the last 64 rows of the state, carry weight, so its slow-
   decay cases are the ones that would catch a kernel that dropped the
   rest.
+* The kernel's arithmetic, emulated: each product in 3xTF32 (operands
+  split into TF32 hi and lo parts, rounded as ``cvt.rna.tf32.f32``; lo*hi
+  + hi*lo + hi*hi in float32), C B^T once per group of heads.  Against the
+  float64 algebra it sits at the float32 plain version's level, within the
+  card check's 1e-4; one-pass TF32 falls outside it (why the kernel takes
+  three passes).
+* The card check's cases (ragged tails, both decays, both B/C layouts),
+  its bound's operation count and the kernel's launch plan.
 """
 import importlib.util
+import math
 import re
 from pathlib import Path
 
@@ -285,3 +294,198 @@ def test_chip_mvm_and_flash_cases_cover_regimes_and_variants():
     assert torch.isfinite(k[:, :6]).all() and not torch.isfinite(k[:, 6:]
                                                                  ).any()
     assert torch.isnan(k[:, 6:]).any() and torch.isinf(k[:, 6:]).any()
+
+
+# ---------------------------------------------------------------- 3xTF32
+def _tf32(a):
+    """``cvt.rna.tf32.f32`` on finite values: add half a TF32 ulp to the
+    magnitude bits, clear the 13 low bits (round to nearest, ties away)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(a):
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's wgmmas take it: lo*hi + hi*lo + hi*hi, float32
+    accumulators (products of TF32 values are exact in float32)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulate(x, dA, B, C, mm):
+    """The kernel's algebra with stride-0 B/C: C B^T once for the group,
+    then per head the decay exp(cs_i - cs_j) on the causal triangle (masked
+    entries never exponentiated), the decayed scores times x, and the
+    states (B o exp(cs_L - cs))^T x; every product through ``mm``."""
+    L = x.shape[2]
+    Bg, Cg = B[:, :, :, 0], C[:, :, :, 0]                 # (b,nc,L,N)
+    scores = mm(Cg, Bg.transpose(-1, -2))                 # (b,nc,L,L)
+    cs = torch.cumsum(dA, -1)                             # (b,nc,H,L)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((L, L), dtype=torch.bool).tril()
+    decay = torch.where(mask, torch.exp(torch.where(mask, seg, 0.0)), 0.0)
+    xh = x.permute(0, 1, 3, 2, 4)                         # (b,nc,H,L,P)
+    y = mm(scores[:, :, None] * decay, xh).permute(0, 1, 3, 2, 4)
+    Bd = Bg[:, :, None] * torch.exp(cs[..., -1:] - cs)[..., None]
+    st = mm(Bd.transpose(-1, -2), xh)                     # (b,nc,H,N,P)
+    return y, st
+
+
+def _ssd_float64(x, dA, B, C):
+    """``kernels/ref.ssd_chunk_ref``'s algebra in float64."""
+    L = x.shape[2]
+    x, dA, B, C = (t.to(torch.float64) for t in (x, dA, B, C))
+    cs = torch.cumsum(dA, -1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((L, L), dtype=torch.bool).tril()
+    Lmat = torch.exp(seg.masked_fill(~mask, float("-inf")))
+    scores = torch.einsum("bclhn,bcshn->bchls", C, B)
+    y = torch.einsum("bchls,bcshp->bclhp", scores * Lmat, x)
+    decay = torch.exp(cs[..., -1:] - cs)
+    st = torch.einsum("bclhn,bclhp->bchnp",
+                      B * decay.permute(0, 1, 3, 2)[..., None], x)
+    return y, st
+
+
+@pytest.mark.parametrize("decay", ["mamba2", "slow"])
+@pytest.mark.parametrize("b,nc,L,H,P,N", [(1, 2, 256, 48, 64, 128),
+                                         (1, 1, 100, 6, 40, 20)])
+def test_3xtf32_arithmetic_holds_float32_level(b, nc, L, H, P, N, decay):
+    """The kernel's 3xTF32 arithmetic (C B^T once per group) against the
+    float64 algebra, on ``chip_smoke.py``'s inputs: y and the states within
+    the card check's 1e-4 (at the float32 plain version's level: ~3e-6
+    where mamba2's |cumsum| reaches thousands, ~3e-7 at the slow decay);
+    one-pass TF32 reads 2.8e-4 to 4.2e-4, outside it."""
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(7)
+    args = cs.ssd_inputs(torch, gen, b, nc, H, N, True, decay, L=L, P=P,
+                         device="cpu")
+    want_y, want_st = _ssd_float64(*args)
+    y, st = _emulate(*args, _mm_3xtf32)
+    assert max(_rel(y, want_y), _rel(st, want_st)) <= cs.SSD_F32_TOL
+    plain_y, plain_st = t_ssd.ssd_chunk_plain(*args)
+    assert _rel(y, want_y) <= 2 * _rel(plain_y, want_y) + 1e-6
+    assert _rel(st, want_st) <= 2 * _rel(plain_st, want_st) + 1e-6
+    y1, st1 = _emulate(*args, _mm_tf32)
+    assert min(_rel(y1, want_y), _rel(st1, want_st)) > cs.SSD_F32_TOL
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """``_tf32`` keeps 10 mantissa bits, rounding half away from zero, and
+    hi + lo carries a float32 value to within 2^-22 of itself."""
+    one_ulp = 2.0 ** -10
+    a = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
+                      1.0 + one_ulp / 2 - 2.0 ** -23, 3.0e-3, -7.25e5])
+    hi = _tf32(a)
+    assert hi[0] == 1.0 + one_ulp and hi[1] == -(1.0 + one_ulp)
+    assert hi[2] == 1.0
+    assert torch.all((hi.view(torch.int32) & 0x1FFF) == 0)
+    rng = np.random.default_rng(0)
+    v = torch.as_tensor(rng.standard_normal(4096) * 10.0 ** rng.integers(
+        -6, 6, 4096), dtype=torch.float32)
+    h, lo = _split(v)
+    err = ((h.double() + lo.double()) - v.double()).abs() / v.double().abs()
+    assert float(err.max()) <= 2.0 ** -22
+
+
+# ------------------------------------------------- the card check's cases
+def test_chip_ssd_cases_cover_ragged_tails_both_decays_and_layouts():
+    """``chip_smoke.py``'s SSD cases: every served chunk count (b * nc = 1,
+    2, 6, 8) at mamba2's widths and the jamba-width pair, and a ragged
+    chunk whose every tile is partial (L past a 64-row tile, P below one,
+    N past a 32-wide slice and an 8-wide mma step), each at both decays;
+    the mamba2 and ragged ones with stride-0 and materialised B/C."""
+    cs = _chip_smoke()
+    cases = cs.ssd_cases()
+    seen = {(b * nc, L, H, P, N, s0, decay)
+            for _, b, nc, L, H, P, N, s0, decay in cases}
+    for decay in ("mamba2", "slow"):
+        for bnc in (1, 2, 6, 8):
+            for s0 in (True, False):
+                assert (bnc, 256, 48, 64, 128, s0, decay) in seen
+        assert (2, 256, 128, 64, 16, True, decay) in seen
+        ragged = [c for c in seen if c[1] % 64 and c[6] == decay]
+        assert {c[5] for c in ragged} == {True, False}
+        for _, L, H, P, N, _, _ in ragged:
+            assert L % 64 and P < t_ssd.MAX_P and N % 32 and N % 8
+    assert len({c[0] for c in cases}) == len(cases)   # labels are unique
+    # the slow decay's ragged case still weighs every key and state row
+    gen = torch.Generator().manual_seed(7)
+    x, dA, B, C = cs.ssd_inputs(torch, gen, 1, 1, 6, 20, True, "slow",
+                                L=100, P=40, device="cpu")
+    assert float(torch.cumsum(dA, -1).abs().max()) < 1.0
+
+
+def _direct_ssd_ops(b, nc, L, H, P, N, stride0):
+    """Multiply-adds x 2, counted pair by pair: scores over N for every
+    (i, j <= i) of each group, x over P for every pair of each head, the
+    states over L x N x P of each head."""
+    macs = 0
+    for _ in range(b * nc):
+        for i in range(L):
+            for _ in range(i + 1):
+                macs += N * (1 if stride0 else H) + H * P
+        macs += H * L * N * P
+    return 2 * macs
+
+
+@pytest.mark.parametrize("b,nc,L,H,P,N", [(1, 1, 8, 3, 4, 5),
+                                         (2, 3, 100, 6, 40, 20)])
+def test_chip_ssd_bound_counts_the_work(b, nc, L, H, P, N):
+    """``chip_smoke.ssd_bound`` counts the operations of a stride-0 call
+    (C B^T once per group) and of a materialised one (once per head), at
+    the 3xTF32 rate, and keeps the fp32 CUDA-core bound beside it; at
+    mamba2's b=1 nc=8 the shared scores halve the work, 6.46 -> 3.30
+    GFLOP."""
+    cs = _chip_smoke()
+    for s0 in (True, False):
+        bound, by, nbytes, flops, bound_fp32 = cs.ssd_bound(b, nc, L, H, P,
+                                                            N, s0)
+        assert flops == _direct_ssd_ops(b, nc, L, H, P, N, s0)
+        t_ops = flops / cs.TF32X3_FLOPS * 1e3
+        t_bytes = nbytes / cs.HBM_BYTES_S * 1e3
+        assert bound == max(t_ops, t_bytes)
+        assert by == ("bytes" if t_bytes >= t_ops else "operations")
+        assert bound_fp32 >= t_bytes
+    shared = cs.ssd_ops(1, 8, 256, 48, 64, 128, True)
+    per_head = cs.ssd_ops(1, 8, 256, 48, 64, 128, False)
+    assert abs(shared / 1e9 - 3.30) < 0.01 and abs(per_head / 1e9 - 6.46) < 0.01
+    assert cs.ssd_bound(1, 8, 256, 48, 64, 128, True)[1] == "operations"
+
+
+# ------------------------------------------------------------ launch plan
+@pytest.mark.parametrize("b,nc,hb", [(1, 1, 1), (1, 2, 2), (2, 3, 4),
+                                     (1, 8, 4)])
+def test_ssd_launch_plan_groups_heads_and_fills_the_card(b, nc, hb):
+    """At mamba2's widths a stride-0 call groups 1, 2 or 4 heads per query
+    block (one scores tile for the group), keeping at least a block per
+    block slot of an H100 (two per SM): b=1 nc=1 keeps one head and 288
+    blocks.  Materialised B/C take one head; the grid of any other
+    grouping (``_plan``, chip_smoke's groups of 3) is counted the same
+    way; the heaviest query tiles launch first."""
+    plan = t_ssd.ssd_launch_plan(b, nc, 256, 48, 64, 128, True)
+    assert plan.heads_per_block == hb
+    assert plan.state_heads_per_block == max(1, hb // 2)
+    assert plan.blocks >= t_ssd.BLOCKS_PER_SM * 132
+    assert plan.blocks == (plan.query_tiles * plan.query_cells
+                           + plan.state_tiles * plan.state_cells)
+    assert plan.query_cells == b * nc * math.ceil(48 / hb)
+    assert (plan.query_tiles, plan.state_tiles) == (4, 2)
+    assert 0 <= plan.heavy <= plan.query_tiles
+    if (b, nc) == (1, 1):
+        assert plan.blocks == 288
+    assert t_ssd.ssd_launch_plan(b, nc, 256, 48, 64, 128,
+                                 False).heads_per_block == 1
+    forced = t_ssd._plan(b, nc, 256, 48, 64, 128, True, 3, 5)
+    assert (forced.heads_per_block, forced.state_heads_per_block) == (3, 5)
+    assert forced.query_cells == b * nc * 16
+    assert t_ssd._plan(1, 1, 8, 4, 16, 8, True, 64, 1).heads_per_block == 4
