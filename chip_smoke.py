@@ -68,6 +68,20 @@ the script exits non-zero without printing the final ``ok`` line):
 3h. a small dense model's card logits against the same CPU program with
    the MVM kernels' own arithmetic (``photonic_mvm.exact_mvm``: the exact
    integer product, rescaled once), at a kernel-level tolerance;
+3i. since slice 9 the decode steps of the fused, MoE and SSM paths replay
+   CUDA graphs (``repro_torch.graphs.DecodeCell``), captured with
+   synchronizing calls made errors: each ``generate`` captures once, each
+   path's scheduler drain runs with its decode graph (one capture) and
+   again with the cell kept eager, and the two drains must give the same
+   tokens and the same launch counts (the eager one is not counted in the
+   path's window); each path's ``decode_step`` phase reports the eager and
+   the replayed step (wall, aten ops, profiled device busy) and requires
+   the replay's logits and caches bit-equal to the eager step's from the
+   same caches, and the profiled replay's CUDA kernels of each port kernel
+   counted by name equal to the launches the cell adds per replay (so the
+   counts in a path's window rest on kernels a replay was seen to run).
+   The fault-model path is not captured by rule
+   (``graphs.NOISE_RULE``, printed as ``decode_graph_reason``);
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
@@ -94,6 +108,7 @@ summation order and flash's softmax).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -491,11 +506,21 @@ def profile_generate(torch, prog, prompt):
                              "launches": ev.count} for ev in other[:10]]}
 
 
-def decode_step_costs(torch, prog):
-    """Host cost of one decode step at the scheduler's shape (capacity 4,
-    2048-slot caches): the aten ops it dispatches (counted with a
-    ``TorchDispatchMode``; the CUDA kernels are not aten ops) and its wall
-    time, median of 5 synchronized steps."""
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def step_costs(torch, step) -> dict:
+    """Host and device cost of one decode step ``step()``: the aten ops it
+    dispatches (counted with a ``TorchDispatchMode``; CUDA kernels, graph
+    replays among them, are not aten ops), its wall time (median of 5
+    synchronized steps) and one profiled step's device busy time, its CUDA
+    kernels counted by port kernel (``KERNEL_GROUPS``) and its costliest
+    host ops (the launch side of the step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -505,34 +530,35 @@ def decode_step_costs(torch, prog):
             Count.n += 1
             return func(*args, **(kwargs or {}))
 
-    caches = prog.empty_caches(4, 2048)
-    toks = np.zeros((4, 1), np.int64)
-    pos = np.array([700, 0, 300, 1500])
     with Count():
-        prog.decode_sample(toks, caches, pos)
+        step()
     times = []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prog.decode_sample(toks, caches, pos)
+        step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    # one profiled step: the device's busy time, and the host ops that
-    # cost the most self time (the launch side of the step)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prog.decode_sample(toks, caches, pos)
+        step()
         torch.cuda.synchronize()
     evs = prof.key_averages()
     busy = sum(e.self_device_time_total for e in evs
                if e.device_type == DeviceType.CUDA)
+    # CUDA kernels run per port kernel; the fused MVM's mma regime also
+    # runs ``quantize_kernel``, which is not a launch of its own
+    kernels = dict.fromkeys((g for g, _ in KERNEL_GROUPS), 0)
+    for e in evs:
+        group = kernel_group(e.key)
+        if (e.device_type == DeviceType.CUDA and group in kernels
+                and "::quantize_kernel" not in e.key):
+            kernels[group] += e.count
     cpu = [e for e in evs if e.device_type == DeviceType.CPU]
     host = sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:8]
-    return {"phase": "decode_step", "capacity": 4, "max_len": 2048,
-            "aten_ops": Count.n, "wall_ms_median": statistics.median(times),
+    return {"aten_ops": Count.n, "wall_ms_median": statistics.median(times),
             "profiled_device_busy_ms": busy / 1e3,
+            "profiled_kernels": kernels,
             "profiled_host_op_self_ms": sum(e.self_cpu_time_total
                                             for e in cpu) / 1e3,
             "top_host_ops": [{"op": e.key, "calls": e.count,
@@ -540,12 +566,149 @@ def decode_step_costs(torch, prog):
                              for e in host]}
 
 
-def serve(torch, pm, fa, blend, gpu):
+def decode_step_costs(torch, prog):
+    """One decode step at the scheduler's shape (capacity 4, 2048-slot
+    caches holding seeded random values, rows at positions 700, 0, 300 and
+    1500), through ``Program.decode_sample``: eagerly (caches without a
+    decode cell), then replayed (the same caches registered to a
+    ``DecodeCell``: one warm-up step, the capture, then replays), each with
+    ``step_costs``.  From the same caches the replay's logits and caches
+    must equal the eager step's bit for bit, and the profiled replay must
+    run each port kernel's CUDA kernel as often as the cell adds to its
+    launch count per replay.  A Program the cell does not capture reports
+    the rule's reason instead of a replay."""
+    caches = prog.empty_caches(4, 2048)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for leaf in tree_leaves(caches):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    saved = [leaf.clone() for leaf in tree_leaves(caches)]
+
+    def restore():
+        for leaf, s in zip(tree_leaves(caches), saved):
+            leaf.copy_(s)
+
+    toks = np.array([[11], [22], [33], [44]], np.int64)
+    pos = np.array([700, 0, 300, 1500])
+    out = {"phase": "decode_step", "capacity": 4, "max_len": 2048,
+           "eager": step_costs(torch, lambda: prog.decode_sample(
+               toks, caches, pos))}
+    restore()
+    want, _ = prog.decode(toks, caches, pos)
+    want_caches = [leaf.clone() for leaf in tree_leaves(caches)]
+    cell = prog.decode_cell(caches)
+    out["decode_graph"] = cell.reason is None
+    if cell.reason is not None:
+        out["decode_graph_reason"] = cell.reason
+        return out
+    restore()
+    prog.decode(toks, caches, pos)                 # warm-up and capture
+    restore()
+    got, _ = prog.decode(toks, caches, pos)        # a replay
+    same = bool(torch.equal(got, want)) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(caches), want_caches))
+    if not (same and cell.graph is not None):
+        raise AssertionError("the replayed decode step differs from the "
+                             "eager step on the same inputs and caches")
+    out["replay_logits_bit_equal"] = same
+    out["replay"] = step_costs(torch, lambda: prog.decode_sample(
+        toks, caches, pos))
+    seen = out["replay"]["profiled_kernels"]
+    added = {group: cell.delta[group] for group in seen}
+    out["replay_kernels_equal_counted"] = seen == added
+    if seen != added or not seen["photonic_mvm_fused"]:
+        raise AssertionError(f"a profiled replay ran the CUDA kernels {seen}"
+                             f"; the cell counts {added} per replay")
+    cell.release()
+    return out
+
+
+@contextlib.contextmanager
+def eager_cells():
+    """Decode cells stepped inside run their static-buffer code eagerly,
+    as on the CPU: ``graphs.eager_reason`` gives a reason for every
+    Program meanwhile (the comparison drain)."""
+    from repro_torch import graphs
+    rule = graphs.eager_reason
+    graphs.eager_reason = lambda program: "eager comparison drain"
+    try:
+        yield
+    finally:
+        graphs.eager_reason = rule
+
+
+def drain_graph_vs_eager(torch, prog, requests, sched_kw):
+    """The requests (rid, prompt, max_new) through a scheduler with its
+    decode graph, the path's main drain, then through one whose decode
+    cell stays eager (``eager_cells``): completions token for token
+    equal, the same launch counts, and one capture for the graph
+    scheduler.  The counters are read just after the graph drain and set
+    back to that reading after the eager one, which only compares.
+    Returns (the graph drain's completions, the counters just after it, a
+    report)."""
+    from repro_torch import graphs
+    from repro_torch.kernels import counts
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    runs = {}
+    for graph in (True, False):
+        sched = ContinuousScheduler(prog, **sched_kw)
+        for rid, prompt, max_new in requests:
+            sched.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+        before, captures = counts.snapshot(), graphs.CAPTURE_COUNTS["decode"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if graph else eager_cells():
+            done = sched.drain()
+        torch.cuda.synchronize()
+        after = counts.snapshot()
+        runs[graph] = (done, time.perf_counter() - t0,
+                       counts.difference(before, after),
+                       graphs.CAPTURE_COUNTS["decode"] - captures, sched,
+                       after)
+    done, graph_s, launches, captures, sched, window = runs[True]
+    eager = runs[False]
+    counts.restore(window)
+    same = (sorted((c.rid, c.tokens.tolist()) for c in done)
+            == sorted((c.rid, c.tokens.tolist()) for c in eager[0]))
+    report = {"decode_graph": sched.decode_cell.reason is None,
+              "drain_graph_s": graph_s, "drain_eager_s": eager[1],
+              "drain_decode_steps": sched.stats.decode_steps,
+              "drain_prefill_chunks": sched.stats.prefill_chunks,
+              "drain_captures": captures,
+              "drain_tokens_equal_eager": same,
+              "drain_launches_equal_eager": launches == eager[2]}
+    if not (same and launches == eager[2] and report["decode_graph"]
+            and captures == 1 and eager[3] == 0):
+        raise AssertionError(f"graph drain vs eager drain: {report}, "
+                             f"launches {launches} vs {eager[2]}")
+    return done, window, report
+
+
+def generate_captured(torch, prog, prompts, max_new):
+    """``Program.generate`` timed, with its one decode-graph capture (a
+    Program whose cell does not capture makes none)."""
+    from repro_torch import graphs
+    captures = graphs.CAPTURE_COUNTS["decode"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = prog.generate(prompts, max_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    B, S = prompts.shape
+    if tuple(out.shape) != (B, S + max_new) or not bool(
+            (out[:, :S].cpu() == torch.as_tensor(prompts)).all()):
+        raise AssertionError(f"generate returned {tuple(out.shape)}")
+    made = graphs.CAPTURE_COUNTS["decode"] - captures
+    if made != (1 if graphs.eager_reason(prog) is None else 0):
+        raise AssertionError(f"generate made {made} decode-graph captures")
+    return out, gen_s
+
+
+def serve(torch, gpu):
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tfm
-    from repro_torch.serve.batcher import Request
-    from repro_torch.serve.scheduler import ContinuousScheduler
 
     cfg = get_arch("minitron-4b", reuse=True)
     t0 = time.perf_counter()
@@ -565,35 +728,19 @@ def serve(torch, pm, fa, blend, gpu):
           "mem_allocated_gb": torch.cuda.memory_allocated() / 1e9})
     rng = np.random.default_rng(0)
     V = cfg.vocab_size
-
-    reset_counts(pm, fa, blend)
-    torch.cuda.reset_peak_memory_stats()
-
-    # -- Program.generate: two 600-token prompts (monolithic flash prefill)
     prompts = rng.integers(0, V, (2, 600))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = prog.generate(prompts, 16)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    if tuple(out.shape) != (2, 616) or not bool(
-            (out[:, :600].cpu() == torch.as_tensor(prompts)).all()):
-        raise AssertionError(f"generate returned {tuple(out.shape)}")
-
-    # -- ContinuousScheduler: monolithic einsum (40, 300), monolithic flash
-    #    (512) and chunked flash (1300, 1900) admissions, 16 tokens each
+    # ContinuousScheduler: monolithic einsum (40, 300), monolithic flash
+    # (512) and chunked flash (1300, 1900) admissions, 16 tokens each
     lens = (40, 300, 512, 1300, 1900)
-    sched = ContinuousScheduler(prog, capacity=4, max_len=2048,
-                                prefill_chunk=512)
-    for rid, n in enumerate(lens):
-        sched.submit(Request(rid=rid, prompt=rng.integers(0, V, n),
-                             max_new=16))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = sched.drain()
-    torch.cuda.synchronize()
-    sched_s = time.perf_counter() - t0
-    launches = kernel_counts(pm, fa, blend)
+    requests = [(rid, rng.integers(0, V, n), 16) for rid, n in enumerate(lens)]
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    # -- Program.generate: two 600-token prompts (monolithic flash prefill)
+    out, gen_s = generate_captured(torch, prog, prompts, 16)
+    done, launches, drain = drain_graph_vs_eager(
+        torch, prog, requests, dict(capacity=4, max_len=2048,
+                                    prefill_chunk=512))
     mvm_launches = launches["photonic_mvm_fused"]
     flash_launches = launches["flash_attention"]
 
@@ -614,15 +761,16 @@ def serve(torch, pm, fa, blend, gpu):
                              f"regimes, the tensor-core flash): {launches}")
     gen_tokens = 2 * 16
     sched_tokens = 16 * len(lens)
+    sched_s = drain["drain_graph_s"]
     result = {"phase": "serve", "gpu": gpu, "generate_s": gen_s,
               "generate_tokens_per_s": gen_tokens / gen_s,
               "scheduler_s": sched_s,
               "scheduler_tokens_per_s": sched_tokens / sched_s,
               "scheduler_prompt_tokens": sum(lens),
-              "scheduler_decode_steps": sched.stats.decode_steps,
-              "scheduler_prefill_chunks": sched.stats.prefill_chunks,
+              "scheduler_decode_steps": drain["drain_decode_steps"],
+              "scheduler_prefill_chunks": drain["drain_prefill_chunks"],
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "launches": launches}
+              "launches": launches, "drain": drain}
     result.update(small_model_check(torch))
     emit(result)
     emit(profile_generate(torch, prog, prompts[:1]))
@@ -806,25 +954,19 @@ WRITES_PER_ACCESS = 2e4     # drift stress per serving access: the first
                             # sweep (4th decode step) finds stale banks
 
 
-def kernel_counts(pm, fa, blend) -> dict:
-    from repro_torch.kernels import ssd
-    return {"photonic_mvm_fused": pm.launches,
-            "photonic_mvm_fused_gemv": pm.launches_gemv,
-            "photonic_mvm": pm.launches_mvm,
-            "photonic_mvm_t": pm.launches_mvm_t,
-            "photonic_mvm_resident": pm.launches_resident,
-            "blend_shuffle": blend.launches, "flash_attention": fa.launches,
-            "flash_attention_mma": fa.launches_mma, "ssd_chunk": ssd.launches}
+def kernel_counts() -> dict:
+    """Every wrapper's launch count (``kernels/counts.py``; a replayed
+    decode graph adds its captured launches)."""
+    from repro_torch.kernels import counts
+    return counts.snapshot()
 
 
-def reset_counts(pm, fa, blend) -> None:
-    from repro_torch.kernels import ssd
-    pm.launches = pm.launches_gemv = pm.launches_mvm = pm.launches_mvm_t = 0
-    pm.launches_resident = 0
-    fa.launches = fa.launches_mma = blend.launches = ssd.launches = 0
+def reset_counts() -> None:
+    from repro_torch.kernels import counts
+    counts.reset()
 
 
-def serve_noisy(torch, pm, fa, blend, gpu):
+def serve_noisy(torch, gpu):
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.core.backend import Backend
@@ -866,12 +1008,12 @@ def serve_noisy(torch, pm, fa, blend, gpu):
         sched.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size,
                                                           n), max_new=16))
     torch.cuda.synchronize()
-    reset_counts(pm, fa, blend)
+    reset_counts()
     t0 = time.perf_counter()
     done = sched.drain()
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
-    launches = kernel_counts(pm, fa, blend)
+    launches = kernel_counts()
 
     got = sorted((c.rid, len(c.tokens), c.finish_reason) for c in done)
     want = [(rid, n + 16, "length") for rid, n in enumerate(lens)]
@@ -898,7 +1040,14 @@ def serve_noisy(torch, pm, fa, blend, gpu):
     for c in done:
         if not (np.asarray(c.tokens) >= 0).all():
             raise AssertionError("negative token id")
+    # the stated rule: the fault model's decode step is not captured
+    from repro_torch import graphs
+    if not (sched.decode_cell.reason == graphs.NOISE_RULE
+            and sched.decode_cell.graph is None):
+        raise AssertionError("the fault-model decode step was captured")
     emit({"phase": "serve_fault_model", "gpu": gpu, "arch": cfg.name,
+          "decode_graph": False,
+          "decode_graph_reason": sched.decode_cell.reason,
           "R": cfg.reuse.num_basic, "T": cfg.reuse.reuse_times,
           "shuffle_block": cfg.reuse.shuffle_block, "dtype": cfg.compute_dtype,
           "noise": NOISE_SPEC, "build_s": build_s, "drain_s": drain_s,
@@ -1092,12 +1241,10 @@ def moe_resident_per_pass(cfg) -> int:
     return n
 
 
-def serve_moe(torch, pm, fa, blend, gpu):
+def serve_moe(torch, gpu):
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tfm
-    from repro_torch.serve.batcher import Request
-    from repro_torch.serve.scheduler import ContinuousScheduler
 
     cfg = get_arch("granite-moe-1b-a400m", reuse=True)
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -1116,27 +1263,17 @@ def serve_moe(torch, pm, fa, blend, gpu):
     V = cfg.vocab_size
 
     lens = (40, 300, 512, 1300)
-    sched = ContinuousScheduler(prog, capacity=4, max_len=2048,
-                                prefill_chunk=512)
-    for rid, n in enumerate(lens):
-        sched.submit(Request(rid=rid, prompt=rng.integers(0, V, n),
-                             max_new=16))
+    requests = [(rid, rng.integers(0, V, n), 16) for rid, n in enumerate(lens)]
     prompts = rng.integers(0, V, (2, 600))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    reset_counts(pm, fa, blend)
-    t0 = time.perf_counter()
-    out = prog.generate(prompts, 8)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    done = sched.drain()
-    torch.cuda.synchronize()
-    sched_s = time.perf_counter() - t0 - gen_s
-    launches = kernel_counts(pm, fa, blend)
+    reset_counts()
+    out, gen_s = generate_captured(torch, prog, prompts, 8)
+    done, launches, drain = drain_graph_vs_eager(
+        torch, prog, requests, dict(capacity=4, max_len=2048,
+                                    prefill_chunk=512))
+    sched_s = drain["drain_graph_s"]
 
-    if tuple(out.shape) != (2, 608) or not bool(
-            (out[:, :600].cpu() == torch.as_tensor(prompts)).all()):
-        raise AssertionError(f"generate returned {tuple(out.shape)}")
     got = sorted((c.rid, len(c.tokens), c.finish_reason) for c in done)
     want = [(rid, n + 16, "length") for rid, n in enumerate(lens)]
     if got != want:
@@ -1144,7 +1281,7 @@ def serve_moe(torch, pm, fa, blend, gpu):
     # generate: one prefill + 7 decode steps; the scheduler: monolithic
     # prefills (prompts up to the chunk width), chunks and decode steps
     passes = (8 + sum(n <= 512 for n in lens)
-              + sched.stats.prefill_chunks + sched.stats.decode_steps)
+              + drain["drain_prefill_chunks"] + drain["drain_decode_steps"])
     if launches["photonic_mvm_resident"] != per_pass * passes:
         raise AssertionError(f"resident launches {launches} != {per_pass} x "
                              f"{passes} forward passes")
@@ -1167,11 +1304,11 @@ def serve_moe(torch, pm, fa, blend, gpu):
           "scheduler_s": sched_s,
           "scheduler_tokens_per_s": 16 * len(lens) / sched_s,
           "scheduler_prompt_tokens": sum(lens),
-          "scheduler_decode_steps": sched.stats.decode_steps,
-          "scheduler_prefill_chunks": sched.stats.prefill_chunks,
+          "scheduler_decode_steps": drain["drain_decode_steps"],
+          "scheduler_prefill_chunks": drain["drain_prefill_chunks"],
           "forward_passes": passes, "resident_per_pass": per_pass,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "launches": launches})
+          "launches": launches, "drain": drain})
     emit(profile_generate(torch, prog, prompts[:1]))
     emit(decode_step_costs(torch, prog))
     return launches
@@ -1365,12 +1502,10 @@ def check_ssd(torch, timer, ssd):
 # -------------------------------------------------------------------------
 # phase 3f: the SSM path
 # -------------------------------------------------------------------------
-def serve_ssm(torch, pm, fa, blend, gpu):
+def serve_ssm(torch, pm, gpu):
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tfm
-    from repro_torch.serve.batcher import Request
-    from repro_torch.serve.scheduler import ContinuousScheduler
 
     cfg = get_arch("mamba2-780m", reuse=True)
     layers = cfg.num_layers                 # logical SSM layers per pass
@@ -1385,45 +1520,35 @@ def serve_ssm(torch, pm, fa, blend, gpu):
     V = cfg.vocab_size
     prompts = rng.integers(0, V, (2, 600))
     lens = (40, 300, 512, 1300, 1900)
-    sched = ContinuousScheduler(prog, capacity=4, max_len=2048,
-                                prefill_chunk=512)
-    for rid, n in enumerate(lens):
-        sched.submit(Request(rid=rid, prompt=rng.integers(0, V, n),
-                             max_new=16))
+    requests = [(rid, rng.integers(0, V, n), 16) for rid, n in enumerate(lens)]
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    reset_counts(pm, fa, blend)
-    t0 = time.perf_counter()
-    out = prog.generate(prompts, 16)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    done = sched.drain()
-    torch.cuda.synchronize()
-    sched_s = time.perf_counter() - t0 - gen_s
-    launches = kernel_counts(pm, fa, blend)
+    reset_counts()
+    out, gen_s = generate_captured(torch, prog, prompts, 16)
+    done, launches, drain = drain_graph_vs_eager(
+        torch, prog, requests, dict(capacity=4, max_len=2048,
+                                    prefill_chunk=512))
+    sched_s = drain["drain_graph_s"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    if tuple(out.shape) != (2, 616) or not bool(
-            (out[:, :600].cpu() == torch.as_tensor(prompts)).all()):
-        raise AssertionError(f"generate returned {tuple(out.shape)}")
     got = sorted((c.rid, len(c.tokens), c.finish_reason, c.padded_to)
                  for c in done)
     want = [(rid, n + 16, "length", n) for rid, n in enumerate(lens)]
-    if got != want or sched.stats.prefill_chunks != 0:
+    if got != want or drain["drain_prefill_chunks"] != 0:
         raise AssertionError(f"completions {got} != {want} (exact-length, "
-                             f"unchunked; {sched.stats.prefill_chunks} "
+                             f"unchunked; {drain['drain_prefill_chunks']} "
                              f"chunks)")
     prefills = 1 + len(lens)
-    decodes = 15 + sched.stats.decode_steps
+    decodes = 15 + drain["drain_decode_steps"]
     if launches["ssd_chunk"] != layers * prefills:
         raise AssertionError(f"ssd_chunk launches {launches['ssd_chunk']} "
                              f"!= {layers} x {prefills} prefill passes")
     # outside the counted window: fused launches of one prefill pass and of
     # one decode step, and the logits of one prefill
-    reset_counts(pm, fa, blend)
+    reset_counts()
     logits, caches = prog.prefill({"tokens": prompts[:1]}, 616)
     per_prefill = pm.launches
-    reset_counts(pm, fa, blend)
+    reset_counts()
     prog.decode(out[:1, 600:601], caches, 600)
     per_decode = pm.launches
     if not (logits.shape[-1] == cfg.padded_vocab
@@ -1449,11 +1574,11 @@ def serve_ssm(torch, pm, fa, blend, gpu):
           "scheduler_s": sched_s,
           "scheduler_tokens_per_s": 16 * len(lens) / sched_s,
           "scheduler_prompt_tokens": sum(lens),
-          "scheduler_decode_steps": sched.stats.decode_steps,
-          "scheduler_prefill_chunks": sched.stats.prefill_chunks,
+          "scheduler_decode_steps": drain["drain_decode_steps"],
+          "scheduler_prefill_chunks": drain["drain_prefill_chunks"],
           "prefill_passes": prefills, "decode_steps": decodes,
           "fused_per_prefill": per_prefill, "fused_per_decode": per_decode,
-          "peak_mem_gb": peak_gb, "launches": launches})
+          "peak_mem_gb": peak_gb, "launches": launches, "drain": drain})
     emit(profile_generate(torch, prog, prompts[:1]))
     emit(decode_step_costs(torch, prog))
     return launches
@@ -1547,21 +1672,21 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     # each path's launches are counted in its own window
-    fused_path = serve(torch, pm, fa, blend, smi)
+    fused_path = serve(torch, smi)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fault_path = serve_noisy(torch, pm, fa, blend, smi)
+    fault_path = serve_noisy(torch, smi)
     gc.collect()
     torch.cuda.empty_cache()
     small_model_fault_checks(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_path = serve_moe(torch, pm, fa, blend, smi)
+    moe_path = serve_moe(torch, smi)
     small_moe_check(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    ssm_path = serve_ssm(torch, pm, fa, blend, smi)
+    ssm_path = serve_ssm(torch, pm, smi)
     small_ssm_checks(torch)
 
     split = "src/repro_torch/csrc/photonic_mvm_split.cu"

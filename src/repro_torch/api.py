@@ -10,9 +10,16 @@
 to the compute dtype and — photonic — programs every matmul weight into a
 ``PreparedTensor`` bank once.  Stacks with SSM mixers prefill
 monolithically (their state integrates every token): ``prefill_chunk`` and
-``prefill_chunked`` raise for them.  PyTorch runs eagerly, so there are no
-jit cells: each step calls ``models.transformer.forward`` directly.  Caches
-are updated in place and returned.
+``prefill_chunked`` raise for them.  Caches are updated in place and
+returned.
+
+Decode steps are the compiled part, as in the reference: a
+``graphs.DecodeCell`` captures the decode step into a CUDA graph and
+replays it (the counterpart of ``_decode_cells``).  ``generate`` builds one
+cell after its prefill and releases it when it returns;
+:meth:`Program.decode_cell` registers a cell for caches that live longer
+(the scheduler's slot pool), and ``decode`` / ``decode_sample`` on those
+caches go through it.  Prefill stays eager.
 
 Greedy decoding matches the reference token for token on the test
 configs; temperature sampling draws from a ``torch.Generator`` and is not
@@ -21,6 +28,7 @@ expected to reproduce ``jax.random``.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any
 
 import numpy as np
@@ -31,6 +39,7 @@ from repro_torch.core import backend as backend_lib
 from repro_torch.core import noise as noise_lib
 from repro_torch.core import prepared as prepared_lib
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.graphs import DecodeCell
 from repro_torch.models import transformer as tfm
 
 NEG_INF = -1e30
@@ -74,6 +83,79 @@ def _short_conv(caches, S: int):
     return caches
 
 
+def _as_tokens(tokens, device) -> torch.Tensor:
+    """Token ids (array or tensor) as an int64 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(tokens) if not isinstance(
+        tokens, torch.Tensor) else tokens).to(device, torch.long)
+
+
+def _device_of(params) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def _no_mesh(act_pspec) -> None:
+    if act_pspec is not None:
+        raise NotImplementedError("act_pspec: the port has no mesh yet")
+
+
+# =========================================================================
+# functional steps over raw params (what the engine shims call)
+# =========================================================================
+def _prefill(cfg: ModelConfig, params, tokens, cache_len: int, execution):
+    """The prefill forward into fresh caches on the params' device: (logits
+    (B, S, V), caches)."""
+    dev = _device_of(params)
+    tokens = _as_tokens(tokens, dev)
+    B, S = tokens.shape
+    caches = tfm.init_caches(cfg, B, cache_len,
+                             dtype=torch_dtype(cfg.compute_dtype), device=dev)
+    logits, caches, _ = tfm.forward(params, cfg, {"tokens": tokens},
+                                    mode="prefill", caches=caches,
+                                    execution=execution)
+    if cfg.ssm is not None and S < cfg.ssm.conv_width - 1:
+        caches = _short_conv(caches, S)
+    return logits, caches
+
+
+def prefill_step_fn(cfg: ModelConfig, cache_len: int, *, act_pspec=None,
+                    execution=None):
+    """Pure ``fn(params, batch) -> (last_logits (B, V), caches)`` over raw
+    params (no banks: a photonic backend quantizes each weight in the
+    step); the caches are made on the params' device."""
+    _no_mesh(act_pspec)
+
+    @torch.no_grad()
+    def fn(params, batch):
+        logits, caches = _prefill(cfg, params, batch["tokens"], cache_len,
+                                  execution)
+        return logits[:, -1, :], caches
+    return fn
+
+
+def decode_step_fn(cfg: ModelConfig, *, act_pspec=None, legacy_decode=False,
+                   execution=None):
+    """Pure ``fn(params, batch, caches, pos) -> (logits (B, V), caches)``;
+    ``pos`` an int or (B,) positions.  The caches are updated in place.
+    ``legacy_decode=True`` raises: the port's forward has one decode
+    path."""
+    _no_mesh(act_pspec)
+    if legacy_decode:
+        raise NotImplementedError("legacy_decode: the port's forward has no "
+                                  "legacy decode path")
+
+    @torch.no_grad()
+    def fn(params, batch, caches, pos):
+        dev = _device_of(params)
+        tokens = _as_tokens(batch["tokens"], dev)
+        if not isinstance(pos, int):
+            pos = torch.as_tensor(pos).to(dev, torch.long)
+        logits, caches, _ = tfm.forward(params, cfg, {"tokens": tokens},
+                                        mode="decode", caches=caches,
+                                        pos=pos, execution=execution)
+        return logits[:, 0, :], caches
+    return fn
+
+
 # =========================================================================
 # Program
 # =========================================================================
@@ -85,6 +167,10 @@ class Program:
     backend: backend_lib.Backend
     bank: Any
     device: torch.device
+    # decode cells by id of the cache tree they own (the cell keeps the
+    # tree alive, so the id is not reused while it is registered)
+    _cells: Any = dataclasses.field(default_factory=weakref.WeakValueDictionary,
+                                    repr=False, compare=False)
 
     @classmethod
     def build(cls, cfg: ModelConfig, params, *, execution=None,
@@ -123,8 +209,7 @@ class Program:
 
     # -------------------------------------------------------------- steps
     def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(tokens) if not isinstance(
-            tokens, torch.Tensor) else tokens).to(self.device, torch.long)
+        return _as_tokens(tokens, self.device)
 
     def _dtype(self):
         return torch_dtype(self.cfg.compute_dtype)
@@ -135,18 +220,12 @@ class Program:
         last-prompt-token logits (default: the final column).  The lm head
         runs over every position first, as in the reference, so its A8
         scale covers all prefill rows.  Returns (logits (B, V), caches)."""
-        tokens = self._tokens(batch["tokens"])
-        B, S = tokens.shape
+        logits, caches = _prefill(self.cfg, self.bank, batch["tokens"],
+                                  cache_len, self.backend)
+        B, S = logits.shape[:2]
         if last is None:
             last = torch.full((B,), S - 1, dtype=torch.long)
         last = torch.as_tensor(last).to(self.device, torch.long)
-        caches = tfm.init_caches(self.cfg, B, cache_len, dtype=self._dtype(),
-                                 device=self.device)
-        logits, caches, _ = tfm.forward(self.bank, self.cfg,
-                                        {"tokens": tokens}, mode="prefill",
-                                        caches=caches, execution=self.backend)
-        if self.cfg.ssm is not None and S < self.cfg.ssm.conv_width - 1:
-            caches = _short_conv(caches, S)
         return logits[torch.arange(B, device=self.device), last], caches
 
     def _refuse_chunks(self, what: str) -> None:
@@ -200,19 +279,30 @@ class Program:
             out = lg if out is None else torch.where(hit[:, None], lg, out)
         return out, caches
 
+    def decode_cell(self, caches) -> DecodeCell:
+        """A decode cell over ``caches`` (leaves [R, T, B, ...]) registered
+        with this Program: ``decode`` and ``decode_sample`` on these caches
+        replay it.  It lives as long as the caller holds it."""
+        cell = DecodeCell(self, caches)
+        self._cells[id(caches)] = cell
+        return cell
+
+    def _decode_forward(self, backend, tokens, caches, pos):
+        """``decode_step_fn`` on the banks under ``backend``: logits
+        (B, V); the caches are updated in place."""
+        return decode_step_fn(self.cfg, execution=backend)(
+            self.bank, {"tokens": tokens}, caches, pos)[0]
+
     @torch.no_grad()
     def decode(self, tokens, caches, pos):
         """One token per sequence.  tokens: (B, 1); ``pos`` an int (aligned)
-        or (B,) per-slot positions.  Caches are updated in place.  Returns
-        (logits (B, V), caches)."""
-        tokens = self._tokens(tokens)
-        if not isinstance(pos, int):
-            pos = torch.as_tensor(pos).to(self.device, torch.long)
-        logits, caches, _ = tfm.forward(self.bank, self.cfg,
-                                        {"tokens": tokens}, mode="decode",
-                                        caches=caches, pos=pos,
-                                        execution=self.backend)
-        return logits[:, 0, :], caches
+        or (B,) per-slot positions.  Caches are updated in place (through
+        their decode cell, when they have one).  Returns (logits (B, V),
+        caches)."""
+        cell = self._cells.get(id(caches))
+        if cell is not None and cell.caches is caches:
+            return cell.step(tokens, pos).clone(), caches
+        return self._decode_forward(self.backend, tokens, caches, pos), caches
 
     def decode_sample(self, tokens, caches, pos, generator=None,
                       temperature: float = 0.0):
@@ -226,7 +316,9 @@ class Program:
 
     def generate(self, prompt, max_new: int, *, temperature: float = 0.0,
                  seed: int = 0):
-        """Autoregressive loop: prompt (B, S) -> (B, S + max_new) tokens."""
+        """Autoregressive loop: prompt (B, S) -> (B, S + max_new) tokens.
+        The decode steps run through one decode cell (every row at
+        position S + i), released on return."""
         prompt = self._tokens(prompt)
         B, S = prompt.shape
         logits, caches = self.prefill({"tokens": prompt}, S + max_new)
@@ -236,12 +328,15 @@ class Program:
         toks = [prompt]
         cur = sample(logits, self.cfg.vocab_size, gen,
                      temperature).long()[:, None]
-        for i in range(max_new):
-            toks.append(cur)
-            if i == max_new - 1:
-                break
-            nxt, caches = self.decode_sample(cur, caches, S + i,
-                                             generator=gen,
-                                             temperature=temperature)
-            cur = nxt.long()[:, None]
+        cell = DecodeCell(self, caches)
+        try:
+            for i in range(max_new):
+                toks.append(cur)
+                if i == max_new - 1:
+                    break
+                nxt = sample(cell.step(cur, S + i), self.cfg.vocab_size,
+                             gen, temperature)
+                cur = nxt.long()[:, None]
+        finally:
+            cell.release()
         return torch.cat(toks, dim=1)

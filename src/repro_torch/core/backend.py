@@ -70,7 +70,8 @@ def _epilogue_xla(y, bias, block_perm, block, activation):
             raise ValueError(f"blocked shuffle needs C % block == 0 and a "
                              f"full permutation, got C={C} block={block}")
         idx = (perm[:, None] * block + np.arange(block)[None, :]).reshape(-1)
-        y = y.index_select(-1, torch.as_tensor(idx, device=y.device))
+        y = y.index_select(-1, obu.device_index(idx.astype(np.int64).tobytes(),
+                                                str(y.device)))
     if bias is not None:
         y = y + bias.to(y.dtype)
     return apply_activation(y, activation)

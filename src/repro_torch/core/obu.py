@@ -13,6 +13,8 @@ torch:
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -74,9 +76,19 @@ def transpose_flags(reuse_times: int, transforms) -> np.ndarray:
 # --------------------------------------------------------------------------
 # torch-side application
 # --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def device_index(index: bytes, device: str) -> torch.Tensor:
+    """A static int64 index (its bytes) on ``device``, copied there once
+    per (index, device) and kept: a host-to-device copy per call would
+    make the host wait for the device, and a captured decode step keeps
+    the tensor's address."""
+    return torch.as_tensor(np.frombuffer(index, dtype=np.int64).copy(),
+                           device=device)
+
+
 def apply_channel_permutation(x: torch.Tensor, perm) -> torch.Tensor:
     """Permute the last axis of ``x`` by the static permutation ``perm``."""
-    idx = torch.as_tensor(np.asarray(perm), dtype=torch.long, device=x.device)
+    idx = device_index(np.asarray(perm, np.int64).tobytes(), str(x.device))
     return x.index_select(-1, idx)
 
 

@@ -283,10 +283,11 @@ def photonic_mvm_fused_plain(x, wq, x_scale, w_scale, *, bias=None,
     return apply_activation(y, activation)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _inv_perm(block_perm: tuple, block: int, N: int, device) -> torch.Tensor:
     """``out_block_index`` on the device, copied there once per
-    permutation."""
+    permutation and never dropped: a captured decode step keeps its
+    address."""
     return torch.as_tensor(out_block_index(block_perm, block, N),
                            device=device)
 
@@ -344,6 +345,7 @@ def _tile_counters(device) -> torch.Tensor:
 
 
 _partials: dict = {}
+_retired_partials: list = []
 
 
 def _split_workspace(plan: Plan, device):
@@ -351,7 +353,11 @@ def _split_workspace(plan: Plan, device):
     The int32 partials live in one buffer per device, grown to the largest
     call so far (at most MMA_PART_BYTES for a tensor-core split): like the
     counters, it relies on the device's calls running in stream order, and
-    a split call costs no allocation (no aten op) on the host."""
+    a split call costs no allocation (no aten op) on the host.  A captured
+    CUDA graph keeps the raw address of the buffer it was captured with,
+    so an outgrown buffer is kept alive, never freed, and the buffer may
+    not grow while a graph is being captured (warm every shape up
+    first)."""
     if not plan.part_bytes:
         return None, None
     if plan.tiles > MAX_SPLIT_TILES:
@@ -359,6 +365,12 @@ def _split_workspace(plan: Plan, device):
                          f"{MAX_SPLIT_TILES} arrival counters")
     part = _partials.get(device)
     if part is None or 4 * part.numel() < plan.part_bytes:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the split-K partials must grow to {plan.part_bytes} bytes "
+                f"inside a CUDA graph capture; run the step eagerly first")
+        if part is not None:
+            _retired_partials.append(part)
         part = torch.empty(plan.part_bytes // 4, dtype=torch.int32,
                            device=device)
         _partials[device] = part

@@ -87,7 +87,10 @@ def route(p, xg, mcfg: MoEConfig):
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[..., :K], idx[..., :K]          # (G,g,K)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-    sel = torch.nn.functional.one_hot(gate_idx, E).to(torch.float32)
+    # one_hot as a comparison: on the CPU ``F.one_hot`` reads its input's
+    # range back to the host (``.item()``), which a decode step must not do
+    sel = (gate_idx[..., None] == torch.arange(E, device=xg.device)).to(
+        torch.float32)
     mask = sel.amax(dim=2)                                     # (G,g,E)
     pos_in_e = torch.cumsum(mask, dim=1) - 1.0                 # (G,g,E)
     keep = (pos_in_e < C).to(torch.float32) * mask

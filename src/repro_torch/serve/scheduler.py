@@ -16,15 +16,23 @@ hook in as in the reference: every prefill and decode step looks each bank
 up once, and a calibration sweep follows the residency hook of a decode
 step.  Where the reference binds a meter through its telemetry
 (``telemetry.meter``), the caller binds it with
-``ProgramResidency.bind_meter``.  Left out for later slices: telemetry,
-the mesh, and the ``WaveBatcher``.
+``ProgramResidency.bind_meter``.  Left out for later slices: telemetry
+and the mesh.
+
+The decode step runs through one ``graphs.DecodeCell`` over the pool's
+caches, built once at the pool's capacity and registered with the
+Program: on the card every step after the first replays its CUDA graph
+(the pool's caches are updated in place, so one capture serves the whole
+life of the scheduler).  Sampling, the read-back of the next tokens and
+this loop stay on the host.  Both schedulers implement the ``Scheduler``
+protocol: ``submit`` requests, ``drain`` completions.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -34,8 +42,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costmodel
 from repro_torch.core.prm import ReusePlan
 from repro_torch.models import transformer as tfm
+from repro_torch.obs.stats import ContinuousStats
 from repro_torch.serve.batcher import Completion, Request
 from repro_torch.serve.slots import SlotPool, SlotState
+
+
+@runtime_checkable
+class Scheduler(Protocol):
+    """What serving front ends program against (``ContinuousScheduler`` and
+    ``WaveBatcher``)."""
+
+    def submit(self, req: Request) -> None: ...
+
+    def drain(self) -> list[Completion]: ...
 
 
 # =========================================================================
@@ -81,16 +100,6 @@ class ReuseAwareAdmission:
         return min(queued, free, self.max_admit_per_step)
 
 
-@dataclasses.dataclass
-class ContinuousStats:
-    """Work counters of one scheduler (the reference's telemetry fields
-    are a later slice)."""
-    requests: int = 0
-    prefill_chunks: int = 0
-    decode_steps: int = 0
-    generated_tokens: int = 0
-
-
 # =========================================================================
 # continuous scheduler
 # =========================================================================
@@ -127,6 +136,8 @@ class ContinuousScheduler:
                 ReuseAwareAdmission.build(cfg), residency)
         self.admission = admission or ReuseAwareAdmission.build(cfg)
         self.pool = SlotPool(cfg, capacity, max_len, device=program.device)
+        # the compiled decode step over the pool, kept for its life
+        self.decode_cell = program.decode_cell(self.pool.caches)
         # Right padding is causally invisible to attention (masked by the
         # slot position) but NOT to recurrent state: SSM ``h`` and the conv
         # tail integrate every input token.  Stacks with SSM layers prefill

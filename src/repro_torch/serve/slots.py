@@ -13,7 +13,6 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
-import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
@@ -121,6 +120,7 @@ class SlotPool:
         self.positions[slot] = min(self.positions[slot] + 1,
                                    self.max_len - 1)
 
-    def position_vector(self) -> torch.Tensor:
-        """(B,) per-slot next-write positions for the decode step."""
-        return torch.as_tensor(self.positions.astype(np.int64))
+    def position_vector(self) -> np.ndarray:
+        """(B,) per-slot next-write positions for the decode step (a copy:
+        the decode cell stages it through its own pinned buffer)."""
+        return self.positions.astype(np.int64)
