@@ -7,8 +7,10 @@ absolute positions (``q_offset``) and trailing keys masked by ``kv_len``.
 The CUDA kernels are in ``csrc/flash_attention.cu``; unlike the reference,
 ``q_offset`` and ``kv_len`` are run-time arguments.  Two variants, chosen
 by ``flash_variant`` from the dtype and head dims: "mma" (bf16 tensor
-cores; bf16 with hd and hd_v multiples of 16 up to 128) and "simt" (fp32
-CUDA cores; float32, or other head dims up to 128).
+cores; bf16 with hd and hd_v multiples of 16) and "simt" (fp32 CUDA
+cores; float32, or other head dims).  Each head dim goes up to 256
+(``MAX_HEAD_DIM``): MLA's q/k of 192 against v of 128 (DeepSeek-V2) runs
+on the tensor cores; past 256 a launch raises.
 
 Layout contract: q (BH_q, Sq, hd); k (BH_kv, L, hd); v (BH_kv, L, hd_v);
 returns (BH_q, Sq, hd_v) in q's dtype.  The wrapper takes the plain version
@@ -24,7 +26,7 @@ import torch
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
 
-MAX_HEAD_DIM = 128                 # the kernels' largest hd / hd_v
+MAX_HEAD_DIM = 256                 # the kernels' largest hd / hd_v
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODE = {"simt": 0, "mma": 1}
 
@@ -36,10 +38,13 @@ launches_mma = 0
 
 def flash_variant(dtype, hd: int, hd_v: int) -> str:
     """The kernel variant for q/k/v of ``dtype`` and head dims (hd, hd_v):
-    "mma" (bf16 tensor cores) for bf16 with both head dims multiples of 16
-    up to MAX_HEAD_DIM, else "simt" (fp32 CUDA cores)."""
-    if (dtype == torch.bfloat16 and hd % 16 == 0 and hd_v % 16 == 0
-            and hd <= MAX_HEAD_DIM and hd_v <= MAX_HEAD_DIM):
+    "mma" (bf16 tensor cores) for bf16 with both head dims multiples of 16,
+    else "simt" (fp32 CUDA cores).  Raises for a head dim past
+    MAX_HEAD_DIM, which neither kernel takes."""
+    if not (0 < hd <= MAX_HEAD_DIM and 0 < hd_v <= MAX_HEAD_DIM):
+        raise ValueError(f"head dims ({hd}, {hd_v}): the flash kernels take "
+                         f"1 to {MAX_HEAD_DIM} each")
+    if dtype == torch.bfloat16 and hd % 16 == 0 and hd_v % 16 == 0:
         return "mma"
     return "simt"
 
@@ -71,8 +76,6 @@ def _launch(q, k, v, causal, q_offset, kv_len):
     if hdk != hd or tuple(v.shape[:2]) != (BHkv, L) or BHq % BHkv:
         raise ValueError(f"bad attention shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if hd > MAX_HEAD_DIM or hdv > MAX_HEAD_DIM:
-        raise ValueError(f"head dims ({hd}, {hdv}) exceed {MAX_HEAD_DIM}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bf16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")

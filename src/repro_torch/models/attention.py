@@ -1,16 +1,19 @@
-"""GQA/MHA attention with RoPE and a KV cache (the GQA half of
-``repro.models.attention``).
+"""Attention: GQA/MHA with RoPE and a KV cache, and MLA, multi-head
+latent attention (DeepSeek-V2) (port of ``repro.models.attention`` but
+cross-attention).
 
-Cache layout per logical layer (stacked [R, T, ...] by the PRM runner):
-``{"k": (B, L, KV, hd), "v": (B, L, KV, hd)}``.  Decode takes ``pos`` as a
-scalar (aligned batch) or a (B,) tensor (continuous batching, one position
-per slot).  Softmax is always fp32.
+Cache layouts per logical layer (stacked [R, T, ...] by the PRM runner):
+  gqa: ``{"k": (B, L, KV, hd), "v": (B, L, KV, hd)}``;
+  mla: ``{"ckv": (B, L, kv_lora), "kr": (B, L, rope_dim)}`` (compressed).
+Decode takes ``pos`` as a scalar (aligned batch) or a (B,) tensor
+(continuous batching, one position per slot).  Softmax is always fp32.
 
-Prefill and chunked prefill write the new K/V into the cache view they
-are given IN PLACE (the reference returns an updated copy); decode reads
-the cache and returns the one-token delta for the stack runner to write.
-Decode attention is a masked einsum, as in the reference (no kernel).
-MLA and cross-attention belong to later slices.
+Prefill and chunked prefill write the new K/V (or latents) into the cache
+view they are given IN PLACE (the reference returns an updated copy);
+decode reads the cache and returns the one-token delta for the stack
+runner to write.  Decode attention is a masked einsum, as in the reference
+(no kernel); MLA decodes in the absorbed form, attending in the latent
+space.  Cross-attention belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -205,3 +208,154 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, length: int, dtype,
                              device=device),
             "v": torch.zeros((batch, length, KV, hd), dtype=dtype,
                              device=device)}
+
+
+# =========================================================================
+# MLA: multi-head latent attention (DeepSeek-V2)
+# =========================================================================
+def init_mla(cfg: ModelConfig, generator, device, lead=()):
+    """The reference's leaves and shapes: ``wq`` (d, H * (nope + rope)),
+    ``w_dkv`` (d, kv_lora + rope), ``w_ukv`` (kv_lora, H * (nope + v)),
+    ``wo`` (H * v, d)."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    return {"wq": dense_init((d, H * qd), generator, device, lead=lead),
+            "w_dkv": dense_init((d, m.kv_lora_rank + m.qk_rope_dim),
+                                generator, device, lead=lead),
+            "w_ukv": dense_init((m.kv_lora_rank,
+                                 H * (m.qk_nope_dim + m.v_head_dim)),
+                                generator, device, lead=lead),
+            "wo": dense_init((H * m.v_head_dim, d), generator, device,
+                             lead=lead)}
+
+
+def _mla_qkr(p, cfg, x, positions, backend=None):
+    """Project q (its rope half rotated) and the new tokens' compressed
+    latents ``ckv`` and shared rope key ``kr`` (one head for all)."""
+    bk = resolve_backend(backend)
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = bk.dot(x, cast(p["wq"], x.dtype), transpose=False)
+    q = q.reshape(B, S, cfg.num_heads, m.qk_nope_dim + m.qk_rope_dim)
+    qn, qr = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    dkv = bk.dot(x, cast(p["w_dkv"], x.dtype), transpose=False)
+    ckv, kr = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
+    qr = apply_rope(qr, cos, sin)
+    kr = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0, :]
+    return qn, qr, ckv, kr
+
+
+def _mla_attend_latents(p, cfg, x, qn, qr, ckv, kr, causal, q_offset,
+                        backend):
+    """Up-project the latents ``ckv`` (B, L, kv_lora) to per-head K/V
+    (``w_ukv``, kept floating point: a photonic backend quantizes it in the
+    step), append the shared rope key to every head's K, and attend:
+    q (B, S, H, nope + rope) against k (B, L, H, nope + rope), v (B, L, H,
+    v) through ``Backend.attention`` (flash at hd 192 / hd_v 128 on
+    DeepSeek-V2)."""
+    bk = resolve_backend(backend)
+    m = cfg.mla
+    B, L, _ = ckv.shape
+    H = cfg.num_heads
+    ukv = bk.dot(ckv, cast(p["w_ukv"], x.dtype), transpose=False)
+    ukv = ukv.reshape(B, L, H, m.qk_nope_dim + m.v_head_dim)
+    kn, v = ukv[..., :m.qk_nope_dim], ukv[..., m.qk_nope_dim:]
+    k = torch.cat([kn, kr[:, :, None, :].expand(B, L, H, m.qk_rope_dim)],
+                  dim=-1)
+    q = torch.cat([qn, qr], dim=-1)
+    out = bk.attention(q, k, v, causal=causal, q_offset=q_offset)
+    return bk.dot(out, cast(p["wo"], x.dtype), transpose=False)
+
+
+def mla_forward(p, cfg: ModelConfig, x, *, transpose=False, causal=True,
+                positions=None, cache=None, backend=None):
+    """Full-sequence path (train / prefill); ``transpose`` is unused, as in
+    the reference (no MLA weight is square).  With ``cache`` the new
+    latents are written at offset 0 in place."""
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    qn, qr, ckv, kr = _mla_qkr(p, cfg, x, positions, backend)
+    y = _mla_attend_latents(p, cfg, x, qn, qr, ckv, kr, causal, None,
+                            backend)
+    if cache is not None:
+        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+        cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+        return y, cache
+    return y, None
+
+
+def mla_prefill_chunk(p, cfg: ModelConfig, x, cache, q_offset, *,
+                      transpose=False, backend=None):
+    """One chunk of a chunked prefill: the chunk's latents are written
+    into the capacity cache at ``q_offset`` (in place), then the WHOLE
+    latent buffer is up-projected and the chunk's queries attend against
+    it with the absolute-position causal mask, as the reference does (the
+    garbage tail's up-projection is work the mask discards)."""
+    C = x.shape[1]
+    off = int(q_offset)
+    positions = off + torch.arange(C, device=x.device)
+    qn, qr, ckv_new, kr_new = _mla_qkr(p, cfg, x, positions, backend)
+    cache["ckv"][:, off:off + C] = ckv_new.to(cache["ckv"].dtype)
+    cache["kr"][:, off:off + C] = kr_new.to(cache["kr"].dtype)
+    y = _mla_attend_latents(p, cfg, x, qn, qr, cache["ckv"].to(x.dtype),
+                            cache["kr"].to(x.dtype), True, off, backend)
+    return y, cache
+
+
+def _mm(eq, a, b, dtype=None):
+    """einsum with float32 accumulation, rounded to ``dtype`` (None:
+    float32 out) — the reference's dot at default precision (``dtype`` the
+    operands' type) or with ``preferred_element_type=float32``."""
+    out = torch.einsum(eq, a.float(), b.float())
+    return out if dtype is None else out.to(dtype)
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
+               backend=None):
+    """Absorbed-matrix MLA decode: ``W_uk`` folds into q, the scores run
+    against the latents ``ckv`` directly and ``W_uv`` applies to the
+    attended context only.  The cache is read-only; the one-token latent
+    delta is returned.  bf16 rounds where the reference rounds: ``q_lat``
+    and the two context products in ``x.dtype``, the scores in float32,
+    the weights cast to ``x.dtype`` before the context products."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got {S}")
+    m = cfg.mla
+    H, dt = cfg.num_heads, x.dtype
+    qn, qr, ckv_new, kr_new = _mla_qkr(
+        p, cfg, x, _decode_positions(pos, x.device), backend)
+    ckv, kr = cache["ckv"], cache["kr"]
+    L = ckv.shape[1]
+    w_ukv = cast(p["w_ukv"], dt).reshape(m.kv_lora_rank, H,
+                                        m.qk_nope_dim + m.v_head_dim)
+    w_uk, w_uv = w_ukv[..., :m.qk_nope_dim], w_ukv[..., m.qk_nope_dim:]
+    q_lat = _mm("bshn,rhn->bshr", qn, w_uk, dt)       # absorb W_uk into q
+    scale = 1.0 / torch.tensor(math.sqrt(m.qk_nope_dim + m.qk_rope_dim),
+                               dtype=torch.float32)
+    s_c = (_mm("bshr,blr->bhsl", q_lat, ckv)
+           + _mm("bshr,blr->bhsl", qr, kr)) * scale
+    valid = _past_valid(pos, L, x.device)[:, None, None, :]
+    s_c = s_c.masked_fill(~valid, NEG_INF)
+    s_n = (_mm("bshr,blr->bhsl", q_lat, ckv_new.to(dt))
+           + _mm("bshr,blr->bhsl", qr, kr_new.to(dt))) * scale
+    att = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1)
+    ctx_lat = (_mm("bhsl,blr->bshr", att[..., :L].to(dt), ckv, dt)
+               + _mm("bhsl,blr->bshr", att[..., L:].to(dt), ckv_new.to(dt),
+                     dt))
+    ctx = _mm("bshr,rhv->bshv", ctx_lat, w_uv, dt)
+    y = resolve_backend(backend).dot(ctx.reshape(B, S, H * m.v_head_dim),
+                                     cast(p["wo"], dt), transpose=False)
+    return y, {"ckv": ckv_new.to(ckv.dtype), "kr": kr_new.to(kr.dtype)}
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, length: int, dtype,
+                   device, lead=()):
+    m = cfg.mla
+    return {"ckv": torch.zeros(lead + (batch, length, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros(lead + (batch, length, m.qk_rope_dim),
+                              dtype=dtype, device=device)}

@@ -1,22 +1,24 @@
-"""Model assembly for the GQA decoder, Mamba-2 and hybrid families (port
-of the dense, MoE, SSM and hybrid paths of ``repro.models.transformer``).
+"""Model assembly for the GQA and MLA decoders, Mamba-2 and hybrid families
+(port of the dense, MoE, SSM and hybrid paths of
+``repro.models.transformer``).
 
 A model is a list of segments; each segment is a homogeneous stack of
 groups run through the PRM runner (``core.sharing.run_stack``).  Params are
 nested dicts with the reference's keys (``segments/main/l0/mixer/wq``) and
 a leading R axis on every segment leaf.  Caches hold one entry per layer
 of a group, shaped by its mixer: attention
-``{"k": (R, T, B, L, KV, hd), "v": ...}``, SSM
+``{"k": (R, T, B, L, KV, hd), "v": ...}``, MLA
+``{"ckv": (R, T, B, L, kv_lora), "kr": (R, T, B, L, rope_dim)}``, SSM
 ``{"h": (R, T, B, H, P, N) fp32, "conv": (R, T, B, W-1, conv_dim)}``.
 
-A sequence mixer is GQA attention (``attn``) or the Mamba-2 block
-(``ssm``, ``models/ssm.py``); a hybrid stack interleaves them within a
-group.  An FFN is a SwiGLU MLP (``dense``; ``dense_first`` in the ``pre``
-segment of a MoE stack with ``first_dense`` layers, at
-``first_dense_d_ff``), a mixture of experts (``moe``, ``models/moe.py``),
-whose load-balance loss adds to the forward's ``aux``, or absent
-(``none``: mamba2 has no FFN).  MLA, cross-attention and the encoder
-stream belong to later slices; :func:`check_ported` raises for them.
+A sequence mixer is attention (``attn``: GQA, or MLA where ``cfg.mla`` is
+set) or the Mamba-2 block (``ssm``, ``models/ssm.py``); a hybrid stack
+interleaves them within a group.  An FFN is a SwiGLU MLP (``dense``;
+``dense_first`` in the ``pre`` segment of a MoE stack with
+``first_dense`` layers, at ``first_dense_d_ff``), a mixture of experts
+(``moe``, ``models/moe.py``), whose load-balance loss adds to the
+forward's ``aux``, or absent (``none``: mamba2 has no FFN).  Cross-attention and the encoder stream
+belong to later slices; :func:`check_ported` raises for them.
 """
 from __future__ import annotations
 
@@ -97,20 +99,22 @@ def build_segments(cfg: ModelConfig) -> tuple:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for model families the port does not run yet.  Ported: the
-    RMSNorm/SwiGLU stacks of GQA attention and Mamba-2 mixers with dense,
-    MoE or no FFNs (``family`` dense, moe, ssm or hybrid; no MLA).  MLA,
-    cross-attention (VLM), encoder-decoder (audio) and gelu/layer-norm
-    stacks belong to later slices."""
-    ok = (cfg.mla is None
-          and cfg.family in ("dense", "moe", "ssm", "hybrid")
+    RMSNorm/SwiGLU stacks of GQA or MLA attention and Mamba-2 mixers with
+    dense, MoE or no FFNs (``family`` dense, moe, ssm or hybrid; MLA on
+    the dense and moe families).  Cross-attention (vlm), encoder-decoder
+    (audio) and gelu/layer-norm stacks belong to later slices."""
+    ok = (cfg.family in ("dense", "moe", "ssm", "hybrid")
           and (cfg.ssm is not None) == (cfg.family in ("ssm", "hybrid"))
+          and (cfg.mla is None or cfg.family in ("dense", "moe"))
           and cfg.mlp_act == "swiglu" and cfg.norm == "rms")
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: only the RMSNorm/SwiGLU stacks of GQA attention "
-            f"and Mamba-2 mixers (dense or MoE without MLA, SSM, hybrid) "
-            f"are ported so far (family {cfg.family!r}, "
-            f"mla={cfg.mla is not None}, ssm={cfg.ssm is not None})")
+            f"{cfg.name}: only the RMSNorm/SwiGLU stacks of GQA or MLA "
+            f"attention and Mamba-2 mixers (dense, MoE, SSM, hybrid) are "
+            f"ported so far; vlm, audio and gelu/layer-norm stacks are "
+            f"later slices (family {cfg.family!r}, "
+            f"mla={cfg.mla is not None}, ssm={cfg.ssm is not None}, "
+            f"mlp_act={cfg.mlp_act!r}, norm={cfg.norm!r})")
 
 
 @functools.lru_cache(maxsize=64)
@@ -147,17 +151,23 @@ def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
             y, new_cache = ssm_lib.ssm_forward(
                 p["mixer"], cfg, hn, transpose=transpose,
                 return_cache=(mode == "prefill"), backend=backend)
-    elif mode == "decode":
-        y, new_cache = attn.gqa_decode(p["mixer"], cfg, hn, cache, pos,
-                                       transpose=transpose, backend=backend)
-    elif mode == "prefill_chunk":
-        y, new_cache = attn.gqa_prefill_chunk(p["mixer"], cfg, hn, cache, pos,
-                                              transpose=transpose,
-                                              backend=backend)
     else:
-        y, new_cache = attn.gqa_forward(
-            p["mixer"], cfg, hn, transpose=transpose, causal=causal,
-            cache=cache if mode == "prefill" else None, backend=backend)
+        mla = cfg.mla is not None
+        if mode == "decode":
+            dec = attn.mla_decode if mla else attn.gqa_decode
+            y, new_cache = dec(p["mixer"], cfg, hn, cache, pos,
+                               transpose=transpose, backend=backend)
+        elif mode == "prefill_chunk":
+            # ``pos`` is the chunk's q_offset
+            chunk = attn.mla_prefill_chunk if mla else attn.gqa_prefill_chunk
+            y, new_cache = chunk(p["mixer"], cfg, hn, cache, pos,
+                                 transpose=transpose, backend=backend)
+        else:
+            fwd = attn.mla_forward if mla else attn.gqa_forward
+            y, new_cache = fwd(p["mixer"], cfg, hn, transpose=transpose,
+                               causal=causal,
+                               cache=cache if mode == "prefill" else None,
+                               backend=backend)
     h = h + y
     if ffn_kind != "none":
         hn = apply_norm(p["norm2"], h, cfg.norm, cfg.norm_eps)
@@ -204,6 +214,8 @@ def _init_ffn(cfg: ModelConfig, kind: str, generator, device, lead):
 def _init_mixer(cfg: ModelConfig, kind: str, generator, device, lead):
     if kind == "ssm":
         return ssm_lib.init_ssm(cfg, generator, device, lead=lead)
+    if cfg.mla is not None:
+        return attn.init_mla(cfg, generator, device, lead=lead)
     return attn.init_gqa(cfg, generator, device, lead=lead)
 
 
@@ -288,6 +300,9 @@ def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
                  dtype, device, lead) -> dict:
     if kind == "ssm":
         return ssm_lib.init_ssm_cache(cfg, batch, dtype, device, lead=lead)
+    if cfg.mla is not None:
+        return attn.init_mla_cache(cfg, batch, length, dtype, device,
+                                   lead=lead)
     shape = lead + (batch, length, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -296,7 +311,8 @@ def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
 def init_caches(cfg: ModelConfig, batch: int, length: int,
                 dtype=torch.bfloat16, device=None) -> dict:
     """Zero caches with leading [R, T] axes per layer of each segment's
-    group: attention [R, T, B, L, KV, hd] K/V, SSM [R, T, B, H, P, N]
+    group: attention [R, T, B, L, KV, hd] K/V (MLA: [R, T, B, L, kv_lora]
+    latents and [R, T, B, L, rope_dim] rope keys), SSM [R, T, B, H, P, N]
     fp32 state and [R, T, B, W-1, conv_dim] conv tail (no length axis)."""
     check_ported(cfg)
     dev = resolve_device(device)

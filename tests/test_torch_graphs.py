@@ -1,7 +1,7 @@
 """The port's compiled decode step (``repro_torch.graphs.DecodeCell``) on
 the CPU, where the cell runs its static-buffer code eagerly, against the
 eager ``decode_sample`` and the JAX reference's decode cells on the same
-weights, for the dense, moe, ssm and hybrid smoke configs.
+weights, for the dense, moe (GQA and MLA), ssm and hybrid smoke configs.
 
 A CUDA graph cannot be captured here; the capture-dependent logic (launch
 counts taken back and added per replay, one capture per scheduler) runs
@@ -43,16 +43,19 @@ from repro_torch.serve.scheduler import ContinuousScheduler
 
 torch.set_num_threads(2)
 TOL = {"xla": 1e-5, "photonic": 1e-3}
-# dense, moe, ssm (R&B 2 x 2: shuffle and transpose reuses) and hybrid
+# dense, moe, ssm (R&B 2 x 2: shuffle and transpose reuses), hybrid and
+# MLA (its smoke model's 2-layer main segment as R&B 1 x 2)
 FAMILIES = ["minitron-4b", "granite-moe-1b-a400m", "mamba2-780m",
-            "jamba-v0.1-52b"]
+            "jamba-v0.1-52b", "deepseek-v2-lite-16b"]
 V = 211
 
 
 @functools.lru_cache(maxsize=None)
 def _model(name):
     jc, tc = j_smoke(name), t_smoke(name)
-    if name != "jamba-v0.1-52b":
+    if name == "deepseek-v2-lite-16b":
+        jc, tc = j_rb(jc, 1, 2), t_rb(tc, 1, 2)
+    elif name != "jamba-v0.1-52b":
         jc, tc = j_rb(jc, 2, 2), t_rb(tc, 2, 2)
     params, _ = j_tfm.init_model(jax.random.PRNGKey(0), jc)
     return jc, tc, params, bridge.params_from_flat(_flatten(params),

@@ -159,6 +159,8 @@ FLASH_CASES = [
     (8, 2, 13, 29, 8, 8, False, 0, 21),              # G=4, ragged, kv_len<L
     (4, 2, 20, 20, 16, 24, True, 0, None),           # hd_v != hd
     (4, 1, 10, 37, 16, 16, True, 20, 30),            # G=4, offset + kv_len
+    (2, 2, 16, 16, 192, 128, True, 0, None),         # MLA (DeepSeek-V2)
+    (2, 2, 8, 24, 192, 128, True, 8, 20),            # MLA chunk, kv_len<L
 ]
 
 
@@ -511,12 +513,28 @@ def test_split_decode_streams_keep_the_fused_kernels_tiles():
     (torch.bfloat16, 16, 16, "mma"),
     (torch.bfloat16, 24, 24, "simt"),       # not a multiple of 16
     (torch.bfloat16, 128, 72, "simt"),
-    (torch.bfloat16, 144, 144, "simt"),     # past 128: the launch refuses
+    (torch.bfloat16, 144, 144, "mma"),      # past 128, within the 256 limit
+    (torch.bfloat16, 192, 128, "mma"),      # deepseek-v2-lite-16b (MLA)
+    (torch.bfloat16, 48, 32, "mma"),        # chip_smoke's small bf16 MLA
+    (torch.bfloat16, 256, 256, "mma"),
+    (torch.bfloat16, 200, 128, "simt"),
     (torch.float32, 16, 16, "simt"),        # the float32 smoke models
+    (torch.float32, 12, 8, "simt"),         # the float32 MLA smoke model
     (torch.float32, 128, 128, "simt"),
+    (torch.float32, 192, 128, "simt"),
 ])
 def test_flash_variant_dispatch(dtype, hd, hd_v, variant):
     assert t_fa.flash_variant(dtype, hd, hd_v) == variant
+
+
+@pytest.mark.parametrize("hd,hd_v", [(272, 128), (192, 264), (0, 16)])
+def test_flash_variant_refuses_head_dims_past_256(hd, hd_v):
+    """Neither kernel takes a head dim past ``MAX_HEAD_DIM`` (256): the
+    wrapper raises, naming the limit, before any launch."""
+    assert t_fa.MAX_HEAD_DIM == 256
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="1 to 256"):
+            t_fa.flash_variant(dtype, hd, hd_v)
 
 
 def test_chip_smoke_profile_groups_every_kernel():
