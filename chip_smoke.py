@@ -19,7 +19,10 @@ the script exits non-zero without printing the final ``ok`` line):
    variant "mma" beside the float32 CUDA-core one "simt", and a case with
    NaN/inf past kv_len; since slice 10 MLA's head dims, q/k 192 against v
    128, on the tensor cores, with the SDPA backend that ran beside each
-   row), the split MVMs in both orientations and the
+   row; since slice 11 non-causal calls over 1601 image tokens and 1500
+   audio frames, each also in a longer buffer holding NaN/inf past the
+   memory, and the fused MVM at the memory projections' and the vlm and
+   whisper decode shapes), the split MVMs in both orientations and the
    blend (slice 2; since slice 6 ``photonic_mvm_t`` and since slice 7
    ``photonic_mvm`` run the fused kernel's regimes on int8 rows, each row
    naming its own, and each orientation equals the other on the
@@ -96,6 +99,23 @@ the script exits non-zero without printing the final ``ok`` line):
    rows or more; then a small bf16 MLA model's card logits against the CPU
    program with the MVM kernels' arithmetic, its flash on the tensor cores
    (``small_mla_check``);
+3k. since slice 11 the memory-stream paths (``serve_memory``):
+   llama-3.2-vision-11b with its R&B plan (4 x 2: 8 scan groups of 4
+   self-attention layers and one cross-attention layer over 1601 image
+   tokens) and whisper-medium with its plan (6 x 4 on both 24-layer
+   stacks: a non-causal encoder over 1500 frames, a decoder of self- and
+   cross-attention, layer norm, gelu), each at full width and depth,
+   photonic, bf16, seeded random weights and seeded stub embeddings per
+   request (``configs.stub_extras``), through ``Program.generate`` and a
+   ``ContinuousScheduler`` (no request with extras is chunked; graph and
+   eager drains as in 3i); the fused MVM held to the config's count per
+   pass (``fused_per_pass``: 265 / 282 and 193 / 386 per decode / prefill
+   pass), flash to ``flash_per_prefill`` (causal and not, all on the
+   tensor cores), the decode step leaving the cross K/V untouched; then
+   small float32 vlm and whisper models (``small_memory_checks``) whose
+   card logits are held to the CPU program with the kernels' arithmetic,
+   taught at each MVM call by the card's input (``exact_backend``,
+   ``recording_backend``);
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
@@ -122,7 +142,12 @@ summation order and flash's softmax).  The small bf16 MLA model's card
 logits are held to the CPU program with the kernels' integer MVM
 arithmetic at rel-L2 <= 0.07: the tensor-core flash rounds P to bf16
 (~2e-3 per call), which a CPU emulation put at 0.0517-0.0666 of these
-logits through A8 flips (PERF.md, slice 10).
+logits through A8 flips (PERF.md, slice 10).  The small vlm and whisper
+models' card logits are held at rel-L2 <= 1e-5 to that program taught by
+the card's MVM inputs: each call's input within 1e-5 of the program's
+own, and each A8 code that differs a one-step flip within 2e-3 steps of
+its rounding boundary (float32 noise on the per-tensor A8 grid), so no
+flip carries through the layers (PERF.md, slice 11).
 """
 from __future__ import annotations
 
@@ -212,7 +237,15 @@ def mvm_cases():
     (40: its short prompt, 512: its prefill chunk, 600: the generate
     prompt) in both orientations; mamba2-780m's ``w_in`` (1536 -> 2*3072
     + 2*128 + 48 = 6448, not a multiple of 128) at M = 2048;
-    granite-moe-1b-a400m's 1024 -> 512 at decode and prefill widths."""
+    granite-moe-1b-a400m's 1024 -> 512 at decode and prefill widths.  Since
+    slice 11 the memory streams' projections at one request's rows:
+    llama-3.2-vision-11b's ``vision_proj`` (7680 -> 4096) and cross
+    ``wk`` / ``wv`` (4096 -> 1024) at its 1601 image tokens, whisper-
+    medium's ``audio_proj`` (128 -> 1024) at its 1500 frames; and the two
+    models' decode shapes at M = 4 (vlm d 4096, d_ff 14336, vocab 128256;
+    whisper d 1024, gelu MLP of 4096, padded vocab 51968), with whisper's
+    transposed reuse (its plan's third): the square ``wq`` and ``w_down``
+    (1024 -> 4096, the gelu MLP's first dot there)."""
     shapes = [("wq", 3072, 3072, False, "none"),
               ("wq^T", 3072, 3072, True, "none"),
               ("wk", 3072, 1024, False, "none"),
@@ -235,6 +268,24 @@ def mvm_cases():
     for M in (4, 2048):
         cases.append((f"M={M} granite expert 1024->512", M, 1024, 512,
                       False, "none", False))
+    for label, M, K, N in (("vlm vision_proj", 1601, 7680, 4096),
+                           ("vlm cross wk", 1601, 4096, 1024),
+                           ("whisper audio_proj", 1500, 128, 1024)):
+        cases.append((f"M={M} {label} {K}->{N}", M, K, N, False, "none",
+                      False))
+    for label, K, N, tr, act in (
+            ("vlm wq", 4096, 4096, False, "none"),
+            ("vlm wk", 4096, 1024, False, "none"),
+            ("vlm w_gate+silu", 4096, 14336, False, "silu"),
+            ("vlm w_down", 14336, 4096, False, "none"),
+            ("vlm lm_head", 4096, 128256, False, "none"),
+            ("whisper wq", 1024, 1024, False, "none"),
+            ("whisper wq^T", 1024, 1024, True, "none"),
+            ("whisper w_up", 1024, 4096, False, "none"),
+            ("whisper w_down^T", 1024, 4096, True, "none"),
+            ("whisper w_down", 4096, 1024, False, "none"),
+            ("whisper lm_head", 1024, 51968, False, "none")):
+        cases.append((f"M=4 {label} {K}->{N}", 4, K, N, tr, act, False))
     return cases
 
 
@@ -305,43 +356,64 @@ def int_mm_ms(torch, timer, xq, wq, transpose, reps):
 
 def flash_cases():
     """(label, B, Sq, L, q_offset, kv_len, H, KV, hd, hd_v, dtype,
-    garbage): minitron-4b attention (24 query heads, 8 KV heads: G = 3, hd
-    128) as a monolithic 2048-token causal prefill, two 600-token prompts,
-    and a 512-wide chunk at q_offset 512 against the 2048-slot capacity
-    buffer with kv_len < L, once more with NaN and inf in that buffer past
-    kv_len (garbage: the output must be finite and equal the clean one);
-    one hd_v != hd case, all bf16 (the tensor-core variant); and a float32
-    hd 16 case, the CUDA-core variant that the float32 smoke models run.
-    Since slice 10, deepseek-v2-lite-16b's MLA prefill (16 heads, KV = H,
-    q/k of nope 128 + rope 64 = 192 against v 128: the (192, 128)
-    instantiation) as a 2048-token causal prefill and as the same chunk,
-    clean and with garbage past kv_len, in bf16; the small bf16 MLA model
-    of ``small_mla_check`` (hd 48, hd_v 32); and the float32 MLA smoke
-    model's hd 12 / hd_v 8 on the CUDA-core kernel."""
-    return [("B=1 Sq=L=2048 causal", 1, 2048, 2048, 0, 2048,
-             24, 8, 128, 128, "bfloat16", False),
-            ("B=2 Sq=L=600 causal", 2, 600, 600, 0, 600, 24, 8, 128, 128,
-             "bfloat16", False),
-            ("B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024", 1, 512,
-             2048, 512, 1024, 24, 8, 128, 128, "bfloat16", False),
-            ("B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024, NaN/inf "
-             "past kv_len", 1, 512, 2048, 512, 1024, 24, 8, 128, 128,
-             "bfloat16", True),
-            ("B=1 Sq=L=300 hd=64 hd_v=96 G=4", 1, 300, 300, 0, 300,
-             8, 2, 64, 96, "bfloat16", False),
-            ("B=2 Sq=L=128 hd=16 G=2 float32", 2, 128, 128, 0, 128,
-             4, 2, 16, 16, "float32", False),
-            ("MLA B=1 Sq=L=2048 causal hd=192 hd_v=128", 1, 2048, 2048, 0,
-             2048, 16, 16, 192, 128, "bfloat16", False),
-            ("MLA B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024", 1, 512,
-             2048, 512, 1024, 16, 16, 192, 128, "bfloat16", False),
-            ("MLA B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024, NaN/inf "
-             "past kv_len", 1, 512, 2048, 512, 1024, 16, 16, 192, 128,
-             "bfloat16", True),
-            ("MLA B=2 Sq=L=96 hd=48 hd_v=32", 2, 96, 96, 0, 96, 4, 4, 48, 32,
-             "bfloat16", False),
-            ("MLA B=2 Sq=L=128 hd=12 hd_v=8 float32", 2, 128, 128, 0, 128,
-             4, 4, 12, 8, "float32", False)]
+    garbage, causal): minitron-4b attention (24 query heads, 8 KV heads: G
+    = 3, hd 128) as a monolithic 2048-token causal prefill, two 600-token
+    prompts, and a 512-wide chunk at q_offset 512 against the 2048-slot
+    capacity buffer with kv_len < L, once more with NaN and inf in that
+    buffer past kv_len (garbage: the output must be finite and equal the
+    clean one); one hd_v != hd case, all bf16 (the tensor-core variant);
+    and a float32 hd 16 case, the CUDA-core variant that the float32 smoke
+    models run.  Since slice 10, deepseek-v2-lite-16b's MLA prefill (16
+    heads, KV = H, q/k of nope 128 + rope 64 = 192 against v 128: the
+    (192, 128) instantiation) as a 2048-token causal prefill and as the
+    same chunk, clean and with garbage past kv_len, in bf16; the small
+    bf16 MLA model of ``small_mla_check`` (hd 48, hd_v 32); and the float32
+    MLA smoke model's hd 12 / hd_v 8 on the CUDA-core kernel.  Since slice
+    11 the non-causal calls, none of whose key lengths is a multiple of
+    the 64-key tile: llama-3.2-vision-11b's cross-attention over its 1601
+    image tokens (32 heads, 8 KV heads, hd 128) from a 600-token prompt
+    and a 2048-token one, whisper-medium's encoder (Sq = L = 1500, 16
+    heads, KV = H, hd 64) and its decoder's cross-attention from a
+    600-token prompt over the 1500 frames; each at its own key length and
+    again in a 2048-row buffer whose rows past the memory (kv_len) hold
+    NaN and inf."""
+    cases = [("B=1 Sq=L=2048 causal", 1, 2048, 2048, 0, 2048,
+              24, 8, 128, 128, "bfloat16", False),
+             ("B=2 Sq=L=600 causal", 2, 600, 600, 0, 600, 24, 8, 128, 128,
+              "bfloat16", False),
+             ("B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024", 1, 512,
+              2048, 512, 1024, 24, 8, 128, 128, "bfloat16", False),
+             ("B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024, NaN/inf "
+              "past kv_len", 1, 512, 2048, 512, 1024, 24, 8, 128, 128,
+              "bfloat16", True),
+             ("B=1 Sq=L=300 hd=64 hd_v=96 G=4", 1, 300, 300, 0, 300,
+              8, 2, 64, 96, "bfloat16", False),
+             ("B=2 Sq=L=128 hd=16 G=2 float32", 2, 128, 128, 0, 128,
+              4, 2, 16, 16, "float32", False),
+             ("MLA B=1 Sq=L=2048 causal hd=192 hd_v=128", 1, 2048, 2048, 0,
+              2048, 16, 16, 192, 128, "bfloat16", False),
+             ("MLA B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024", 1, 512,
+              2048, 512, 1024, 16, 16, 192, 128, "bfloat16", False),
+             ("MLA B=1 chunk Sq=512 q_offset=512 L=2048 kv_len=1024, NaN/inf "
+              "past kv_len", 1, 512, 2048, 512, 1024, 16, 16, 192, 128,
+              "bfloat16", True),
+             ("MLA B=2 Sq=L=96 hd=48 hd_v=32", 2, 96, 96, 0, 96, 4, 4, 48, 32,
+              "bfloat16", False),
+             ("MLA B=2 Sq=L=128 hd=12 hd_v=8 float32", 2, 128, 128, 0, 128,
+              4, 4, 12, 8, "float32", False)]
+    cases = [c + (True,) for c in cases]
+    for name, Sq, M, H, KV, hd in (("vlm cross", 600, 1601, 32, 8, 128),
+                                   ("vlm cross", 2048, 1601, 32, 8, 128),
+                                   ("whisper encoder", 1500, 1500, 16, 16,
+                                    64),
+                                   ("whisper cross", 600, 1500, 16, 16, 64)):
+        label = f"{name} B=1 Sq={Sq} L={M} hd={hd} G={H // KV} non-causal"
+        cases.append((label, 1, Sq, M, 0, M, H, KV, hd, hd, "bfloat16",
+                      False, False))
+        cases.append((f"{label}, in L=2048 with NaN/inf past kv_len={M}", 1,
+                      Sq, 2048, 0, M, H, KV, hd, hd, "bfloat16", True,
+                      False))
+    return cases
 
 
 def sdpa_backend(torch, q, k, v, mask):
@@ -369,12 +441,12 @@ def check_flash(torch, timer, fa):
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for (label, B, Sq, L, off, kv_len, H, KV, hd, hdv, dtype,
-         garbage) in flash_cases():
+         garbage, causal) in flash_cases():
         dt = getattr(torch, dtype)
         q = torch.randn((B * H, Sq, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((B * KV, L, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((B * KV, L, hdv), generator=gen, device="cuda").to(dt)
-        kw = dict(causal=True, q_offset=off, kv_len=kv_len)
+        kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
         want = fa.flash_attention_plain(q, k, v, **kw)
         clean = fa.flash_attention(q, k, v, **kw)
         if garbage:
@@ -393,9 +465,9 @@ def check_flash(torch, timer, fa):
         ms = timer.ms(lambda: fa.flash_attention(q, k, v, **kw), 10)
         plain_ms = timer.ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                             5)
-        # SDPA yardstick on the same data: (B, H, S, hd) views, causal mask
-        # on absolute positions, keys past kv_len masked (and, in the
-        # garbage case, clean keys: SDPA would spread the NaN)
+        # SDPA yardstick on the same data: (B, H, S, hd) views, the causal
+        # mask (if any) on absolute positions, keys past kv_len masked
+        # (and, in the garbage case, clean keys: SDPA would spread the NaN)
         q4 = q.view(B, H, Sq, hd)
         k4 = (k.nan_to_num(0.0, 0.0, 0.0) if garbage else k).view(B, KV, L,
                                                                   hd)
@@ -403,7 +475,7 @@ def check_flash(torch, timer, fa):
                                                                   hdv)
         qi = off + torch.arange(Sq, device="cuda")[:, None]
         kj = torch.arange(L, device="cuda")[None, :]
-        mask = (kj <= qi) & (kj < kv_len)
+        mask = ((kj <= qi) if causal else (qi >= 0)) & (kj < kv_len)
         lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, enable_gqa=True), 10)
         lib_backend = sdpa_backend(torch, q4, k4, v4, mask)
@@ -416,6 +488,7 @@ def check_flash(torch, timer, fa):
                          else FP32_FLOPS) * 1e3
         row = {"case": label, "kernel": "flash_attention",
                "variant": fa.flash_variant(dt, hd, hdv), "dtype": dtype,
+               "causal": causal,
                "rel_l2": err, "max_abs_err": max_abs, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "F.scaled_dot_product_attention(enable_gqa=True)",
@@ -513,18 +586,73 @@ def mma_flash_emulated(q, k, v, *, causal=True, q_offset=0, kv_len=None):
     return (acc / l).to(q.dtype)
 
 
-def exact_backend(mma_flash: bool = False, **kw):
+def a8_flips(x_own, x_card):
+    """Where two inputs of one MVM call (the CPU program's own and the
+    card's, the same up to float32 rounding) quantize to different A8
+    codes: (count, largest distance in A8 steps from either unrounded value
+    to the rounding boundary between the two codes, largest code
+    difference).  A flip of one code whose values lie on either side of a
+    boundary, within float32 noise of it, is float32 noise on a coarse grid,
+    not a kernel error."""
+    from repro_torch.core.photonic import quantize_symmetric
+    q1, s1 = quantize_symmetric(x_own, 8)
+    q2, s2 = quantize_symmetric(x_card, 8)
+    differ = q1 != q2
+    n = int(differ.sum())
+    if not n:
+        return 0, 0.0, 0
+    a, b = q1[differ].float(), q2[differ].float()
+    bound = (a + b) / 2
+    dist = max(float((x_own[differ] / s1 - bound).abs().max()),
+               float((x_card[differ] / s2 - bound).abs().max()))
+    return n, dist, int((a - b).abs().max())
+
+
+A8_FLIP_BAND = 2e-3         # a flip's two unrounded values lie within this
+                            # many A8 steps of the boundary they straddle
+                            # (float32 noise at |x / scale| <= 127: 1e-5
+                            # rel-L2 of x is 1.3e-3 steps)
+
+
+def exact_backend(mma_flash: bool = False, teacher=None, flips=None, **kw):
     """A photonic ``Backend`` whose matmuls run the MVM kernels' arithmetic
     on the CPU (``photonic_mvm.exact_mvm``: the exact integer product,
     rescaled once) where the plain versions keep the reference's offset
     decomposition; the rest (A8 grid, epilogue, attention) is the plain
     path's, except that with ``mma_flash`` a bf16 attention that takes the
     flash path runs the tensor-core kernel's rounding
-    (:func:`mma_flash_emulated`).  Only this script's checks use it."""
+    (:func:`mma_flash_emulated`).  With ``teacher`` (a deque of the card's
+    inputs to each of its MVM calls, in order: ``recording_backend``) each
+    call checks its own input against the card's (rel-L2 within
+    ``EXACT_ARITH_TOL``; codes that differ must be one-step flips within
+    ``A8_FLIP_BAND`` of their boundary, counted into the dict ``flips``)
+    and then multiplies the card's: a flip does not carry on through the
+    layers, so the logits can be held at kernel-level arithmetic.  Only
+    this script's checks use it."""
     import torch
     from repro_torch.core import backend as backend_lib
     from repro_torch.core.photonic import quantize_symmetric
     from repro_torch.kernels import photonic_mvm as pm
+
+    def force(x):
+        card = teacher.popleft()
+        if tuple(card.shape) != tuple(x.shape):
+            raise AssertionError(f"teacher input {tuple(card.shape)} for an "
+                                 f"MVM call on {tuple(x.shape)}")
+        err = rel_l2(x, card)
+        n, dist, step = a8_flips(x, card)
+        flips["calls"] = flips.get("calls", 0) + 1
+        flips["max_input_rel_l2"] = max(flips.get("max_input_rel_l2", 0.0),
+                                        err)
+        flips["a8_flips"] = flips.get("a8_flips", 0) + n
+        flips["max_flip_distance"] = max(flips.get("max_flip_distance", 0.0),
+                                         dist)
+        if err > EXACT_ARITH_TOL or step > 1 or dist > A8_FLIP_BAND:
+            raise AssertionError(f"an MVM input on the card differs from the "
+                                 f"CPU program's past float32 noise: rel-L2 "
+                                 f"{err}, {n} A8 codes, up to {step} steps, "
+                                 f"{dist} steps from their boundary")
+        return card
 
     class ExactBackend(backend_lib.Backend):
         def attention(self, q, k, v, *, causal=True, q_offset=None):
@@ -546,6 +674,8 @@ def exact_backend(mma_flash: bool = False, **kw):
                              block_perm, block, activation, bank_tag):
             if self.noise_active:
                 raise ValueError("the exact arithmetic has no fault model")
+            if teacher is not None:
+                x = force(x)
             q, xs = quantize_symmetric(x, 8)
             y = pm.exact_mvm(q.reshape(-1, x.shape[-1]), wq, xs,
                              wscale.reshape(1, -1), transpose)
@@ -554,6 +684,20 @@ def exact_backend(mma_flash: bool = False, **kw):
                                                  activation)
 
     return ExactBackend("photonic", **kw)
+
+
+def recording_backend(records: list, **kw):
+    """A photonic ``Backend`` that appends a CPU copy of the input of each
+    of its MVM calls to ``records`` (the teacher of ``exact_backend``); not
+    for a captured step (the copy waits for the device)."""
+    from repro_torch.core import backend as backend_lib
+
+    class RecordingBackend(backend_lib.Backend):
+        def _photonic_matmul(self, x, wq, wscale, **k):
+            records.append(x.detach().to("cpu", copy=True))
+            return super()._photonic_matmul(x, wq, wscale, **k)
+
+    return RecordingBackend("photonic", **kw)
 
 
 KERNEL_GROUPS = (
@@ -577,9 +721,10 @@ def kernel_group(name: str) -> str:
     return "other torch kernels"
 
 
-def profile_generate(torch, prog, prompt):
+def profile_generate(torch, prog, prompt, extras=None):
     """Where the device time goes: ``torch.profiler`` over one
-    ``Program.generate`` (one prefill + 7 decode steps), kernel time summed
+    ``Program.generate`` (one prefill + 7 decode steps; with the modality
+    ``extras`` of a vlm or audio model), kernel time summed
     by port kernel, the ten largest CUDA kernels inside "other torch
     kernels" by name (time and launches), and the device's idle share of
     the wall time."""
@@ -589,7 +734,7 @@ def profile_generate(torch, prog, prompt):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prog.generate(prompt, 8)
+        prog.generate(prompt, 8, extras=extras)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups: dict = {}
@@ -617,6 +762,15 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def cross_leaves(tree) -> list:
+    """The cross-attention K/V leaves (keys ``ck``, ``cv``) of a cache
+    tree, which a decode step reads and must not write."""
+    if not isinstance(tree, dict):
+        return []
+    return [x for k in sorted(tree) for x in
+            ([tree[k]] if k in ("ck", "cv") else cross_leaves(tree[k]))]
 
 
 PROFILE_PRELUDE = 1024      # one-cycle spin kernels ahead of a profiled step
@@ -717,8 +871,9 @@ def decode_step_costs(torch, prog):
     ``step_costs``.  From the same caches the replay's logits and caches
     must equal the eager step's bit for bit, and the profiled replay must
     run each port kernel's CUDA kernel as often as the cell adds to its
-    launch count per replay.  A Program the cell does not capture reports
-    the rule's reason instead of a replay."""
+    launch count per replay.  The eager step must leave the cross-attention
+    K/V (vlm, audio) as they were.  A Program the cell does not capture
+    reports the rule's reason instead of a replay."""
     caches = prog.empty_caches(4, 2048)
     gen = torch.Generator(device="cuda").manual_seed(6)
     for leaf in tree_leaves(caches):
@@ -735,8 +890,14 @@ def decode_step_costs(torch, prog):
            "eager": step_costs(torch, lambda: prog.decode_sample(
                toks, caches, pos))}
     restore()
+    cross = [leaf.clone() for leaf in cross_leaves(caches)]
     want, _ = prog.decode(toks, caches, pos)
     want_caches = [leaf.clone() for leaf in tree_leaves(caches)]
+    if cross:
+        out["cross_kv_untouched"] = all(
+            torch.equal(a, b) for a, b in zip(cross_leaves(caches), cross))
+        if not out["cross_kv_untouched"]:
+            raise AssertionError("a decode step wrote the cross K/V")
     cell = prog.decode_cell(caches)
     out["decode_graph"] = cell.reason is None
     if cell.reason is not None:
@@ -779,7 +940,8 @@ def eager_cells():
 
 
 def drain_graph_vs_eager(torch, prog, requests, sched_kw):
-    """The requests (rid, prompt, max_new) through a scheduler with its
+    """The requests (rid, prompt, max_new[, extras]) through a scheduler with
+    its
     decode graph, the path's main drain, then through one whose decode
     cell stays eager (``eager_cells``): completions token for token
     equal, the same launch counts, and one capture for the graph
@@ -795,8 +957,9 @@ def drain_graph_vs_eager(torch, prog, requests, sched_kw):
     runs = {}
     for graph in (True, False):
         sched = ContinuousScheduler(prog, **sched_kw)
-        for rid, prompt, max_new in requests:
-            sched.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+        for rid, prompt, max_new, *extras in requests:
+            sched.submit(Request(rid=rid, prompt=prompt, max_new=max_new,
+                                 extras=extras[0] if extras else None))
         before, captures = counts.snapshot(), graphs.CAPTURE_COUNTS["decode"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -827,14 +990,14 @@ def drain_graph_vs_eager(torch, prog, requests, sched_kw):
     return done, window, report
 
 
-def generate_captured(torch, prog, prompts, max_new):
+def generate_captured(torch, prog, prompts, max_new, extras=None):
     """``Program.generate`` timed, with its one decode-graph capture (a
     Program whose cell does not capture makes none)."""
     from repro_torch import graphs
     captures = graphs.CAPTURE_COUNTS["decode"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = prog.generate(prompts, max_new)
+    out = prog.generate(prompts, max_new, extras=extras)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     B, S = prompts.shape
@@ -1772,30 +1935,62 @@ MLA_FUSED_PER_PASS = (5155, 5182)   # deepseek-v2-lite-16b R&B: decode,
 
 
 def fused_per_pass(cfg, prefill: bool) -> int:
-    """Fused-MVM launches one forward pass of a dense or MoE model with
-    MLA attention makes, from its config: per logical layer MLA's ``wq``,
-    ``w_dkv`` and ``wo`` (and, in a prefill pass or chunk, the per-call
-    quantized ``w_ukv`` up-projection; the absorbed decode folds ``w_ukv``
-    into torch einsums), three per dense FFN, per MoE FFN three per routed
-    expert (gate, up and down; no blended banks) and three for the shared
-    experts; one for the lm head."""
+    """Fused-MVM launches one forward pass of a model without blended
+    experts or SSM layers makes, from its config.  Per logical layer:
+    self-attention's ``wq``, ``wk``, ``wv`` and ``wo`` (GQA), or MLA's
+    ``wq``, ``w_dkv`` and ``wo`` plus, in a prefill pass or chunk, the
+    per-call quantized ``w_ukv`` up-projection (the absorbed decode folds
+    ``w_ukv`` into torch einsums); cross-attention's ``wq`` and ``wo`` plus,
+    in a prefill pass, the memory's ``wk`` and ``wv`` (whisper's decoder
+    layer has both attentions); three per SwiGLU FFN, two per gelu FFN,
+    per MoE FFN three per routed expert (gate, up and down; no blended
+    banks) and three for the shared experts.  Then one for the lm head,
+    and in a prefill pass one for the vlm's ``vision_proj`` or whisper's
+    ``audio_proj`` and the encoder's layers (whisper)."""
     from repro_torch.models import transformer as tfm
-    if cfg.mla is None or (cfg.moe and cfg.moe.num_basic_experts):
-        raise ValueError("counts MLA stacks without blended experts")
-    n = 1
+    if cfg.moe and cfg.moe.num_basic_experts:
+        raise ValueError("counts stacks without blended experts")
+    self_attn = (4 if prefill else 3) if cfg.mla else 4
+    cross = 4 if prefill else 2
+    per_mixer = {"attn": self_attn, "cross_attn": cross,
+                 "attn_cross": self_attn + cross}
+    per_ffn = {"dense": 3 if cfg.mlp_act == "swiglu" else 2, "none": 0}
+    per_ffn["dense_first"] = per_ffn["dense"]
+    if cfg.moe:
+        per_ffn["moe"] = 3 * cfg.moe.num_experts + 3 * bool(
+            cfg.moe.num_shared)
+    n = 1 + (prefill and cfg.family in ("vlm", "audio"))
+    for spec in tfm.build_segments(cfg):
+        if spec.stream == "encoder" and not prefill:
+            continue
+        shared = tfm.shareds_for(cfg)[spec.name]
+        groups = shared.num_physical * shared.reuse_times
+        for mixer, ffn in zip(spec.mixer_kinds, spec.ffn_kinds):
+            if mixer not in per_mixer:
+                raise ValueError(f"mixer {mixer!r}")
+            n += groups * (per_mixer[mixer] + per_ffn[ffn])
+    return n
+
+
+def flash_per_prefill(cfg, rows: int, min_seq: int = 512) -> tuple:
+    """(flash launches, the causal ones among them) of one prefill pass of
+    ``rows`` query rows of a model whose mixers are attention: every
+    decoder self-attention (causal) and cross-attention (not causal) once
+    the pass has ``min_seq`` rows or more (``Backend.flash_min_seq``), and
+    whisper's encoder layers (not causal, over its frames) whatever the
+    prompt's length."""
+    from repro_torch.models import transformer as tfm
+    causal = other = 0
     for spec in tfm.build_segments(cfg):
         shared = tfm.shareds_for(cfg)[spec.name]
-        layers = shared.num_physical * shared.reuse_times
-        for mixer, ffn in zip(spec.mixer_kinds, spec.ffn_kinds):
-            if mixer != "attn":
-                raise ValueError(f"mixer {mixer!r}")
-            per = 4 if prefill else 3
-            if ffn == "moe":
-                per += 3 * cfg.moe.num_experts + 3 * bool(cfg.moe.num_shared)
-            elif ffn in ("dense", "dense_first"):
-                per += 3
-            n += layers * per
-    return n
+        groups = shared.num_physical * shared.reuse_times
+        for mixer in spec.mixer_kinds:
+            if spec.stream == "encoder":
+                other += groups * (cfg.audio.num_frames >= min_seq)
+            elif rows >= min_seq:
+                causal += groups * (mixer in ("attn", "attn_cross"))
+                other += groups * (mixer in ("cross_attn", "attn_cross"))
+    return causal + other, causal
 
 
 def serve_mla(torch, gpu):
@@ -1960,6 +2155,223 @@ def small_mla_check(torch):
 
 
 # -------------------------------------------------------------------------
+# phase 3k: the memory-stream paths (vlm and audio)
+# -------------------------------------------------------------------------
+VLM_FUSED_PER_PASS = (265, 282)     # llama-3.2-vision-11b R&B: decode,
+                                    # prefill pass
+AUDIO_FUSED_PER_PASS = (193, 386)   # whisper-medium R&B: decode, prefill
+
+
+def serve_memory(torch, gpu, name, per_pass, seed):
+    """``name`` (llama-3.2-vision-11b or whisper-medium) with its R&B plan
+    at full width and depth, photonic, bf16, seeded random weights, each
+    request carrying its own seeded stub embeddings (``configs.
+    stub_extras``: 1601 image tokens of 7680, or 1500 frames of 128):
+    ``Program.generate`` of 2 x 600 tokens (+16) and a
+    ``ContinuousScheduler`` over {40, 300, 512, 1300} (+16 each), none
+    chunked (a request with extras prefills whole), its decode graph
+    against an eager cell.  Fused-MVM launches are held to the config's
+    count per pass, flash to its count per prefill (``flash_per_prefill``:
+    causal and not), all on the tensor-core variant."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch, stub_extras
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_arch(name, reuse=True)
+    per_decode = fused_per_pass(cfg, prefill=False)
+    per_prefill = fused_per_pass(cfg, prefill=True)
+    if (per_decode, per_prefill) != per_pass:
+        raise AssertionError(f"fused launches per pass {per_decode} / "
+                             f"{per_prefill} != {per_pass}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_model(cfg, seed=0)
+    n_params = sum(leaf.numel() for leaf in tree_leaves(params))
+    prog = api.Program.build(cfg, params, execution="photonic")
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = prog.bank_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+    lens = (40, 300, 512, 1300)
+    requests = [(rid, rng.integers(0, V, n), 16, stub_extras(cfg, 1, gen))
+                for rid, n in enumerate(lens)]
+    prompts = rng.integers(0, V, (2, 600))
+    extras = stub_extras(cfg, 2, gen)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    out, gen_s = generate_captured(torch, prog, prompts, 16, extras=extras)
+    done, launches, drain = drain_graph_vs_eager(
+        torch, prog, requests, dict(capacity=4, max_len=2048,
+                                    prefill_chunk=512))
+    sched_s = drain["drain_graph_s"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    got = sorted((c.rid, len(c.tokens), c.finish_reason) for c in done)
+    want = [(rid, n + 16, "length") for rid, n in enumerate(lens)]
+    if got != want or drain["drain_prefill_chunks"] != 0:
+        raise AssertionError(f"completions {got} != {want} (unchunked; "
+                             f"{drain['drain_prefill_chunks']} chunks)")
+    # generate: one prefill + 15 decode steps; the scheduler: one prefill
+    # per request, each in its bucket of 16 rows (48, 304, 512, 1312)
+    rows = [600] + [-(-n // 16) * 16 for n in lens]
+    prefills = len(rows)
+    decodes = 15 + drain["drain_decode_steps"]
+    fused = per_prefill * prefills + per_decode * decodes
+    if launches["photonic_mvm_fused"] != fused:
+        raise AssertionError(f"fused launches {launches} != {per_prefill} x "
+                             f"{prefills} + {per_decode} x {decodes}")
+    flash = [flash_per_prefill(cfg, r) for r in rows]
+    flash_all, flash_causal = (sum(f[0] for f in flash),
+                               sum(f[1] for f in flash))
+    if not (launches["flash_attention"] == flash_all
+            and launches["flash_attention_causal"] == flash_causal
+            and launches["flash_attention_mma"] == flash_all):
+        raise AssertionError(f"flash launches {launches} != {flash_all} "
+                             f"({flash_causal} causal), all tensor-core")
+    for kernel in ("photonic_mvm", "photonic_mvm_t",
+                   "photonic_mvm_resident", "blend_shuffle", "ssd_chunk"):
+        if launches[kernel] != 0:
+            raise AssertionError(f"{kernel} ran on the {name} path: "
+                                 f"{launches}")
+    one = {k: v[:1] for k, v in extras.items()}
+    logits, _ = prog.prefill(dict(tokens=prompts[:1], **one), 616)
+    if not (logits.shape[-1] == cfg.padded_vocab
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"non-finite {name} prefill logits")
+    report = {"phase": "serve_" + cfg.family, "gpu": gpu, "arch": cfg.name,
+              "R": cfg.reuse.num_basic, "T": cfg.reuse.reuse_times,
+              "transforms": list(cfg.reuse.transforms), "params": n_params,
+              "d_model": cfg.d_model, "heads": cfg.num_heads,
+              "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+              "d_ff": cfg.d_ff, "norm": cfg.norm, "mlp_act": cfg.mlp_act,
+              "memory_rows": tfm.memory_len(cfg),
+              "extras": {k: list(v.shape) for k, v in extras.items()},
+              "padded_vocab": cfg.padded_vocab, "dtype": cfg.compute_dtype,
+              "build_s": build_s, "build_peak_mem_gb": build_peak_gb,
+              "bank_int8_bytes": stats["int8_bytes"],
+              "bank_fp_bytes": stats["fp_bytes"],
+              "verify_banks": prog.verify_banks(),
+              "generate_s": gen_s, "generate_tokens_per_s": 2 * 16 / gen_s,
+              "scheduler_s": sched_s,
+              "scheduler_tokens_per_s": 16 * len(lens) / sched_s,
+              "scheduler_prompt_tokens": sum(lens),
+              "scheduler_decode_steps": drain["drain_decode_steps"],
+              "scheduler_prefill_chunks": drain["drain_prefill_chunks"],
+              "prefill_passes": prefills, "decode_steps": decodes,
+              "fused_per_prefill": per_prefill,
+              "fused_per_decode": per_decode,
+              "flash_per_prefill": {str(r): list(f)
+                                    for r, f in zip(rows, flash)},
+              "peak_mem_gb": peak_gb, "launches": launches, "drain": drain}
+    emit(report)
+    emit(profile_generate(torch, prog, prompts[:1], extras=one))
+    emit(decode_step_costs(torch, prog))
+    return launches
+
+
+def small_memory_model(family: str, seed: int):
+    """A small float32 vlm or whisper model on an R&B stack whose second
+    reuse is transposed (R=1 x T=2), with memories of at least 64 rows, so
+    that every flash call, the non-causal ones with ragged key lengths
+    among them, takes the kernel at ``flash_min_seq=64``: (config, CPU
+    params, a (2, 96) token batch, seeded CPU stub extras)."""
+    from repro_torch.configs import stub_extras
+    from repro_torch.configs.archs import rb
+    from repro_torch.configs.base import (AudioConfig, ModelConfig,
+                                          VisionConfig)
+    from repro_torch.models import transformer as tfm
+    import torch
+    if family == "vlm":
+        cfg = ModelConfig(name="small-vlm", family="vlm", num_layers=10,
+                          d_model=128, num_heads=4, num_kv_heads=2,
+                          d_ff=256, vocab_size=97, group_size=5,
+                          vision=VisionConfig(num_image_tokens=80,
+                                              d_vision=96,
+                                              cross_attn_every=5,
+                                              cross_attn_offset=3),
+                          compute_dtype="float32")
+    else:
+        cfg = ModelConfig(name="small-whisper", family="audio", num_layers=2,
+                          d_model=128, num_heads=4, num_kv_heads=4,
+                          d_ff=256, vocab_size=97, norm="layer",
+                          mlp_act="gelu",
+                          audio=AudioConfig(num_frames=100, d_audio=40,
+                                            encoder_layers=2),
+                          compute_dtype="float32")
+    cfg = rb(cfg, 1, 2, transforms=("identity", "transpose"))
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 96))
+    extras = stub_extras(cfg, 2, torch.Generator().manual_seed(seed))
+    return cfg, tfm.init_model(cfg, seed=seed, device="cpu"), toks, extras
+
+
+def small_memory_checks(torch):
+    """The small float32 vlm and whisper models (``small_memory_model``)
+    with flash from 64 rows.  The card's prefill logits against the CPU
+    program with the MVM kernels' integer arithmetic (``exact_backend``)
+    within ``EXACT_ARITH_TOL``, that program taught at each MVM call by the
+    card's input (``recording_backend``): a per-tensor A8 code that
+    float32 noise moves across a rounding boundary is counted and checked
+    to lie within ``A8_FLIP_BAND`` of it instead of carrying on (untaught,
+    such a flip carried through ten layers reads 0.0185 on the small vlm:
+    PERF.md, slice 11).  The untaught program's gap is reported, its
+    greedy tokens must equal the card's, and one prefill's flash launches
+    must equal the config's count (the causal ones apart)."""
+    import collections
+    from repro_torch import api
+    from repro_torch.core.backend import Backend
+    from repro_torch.kernels import counts
+
+    out = {"phase": "small_memory", "tolerance": EXACT_ARITH_TOL,
+           "a8_flip_band": A8_FLIP_BAND}
+    for family, seed in (("vlm", 13), ("audio", 14)):
+        cfg, params, toks, extras = small_memory_model(family, seed)
+        batch = dict(tokens=toks, **extras)
+        records, flips = [], {}
+        rec = api.Program.build(cfg, params,
+                                execution=recording_backend(
+                                    records, flash_min_seq=64))
+        before = counts.snapshot()
+        lg, _ = rec.prefill(batch, 112)
+        torch.cuda.synchronize()
+        d = counts.difference(before, counts.snapshot())
+        lg = lg.cpu()
+        taught = api.Program.build(
+            cfg, params, device="cpu", execution=exact_backend(
+                flash_min_seq=64, teacher=collections.deque(records),
+                flips=flips))
+        lt, _ = taught.prefill(batch, 112)
+        exact = api.Program.build(cfg, params, device="cpu",
+                                  execution=exact_backend(flash_min_seq=64))
+        lc, _ = exact.prefill(batch, 112)
+        gpu = api.Program.build(cfg, params,
+                                execution=Backend("photonic",
+                                                  flash_min_seq=64))
+        same = bool((gpu.generate(toks, 8, extras=extras).cpu()
+                     == exact.generate(toks, 8, extras=extras)).all())
+        err = rel_l2(lg, lt)
+        want = flash_per_prefill(cfg, toks.shape[1], min_seq=64)
+        out[cfg.name] = {"gpu_vs_taught_exact_rel_l2": err,
+                         "gpu_vs_exact_rel_l2": rel_l2(lg, lc),
+                         "greedy_tokens_equal_exact": same,
+                         "flash_launches": d["flash_attention"],
+                         "flash_launches_causal": d["flash_attention_causal"],
+                         "flash_expected": list(want), **flips}
+        if not (err <= EXACT_ARITH_TOL and same
+                and flips["calls"] == len(records)
+                and bool(torch.isfinite(lg).all())
+                and (d["flash_attention"], d["flash_attention_causal"])
+                == want):
+            emit(out)
+            raise AssertionError(f"small {family} model GPU vs CPU: {out}")
+    emit(out)
+
+
+# -------------------------------------------------------------------------
 def summary(name, rows, launches, at, source, replaces):
     """One kernel's entry: errors are maxima over every case (``worst_at``
     names the case of the largest rel-L2); times are those of case ``at``."""
@@ -2034,6 +2446,11 @@ def main() -> int:
     timed("small_ssm_checks", small_ssm_checks, torch)
     timed("serve_mla", serve_mla, torch, smi)
     timed("small_mla_check", small_mla_check, torch)
+    timed("serve_vlm", serve_memory, torch, smi, "llama-3.2-vision-11b",
+          VLM_FUSED_PER_PASS, 11)
+    timed("serve_audio", serve_memory, torch, smi, "whisper-medium",
+          AUDIO_FUSED_PER_PASS, 12)
+    timed("small_memory_checks", small_memory_checks, torch)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
 
     split = "src/repro_torch/csrc/photonic_mvm_split.cu"

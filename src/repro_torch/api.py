@@ -8,10 +8,12 @@
 
 ``build`` resolves the backend, moves the params to the device, casts them
 to the compute dtype and — photonic — programs every matmul weight into a
-``PreparedTensor`` bank once.  Stacks with SSM mixers prefill
-monolithically (their state integrates every token): ``prefill_chunk`` and
-``prefill_chunked`` raise for them.  Caches are updated in place and
-returned.
+``PreparedTensor`` bank once.  Stacks with SSM or cross-attention mixers
+prefill monolithically (an SSM state integrates every token; a memory
+stream is projected once per request): ``prefill_chunk`` and
+``prefill_chunked`` raise for them.  A vlm or audio model's prefill takes
+its modality extras in the batch (``image_embeds`` / ``audio_embeds``).
+Caches are updated in place and returned.
 
 Decode steps are the compiled part, as in the reference: a
 ``graphs.DecodeCell`` captures the decode step into a CUDA graph and
@@ -89,6 +91,17 @@ def _as_tokens(tokens, device) -> torch.Tensor:
         tokens, torch.Tensor) else tokens).to(device, torch.long)
 
 
+def _as_batch(batch, device) -> dict:
+    """A forward batch on ``device``: the tokens as int64, any modality
+    extras (arrays or tensors) as tensors."""
+    out = {"tokens": _as_tokens(batch["tokens"], device)}
+    for k, v in batch.items():
+        if k != "tokens":
+            out[k] = (v if isinstance(v, torch.Tensor)
+                      else torch.as_tensor(np.asarray(v))).to(device)
+    return out
+
+
 def _device_of(params) -> torch.device:
     return params["embed"]["table"].device
 
@@ -101,17 +114,16 @@ def _no_mesh(act_pspec) -> None:
 # =========================================================================
 # functional steps over raw params (what the engine shims call)
 # =========================================================================
-def _prefill(cfg: ModelConfig, params, tokens, cache_len: int, execution):
-    """The prefill forward into fresh caches on the params' device: (logits
-    (B, S, V), caches)."""
-    dev = _device_of(params)
-    tokens = _as_tokens(tokens, dev)
-    B, S = tokens.shape
+def _prefill(cfg: ModelConfig, params, batch, cache_len: int, execution):
+    """The prefill forward of ``batch`` (tokens plus any modality extras)
+    into fresh caches on the params' device: (logits (B, S, V), caches)."""
+    batch = _as_batch(batch, _device_of(params))
+    B, S = batch["tokens"].shape
     caches = tfm.init_caches(cfg, B, cache_len,
-                             dtype=torch_dtype(cfg.compute_dtype), device=dev)
-    logits, caches, _ = tfm.forward(params, cfg, {"tokens": tokens},
-                                    mode="prefill", caches=caches,
-                                    execution=execution)
+                             dtype=torch_dtype(cfg.compute_dtype),
+                             device=batch["tokens"].device)
+    logits, caches, _ = tfm.forward(params, cfg, batch, mode="prefill",
+                                    caches=caches, execution=execution)
     if cfg.ssm is not None and S < cfg.ssm.conv_width - 1:
         caches = _short_conv(caches, S)
     return logits, caches
@@ -126,8 +138,7 @@ def prefill_step_fn(cfg: ModelConfig, cache_len: int, *, act_pspec=None,
 
     @torch.no_grad()
     def fn(params, batch):
-        logits, caches = _prefill(cfg, params, batch["tokens"], cache_len,
-                                  execution)
+        logits, caches = _prefill(cfg, params, batch, cache_len, execution)
         return logits[:, -1, :], caches
     return fn
 
@@ -216,12 +227,14 @@ class Program:
 
     @torch.no_grad()
     def prefill(self, batch, cache_len: int, last=None):
-        """Run prompts into fresh caches.  ``last`` (B,) picks each row's
-        last-prompt-token logits (default: the final column).  The lm head
-        runs over every position first, as in the reference, so its A8
-        scale covers all prefill rows.  Returns (logits (B, V), caches)."""
-        logits, caches = _prefill(self.cfg, self.bank, batch["tokens"],
-                                  cache_len, self.backend)
+        """Run prompts (``batch["tokens"]``, plus the modality extras of a
+        vlm or audio model) into fresh caches.  ``last`` (B,) picks each
+        row's last-prompt-token logits (default: the final column).  The lm
+        head runs over every position first, as in the reference, so its
+        A8 scale covers all prefill rows.  Returns (logits (B, V),
+        caches)."""
+        logits, caches = _prefill(self.cfg, self.bank, batch, cache_len,
+                                  self.backend)
         B, S = logits.shape[:2]
         if last is None:
             last = torch.full((B,), S - 1, dtype=torch.long)
@@ -229,9 +242,10 @@ class Program:
         return logits[torch.arange(B, device=self.device), last], caches
 
     def _refuse_chunks(self, what: str) -> None:
-        if tfm.has_ssm(self.cfg):
+        if not tfm.chunkable(self.cfg):
             raise ValueError(f"{what}: chunked prefill supports attention "
-                             f"mixers only; {self.cfg.name} has SSM layers")
+                             f"mixers only; {self.cfg.name} has SSM or "
+                             f"cross-attention layers")
 
     def empty_caches(self, B: int, cache_len: int):
         """Zero capacity caches for the chunked-prefill entry points."""
@@ -314,14 +328,18 @@ class Program:
         return sample(logits, self.cfg.vocab_size, generator,
                       temperature), caches
 
-    def generate(self, prompt, max_new: int, *, temperature: float = 0.0,
-                 seed: int = 0):
-        """Autoregressive loop: prompt (B, S) -> (B, S + max_new) tokens.
-        The decode steps run through one decode cell (every row at
-        position S + i), released on return."""
+    def generate(self, prompt, max_new: int, *, extras=None,
+                 temperature: float = 0.0, seed: int = 0):
+        """Autoregressive loop: prompt (B, S) -> (B, S + max_new) tokens;
+        ``extras`` the modality inputs of a vlm or audio model (see
+        ``transformer.forward``).  The decode steps run through one decode
+        cell (every row at position S + i), released on return."""
         prompt = self._tokens(prompt)
         B, S = prompt.shape
-        logits, caches = self.prefill({"tokens": prompt}, S + max_new)
+        batch = {"tokens": prompt}
+        if extras:
+            batch.update(extras)
+        logits, caches = self.prefill(batch, S + max_new)
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)

@@ -15,8 +15,10 @@ final state and conv tail, which :func:`_write_prefill` copies into the
 [r, t] slice at offset 0 (the reference stacks them as the new cache); in
 decode mode the block returns a one-token delta (attention) or a
 full-slice update (SSM) that :func:`_delta_update` writes into the carried
-buffer at ``decode_pos`` (a per-row scatter for a (B,) position vector).
-The cache object passed in is the one returned.
+buffer at ``decode_pos`` (a per-row scatter for a (B,) position vector),
+or None for a leaf it only read (cross-attention K/V, written once by the
+prefill), which stays untouched.  The cache object passed in is the one
+returned.
 """
 from __future__ import annotations
 
@@ -169,6 +171,8 @@ def _write_prefill(view, new) -> None:
 
 
 def _write_deltas(cache, delta, r, t, pos):
+    if delta is None:                   # a read-only leaf (cross K/V)
+        return
     if isinstance(cache, dict):
         for k in cache:
             _write_deltas(cache[k], delta[k], r, t, pos)

@@ -12,7 +12,9 @@ a side stream; every later step copies its inputs into the static buffers
 and replays the graph.  The graph holds the raw addresses of the cache
 leaves, the banks and the kernels' shared workspaces, so a cell must not
 outlive its caches, and replays and eager calls share one stream (stream
-order keeps the split-K workspaces consistent).  Sampling runs after the
+order keeps the split-K workspaces consistent).  A vlm or audio model's
+cross-attention K/V, written by its prefill, are read by the step and
+never written (``core/sharing.py`` skips them).  Sampling runs after the
 replay, outside the graph, with the caller's ``torch.Generator``.
 
 A replay runs no kernel wrapper, so it counts no launch: the capture's

@@ -27,6 +27,7 @@ COUNTERS = {
     "blend_shuffle": (_blend, "launches"),
     "flash_attention": (_fa, "launches"),
     "flash_attention_mma": (_fa, "launches_mma"),
+    "flash_attention_causal": (_fa, "launches_causal"),
     "ssd_chunk": (_ssd, "launches"),
 }
 

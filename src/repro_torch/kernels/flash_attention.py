@@ -31,9 +31,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODE = {"simt": 0, "mma": 1}
 
 # kernel launches on the CUDA path (the plain CPU path does not count):
-# every launch, and those of the tensor-core variant
+# every launch, those of the tensor-core variant and the causal ones
 launches = 0
 launches_mma = 0
+launches_causal = 0
 
 
 def flash_variant(dtype, hd: int, hd_v: int) -> str:
@@ -69,7 +70,7 @@ def _library():
 
 
 def _launch(q, k, v, causal, q_offset, kv_len):
-    global launches, launches_mma
+    global launches, launches_mma, launches_causal
     BHq, Sq, hd = q.shape
     BHkv, L, hdk = k.shape
     hdv = v.shape[-1]
@@ -98,6 +99,7 @@ def _launch(q, k, v, causal, q_offset, kv_len):
     _build.check(lib, "flash_attention_error_string", rc, "flash_attention")
     launches += 1
     launches_mma += variant == "mma"
+    launches_causal += bool(causal)
     return out
 
 

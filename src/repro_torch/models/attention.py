@@ -1,10 +1,12 @@
-"""Attention: GQA/MHA with RoPE and a KV cache, and MLA, multi-head
-latent attention (DeepSeek-V2) (port of ``repro.models.attention`` but
-cross-attention).
+"""Attention: GQA/MHA with RoPE and a KV cache, MLA, multi-head latent
+attention (DeepSeek-V2), and cross-attention over a memory stream (port of
+``repro.models.attention``).
 
 Cache layouts per logical layer (stacked [R, T, ...] by the PRM runner):
   gqa: ``{"k": (B, L, KV, hd), "v": (B, L, KV, hd)}``;
-  mla: ``{"ckv": (B, L, kv_lora), "kr": (B, L, rope_dim)}`` (compressed).
+  mla: ``{"ckv": (B, L, kv_lora), "kr": (B, L, rope_dim)}`` (compressed);
+  cross: ``{"ck": (B, M, KV, hd), "cv": (B, M, KV, hd)}``, the memory's
+  K/V, written once by the prefill and only read by decode steps.
 Decode takes ``pos`` as a scalar (aligned batch) or a (B,) tensor
 (continuous batching, one position per slot).  Softmax is always fp32.
 
@@ -13,7 +15,9 @@ view they are given IN PLACE (the reference returns an updated copy);
 decode reads the cache and returns the one-token delta for the stack
 runner to write.  Decode attention is a masked einsum, as in the reference
 (no kernel); MLA decodes in the absorbed form, attending in the latent
-space.  Cross-attention belongs to a later slice.
+space.  Cross-attention has no RoPE and no mask: a prefill of 512 rows or
+more runs flash with ``causal=False`` over the M memory rows, a decode
+row the einsum.
 """
 from __future__ import annotations
 
@@ -359,3 +363,38 @@ def init_mla_cache(cfg: ModelConfig, batch: int, length: int, dtype,
                                dtype=dtype, device=device),
             "kr": torch.zeros(lead + (batch, length, m.qk_rope_dim),
                               dtype=dtype, device=device)}
+
+
+# =========================================================================
+# cross-attention (VLM image layers, enc-dec decoder)
+# =========================================================================
+def init_cross_attn(cfg: ModelConfig, generator, device, lead=()):
+    """The reference's leaves, with the memory at width d_model (its only
+    use: ``vision_proj`` / ``audio_proj`` project the memory to it)."""
+    return init_gqa(cfg, generator, device, lead=lead)
+
+
+def cross_attn_memory(p, cfg: ModelConfig, memory, backend=None):
+    """K/V of the (frozen per request) memory stream (B, M, d_memory).
+    ``wk`` / ``wv`` run untransposed on every reuse, as in the
+    reference."""
+    bk = resolve_backend(backend)
+    B, M, _ = memory.shape
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    k = bk.dot(memory, cast(p["wk"], memory.dtype),
+               transpose=False).reshape(B, M, KV, hd)
+    v = bk.dot(memory, cast(p["wv"], memory.dtype),
+               transpose=False).reshape(B, M, KV, hd)
+    return {"ck": k, "cv": v}
+
+
+def cross_attn_forward(p, cfg: ModelConfig, x, kv, *, transpose=False,
+                       backend=None):
+    """x: (B, S, d); kv: precomputed {"ck", "cv"} (B, M, KV, hd)."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q = _maybe_t(x, cast(p["wq"], x.dtype), transpose,
+                 backend).reshape(B, S, H, hd)
+    out = resolve_backend(backend).attention(q, kv["ck"], kv["cv"],
+                                             causal=False)
+    return _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)

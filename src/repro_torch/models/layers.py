@@ -1,5 +1,5 @@
-"""Primitive layers: norms, RoPE, the SwiGLU MLP, embeddings (port of
-``repro.models.layers``).
+"""Primitive layers: RMS and layer norms, RoPE, the SwiGLU and gelu MLPs,
+embeddings and the linear adapters (port of ``repro.models.layers``).
 
 Parameters are nested dicts of tensors with the reference's keys.  Weight
 matmuls route through the execution backend (``core/backend.py``), and a
@@ -34,16 +34,25 @@ def dense_init(shape, generator: torch.Generator, device,
 
 
 # ----------------------------------------------------------------- norms
-def init_norm(d: int, device, lead=()):
-    return {"scale": torch.ones(tuple(lead) + (d,), device=device)}
+def init_norm(d: int, device, lead=(), kind: str = "rms"):
+    shape = tuple(lead) + (d,)
+    p = {"scale": torch.ones(shape, device=device)}
+    if kind != "rms":
+        p["bias"] = torch.zeros(shape, device=device)
+    return p
 
 
 def apply_norm(p, x, kind: str = "rms", eps: float = 1e-5):
+    """RMSNorm, or (``kind="layer"``) layer norm with the population
+    variance; float32 statistics either way."""
     xf = x.to(torch.float32)
-    if kind != "rms":
-        raise NotImplementedError("layer norm belongs to a later slice")
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * p["scale"]
+    if kind == "rms":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * p["scale"]
+    else:
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        y = (xf - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return y.to(x.dtype)
 
 
@@ -73,22 +82,46 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 
 # ------------------------------------------------------------------- MLP
-def init_mlp(d_model: int, d_ff: int, generator, device, lead=()):
+def init_mlp(d_model: int, d_ff: int, generator, device, lead=(),
+             act: str = "swiglu"):
+    if act != "swiglu":
+        return {"w_up": dense_init((d_model, d_ff), generator, device,
+                                   lead=lead),
+                "w_down": dense_init((d_ff, d_model), generator, device,
+                                     lead=lead)}
     return {"w_gate": dense_init((d_model, d_ff), generator, device, lead=lead),
             "w_up": dense_init((d_model, d_ff), generator, device, lead=lead),
             "w_down": dense_init((d_ff, d_model), generator, device,
                                  lead=lead)}
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation) in the reference's
+    arithmetic: every op and constant in x's dtype, which is how XLA
+    evaluates it for bf16 (torch's ``F.gelu(approximate="tanh")`` rounds
+    once and lands one bf16 step off in ~43% of entries)."""
+    def c(v):                   # a device fill: no host-to-device copy
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+    inner = c(0.7978845608028654) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
 def apply_mlp(p, x, act: str = "swiglu", transpose: bool = False,
               backend=None):
-    """SwiGLU FFN with OBU-transpose support: the transposed reuse swaps
-    the gate and down projections (``W_down.T`` is a valid (d, ff) up-proj
-    and vice versa) and consumes ``w_up`` unchanged.  The gate's silu rides
-    the fused MVM kernel's epilogue on the photonic backend."""
-    if act != "swiglu":
-        raise NotImplementedError("the gelu MLP belongs to a later slice")
+    """SwiGLU or gelu FFN with OBU-transpose support: the transposed reuse
+    swaps the up- and down-projections (``W_down.T`` is a valid (d, ff)
+    up-proj and vice versa); SwiGLU swaps gate and down and consumes
+    ``w_up`` unchanged.  The gate's silu rides the fused MVM kernel's
+    epilogue on the photonic backend; gelu stays a torch op after the MVM,
+    as in the reference (fusing its tanh chain would re-round it)."""
     bk = resolve_backend(backend)
+    if act != "swiglu":
+        wu, wd = p["w_up"], p["w_down"]
+        if transpose:
+            return bk.dot(gelu(bk.dot(x, wd, transpose=True)), wu,
+                          transpose=True)
+        return bk.dot(gelu(bk.dot(x, wu, transpose=False)), wd,
+                      transpose=False)
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
     if transpose:
         g = bk.dot(x, wd, transpose=True, activation="silu")  # (ff,d).T
@@ -116,3 +149,12 @@ def init_unembed(d_model: int, vocab: int, generator, device):
 def unembed(p, x, backend=None):
     return resolve_backend(backend).dot(x, cast(p["w"], x.dtype),
                                         transpose=False)
+
+
+def init_linear(d_in: int, d_out: int, generator, device):
+    return {"w": dense_init((d_in, d_out), generator, device)}
+
+
+def apply_linear(p, x, transpose: bool = False, backend=None):
+    return resolve_backend(backend).dot(x, cast(p["w"], x.dtype),
+                                        transpose=transpose)

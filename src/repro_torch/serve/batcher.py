@@ -1,9 +1,9 @@
 """Wave-scheduling request batcher (port of ``repro.serve.batcher``).
 
 Groups queued requests into fixed-size *waves* (prompts left-padded to the
-wave maximum), runs one ``Program.generate`` per wave (one prefill, then a
-shared decode loop through its decode cell) and tracks padding
-efficiency.  Requests never join a running wave: this is the simple
+wave maximum; only requests with equal modality extras share a wave), runs
+one ``Program.generate`` per wave (one prefill, then a shared decode loop
+through its decode cell) and tracks padding efficiency.  Requests never join a running wave: this is the simple
 fallback behind the ``Scheduler`` protocol; ``serve.scheduler.
 ContinuousScheduler`` is the production path.
 """
@@ -13,6 +13,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import api
 from repro_torch.configs.base import ModelConfig
@@ -37,12 +38,24 @@ class Completion:
     finish_reason: str = "length"  # length | eos
 
 
+def _equal(a, b) -> bool:
+    """Equal shapes and values; two tensors compare where they lie (no
+    copy of a card's embeddings to the host)."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return (a.shape == b.shape and a.device == b.device
+                and bool(torch.equal(a, b)))
+    as_np = [x.cpu().numpy() if isinstance(x, torch.Tensor)
+             else np.asarray(x) for x in (a, b)]
+    return np.array_equal(*as_np)
+
+
 class WaveBatcher:
     """Admit requests, emit completions wave by wave.
 
     Takes a built ``api.Program`` or the (params, cfg) pair, built on
-    ``device`` (default CUDA).  Modality ``extras`` raise: the port has no
-    vlm or audio family yet.  The reference's ``telemetry=`` lifecycle
+    ``device`` (default CUDA).  A wave's requests share their modality
+    ``extras`` (one batched prefill), passed to ``generate`` as the first
+    request's.  The reference's ``telemetry=`` lifecycle
     hooks (latency histograms, wave spans) come with the port's serving
     telemetry, a later slice; ``stats`` counts the same work as the
     reference's."""
@@ -66,22 +79,19 @@ class WaveBatcher:
         self.stats = WaveStats()
 
     def submit(self, req: Request) -> None:
-        if req.extras is not None:
-            raise NotImplementedError("modality extras are a later slice")
         self.queue.append(req)
 
     @staticmethod
     def _extras_match(a: Optional[dict], b: Optional[dict]) -> bool:
-        """Wave-compatible extras: same keys, identical arrays (a wave runs
-        ONE batched prefill)."""
+        """Wave-compatible extras: same keys, identical arrays or tensors
+        (a wave runs ONE batched prefill)."""
         if (a is None) != (b is None):
             return False
         if a is None:
             return True
         if set(a) != set(b):
             return False
-        return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
-                   for k in a)
+        return all(_equal(a[k], b[k]) for k in a)
 
     def _form_wave(self) -> list[Request]:
         # matching extras only, then longest prompt first within the queue
@@ -105,6 +115,7 @@ class WaveBatcher:
             # aligned decode then starts all rows together)
             prompts[i, max_prompt - len(r.prompt):] = r.prompt
         out = self.program.generate(prompts, max_new,
+                                    extras=wave[0].extras,
                                     temperature=self.temperature)
         out = out.cpu().numpy().astype(np.int32)
         comps = []

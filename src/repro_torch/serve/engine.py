@@ -60,13 +60,12 @@ def sample(logits, vocab_size: int, generator=None,
 def generate(params, cfg: ModelConfig, prompt, max_new: int, *,
              extras=None, temperature: float = 0.0, seed: int = 0,
              execution=None, mesh=None, device=None):
-    """Host-side autoregressive loop: prompt (B, S) -> (B, S + max_new).
-    Builds the Program (backend, prepared banks) on ``device`` (default
+    """Host-side autoregressive loop: prompt (B, S) -> (B, S + max_new),
+    with the modality ``extras`` of a vlm or audio model.  Builds the
+    Program (backend, prepared banks) on ``device`` (default
     CUDA) per call, as the reference does."""
     if mesh is not None:
         raise NotImplementedError("mesh: the port has no mesh yet")
-    if extras:
-        raise NotImplementedError("modality extras are a later slice")
     prog = api.Program.build(cfg, params, execution=execution, device=device)
-    return prog.generate(prompt, max_new, temperature=temperature,
-                         seed=seed)
+    return prog.generate(prompt, max_new, extras=extras,
+                         temperature=temperature, seed=seed)

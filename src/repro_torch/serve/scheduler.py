@@ -141,11 +141,13 @@ class ContinuousScheduler:
         # Right padding is causally invisible to attention (masked by the
         # slot position) but NOT to recurrent state: SSM ``h`` and the conv
         # tail integrate every input token.  Stacks with SSM layers prefill
-        # at the exact prompt length, and chunked admission is for
-        # attention-only stacks (``prefill_chunk`` is ignored otherwise).
+        # at the exact prompt length.  Chunked admission is for stacks of
+        # self-attention only (``prefill_chunk`` is ignored otherwise: a
+        # cross-attention memory is not chunk-resumable either), and never
+        # for a request with modality extras.
         self._exact_prefill = tfm.has_ssm(cfg)
         self.prefill_chunk = prefill_chunk
-        self._chunkable = prefill_chunk is not None and not self._exact_prefill
+        self._chunkable = prefill_chunk is not None and tfm.chunkable(cfg)
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         # slot -> in-progress chunked prefill (staging cache at pool
@@ -170,8 +172,6 @@ class ContinuousScheduler:
                 f"exceeds slot budget {self.pool.max_len}")
         if req.max_new < 1:
             raise ValueError("max_new must be >= 1")
-        if req.extras:
-            raise NotImplementedError("modality extras are a later slice")
         self.queue.append(req)
 
     def drain(self) -> list[Completion]:
@@ -211,7 +211,7 @@ class ContinuousScheduler:
 
     def _admit_one(self, req: Request) -> Optional[Completion]:
         plen = len(req.prompt)
-        if self._chunkable and plen > self.prefill_chunk:
+        if self._chunkable and not req.extras and plen > self.prefill_chunk:
             self._start_chunked(req)
             return None
         bucket = self._bucket(plen)
@@ -224,8 +224,10 @@ class ContinuousScheduler:
             self.residency.on_prefill(bucket)
         toks = np.full((1, bucket), self.pad_id, np.int32)
         toks[0, :plen] = req.prompt
-        logits, caches = self.program.prefill({"tokens": toks}, bucket,
-                                              last=[plen - 1])
+        batch = {"tokens": toks}
+        if req.extras:
+            batch.update(req.extras)
+        logits, caches = self.program.prefill(batch, bucket, last=[plen - 1])
         self.pool.write_prefill(slot, caches, plen)
         tok = self._sample(logits)
         self._cur[slot, 0] = tok

@@ -16,6 +16,7 @@ rounding).  jamba on photonic is held layer by layer instead, in
 ``tests/test_torch_ssm_jamba.py``: its whole-model logits move by more
 than 1e-3 under a one-ulp input change in the reference itself.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -288,11 +289,16 @@ def test_torch_init_matches_reference_tree_and_scales():
 
 
 def test_check_ported_admits_ssm_and_hybrid_only():
-    """The SSM and hybrid families are admitted, as is MLA (since its
-    slice) at full width; the vlm and audio families still raise."""
+    """The SSM and hybrid families are admitted, as are MLA (since its
+    slice) and the vlm and audio families (since slice 11) at full width;
+    an SSM family without its SSM config, or an SSM config on another
+    family, still raises."""
     from repro_torch.configs import get_arch
-    for name in ("mamba2-780m", "jamba-v0.1-52b", "deepseek-v2-lite-16b"):
+    for name in ("mamba2-780m", "jamba-v0.1-52b", "deepseek-v2-lite-16b",
+                 "llama-3.2-vision-11b", "whisper-medium"):
         t_tfm.check_ported(get_arch(name, reuse=True))
-    for name in ("llama-3.2-vision-11b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="vlm, audio"):
-            t_tfm.check_ported(get_arch(name))
+    ssm = get_arch("mamba2-780m").ssm
+    for cfg in (dataclasses.replace(get_arch("mamba2-780m"), ssm=None),
+                dataclasses.replace(get_arch("whisper-medium"), ssm=ssm)):
+        with pytest.raises(NotImplementedError, match="not a buildable"):
+            t_tfm.check_ported(cfg)

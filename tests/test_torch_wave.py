@@ -1,8 +1,10 @@
 """The port's wave batcher, ``Scheduler`` protocol and engine shims against
 the JAX reference's on the same weights (float32 dense and MoE smoke
 configs): completions and greedy tokens identical, ``WaveStats`` equal
-field for field, and the arguments the port has no counterpart for
-(modality extras, a mesh, ``act_pspec``, ``legacy_decode``) refused.
+field for field, and the arguments the port has no counterpart for (a
+mesh, ``act_pspec``, ``legacy_decode``) refused.  Modality extras are
+taken since slice 11 (``tests/test_torch_vlm.py``,
+``tests/test_torch_audio.py``).
 
 The MoE waves run on xla.  On photonic, one of these waves parts from the
 reference at its third generated token through the reference's own
@@ -89,14 +91,20 @@ def test_wave_batcher_token_identical_to_reference(name, execution):
 
 
 def test_wave_batcher_builds_from_params_and_refuses_extras():
+    """Built from (params, cfg) on the CPU; a missing cfg refuses.  Since
+    slice 11 extras are no longer refused: they queue, and waves group by
+    ``_extras_match`` (arrays or tensors, compared by value)."""
     _, tc, _, tp = _model("minitron-4b")
     tw = TWave(tp, tc, wave_size=4, device="cpu")
     assert tw.program.device == torch.device("cpu")
     with pytest.raises(ValueError):
         TWave(tp)
-    with pytest.raises(NotImplementedError):
-        tw.submit(TRequest(rid=0, prompt=np.arange(3, dtype=np.int32),
-                           max_new=2, extras={"image": np.zeros(4)}))
+    tw.submit(TRequest(rid=0, prompt=np.arange(3, dtype=np.int32),
+                       max_new=2, extras={"image": np.zeros(4)}))
+    assert len(tw.queue) == 1
+    assert TWave._extras_match({"a": torch.ones(2)}, {"a": np.ones(2)})
+    assert not TWave._extras_match({"a": torch.ones(2)},
+                                   {"a": torch.zeros(2)})
     assert TWave._extras_match(None, None)
     assert not TWave._extras_match({"a": np.ones(2)}, None)
     assert TWave._extras_match({"a": np.ones(2)}, {"a": np.ones(2)})
@@ -142,8 +150,6 @@ def test_engine_cast_params_and_refusals():
     prompt = np.zeros((1, 4), np.int32)
     with pytest.raises(NotImplementedError):
         t_engine.generate(tp, tc, prompt, 2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_engine.generate(tp, tc, prompt, 2, extras={"x": 1}, device="cpu")
     with pytest.raises(NotImplementedError):
         t_engine.prefill_step(tp, tc, {"tokens": prompt}, 8,
                               act_pspec=object())

@@ -139,7 +139,7 @@ def flash_ab(torch, cs, fa, libs, timer, reps, emit):
     gen = torch.Generator(device="cuda").manual_seed(2)
     ratios = []
     for (label, B, Sq, L, off, kv_len, H, KV, hd, hdv, dtype,
-         garbage) in cs.flash_cases():
+         garbage, causal) in cs.flash_cases():
         if max(hd, hdv) > 128:
             continue
         dt = getattr(torch, dtype)
@@ -150,7 +150,7 @@ def flash_ab(torch, cs, fa, libs, timer, reps, emit):
         if garbage:
             cs.poison_past(k, kv_len)
             cs.poison_past(v, kv_len)
-        kw = dict(causal=True, q_offset=off, kv_len=kv_len)
+        kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
         times, ratio = in_turns(torch, timer, use,
                                 lambda: fa.flash_attention(q, k, v, **kw),
                                 reps)
