@@ -116,6 +116,21 @@ the script exits non-zero without printing the final ``ok`` line):
    card logits are held to the CPU program with the kernels' arithmetic,
    taught at each MVM call by the card's input (``exact_backend``,
    ``recording_backend``);
+3l. since slice 12 the serving launcher (``serve_launcher``), right after
+   the fused path: ``python -m repro_torch.launch.serve`` (through its
+   ``build_program`` / ``serve``) on minitron-4b R&B at full width and
+   depth, photonic, bf16, the continuous scheduler over the launcher's
+   own trace (12 requests of 256-1024 tokens, up to 32 new) with
+   ``--stats``, ``--trace-out`` and ``--metrics-out``: launch counts and
+   the default metrics registry zeroed just before, both fused regimes
+   and tensor-core flash required in the window, the snapshot validated
+   against the port's schema, TTFT / TPOT sample counts, one trace row per
+   request, ``program.steps{kind=decode_sample}`` equal to the decode
+   steps, one decode-graph capture, and the tokens equal to a drain of
+   the same Program with telemetry off; then 4 requests each through the
+   wave batcher, the engine and the fault model (noise, an array budget
+   of half the Program's tiles so the hybrid mapping streams banks,
+   calibration every 4 steps: the split MVMs, no fused launch);
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
@@ -156,6 +171,7 @@ import dataclasses
 import functools
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1080,6 +1096,233 @@ def serve(torch, gpu):
     emit(result)
     emit(profile_generate(torch, prog, prompts[:1]))
     emit(decode_step_costs(torch, prog))
+    return launches
+
+
+# -------------------------------------------------------------------------
+# phase 3l: the serving launcher with its telemetry (slice 12)
+# -------------------------------------------------------------------------
+LAUNCH_ARGS = ["--arch", "minitron-4b", "--reuse", "--execution", "photonic",
+               "--capacity", "4", "--max-prompt", "1024"]
+LAUNCH_MAIN = ["--requests", "12", "--new-tokens", "32"]
+LAUNCH_NOISE = "gain=0.01,ct=0.002,dac=0.25,drift=0.05"
+FLASH_MIN_SEQ = 512          # Backend.attention's flash threshold
+
+
+def percentiles(snap) -> dict:
+    """p50 / p95 / p99 of the tracker's four latency histograms (ms)."""
+    return {k: {q: snap["histograms"][f"serve.{k}"][q]
+                for q in ("p50", "p95", "p99")}
+            for k in ("ttft_ms", "tpot_ms", "e2e_ms", "queue_ms")}
+
+
+def launcher_run(torch, launch, prog, argv, obs=None):
+    """``launch.serve`` of ``argv`` on the built Program, timed to the
+    device's end: (completions, wall seconds)."""
+    args = launch.parse_args(argv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = launch.serve(prog, args, obs)
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0
+
+
+def check_launcher_trace(path, rids) -> dict:
+    """One named row per rid holding its queue, prefill and decode spans
+    and its finish instant; ``decode_step`` spans and the
+    ``active_slots`` counter track on row 0."""
+    evs = json.loads(Path(path).read_text())["traceEvents"]
+    rows = {e["tid"]: e["args"]["name"] for e in evs if e["ph"] == "M"}
+    if rows != {rid: f"req {rid}" for rid in rids}:
+        raise AssertionError(f"trace rows {rows}")
+    phases = ("queue", "prefill", "decode", "finish")
+    for rid in rids:      # row 0 also holds the scheduler's step spans
+        got = sorted(e["name"] for e in evs if e["tid"] == rid
+                     and e["ph"] in ("X", "i") and e["name"] in phases)
+        if got != sorted(phases):
+            raise AssertionError(f"trace row of request {rid}: {got}")
+    steps = sum(e["name"] == "decode_step" and e["ph"] == "X" for e in evs)
+    track = sum(e["name"] == "active_slots" and e["ph"] == "C" for e in evs)
+    if not (steps and track):
+        raise AssertionError(f"{steps} decode_step spans, {track} "
+                             f"active_slots samples")
+    return {"events": len(evs), "decode_step_spans": steps,
+            "active_slots_samples": track}
+
+
+def serve_launcher(torch, gpu):
+    """``repro_torch.launch.serve`` on minitron-4b R&B at full width and
+    depth: the continuous scheduler over 12 requests of 256-1024 tokens
+    with --stats, --trace-out and --metrics-out (the counted window), the
+    same Program and trace drained again with telemetry off (token for
+    token equal), then 4 requests each through the wave batcher, the
+    engine and the fault model (noise, bank streaming under an array
+    budget below the Program's tiles, calibration)."""
+    import tempfile
+    from repro_torch import graphs
+    from repro_torch.kernels import counts
+    from repro_torch.launch import serve as launch
+    from repro_torch.obs import check_schema
+    from repro_torch.obs import metrics as metrics_lib
+
+    out = Path(tempfile.mkdtemp(prefix="serve_launcher-",
+                                dir=ROOT / "build"))
+    trace_path, metrics_path = out / "trace.json", out / "metrics.json"
+    telemetry = ["--stats", "--stats-every", "8", "--trace-out",
+                 str(trace_path), "--metrics-out", str(metrics_path)]
+    main_argv = LAUNCH_ARGS + LAUNCH_MAIN + telemetry
+    metrics_lib.reset_default_registry()
+    args = launch.parse_args(main_argv)
+    t0 = time.perf_counter()
+    cfg, prog = launch.build_program(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tiles = prog.bank_stats()["mrr_tiles_128"]
+    reqs = launch._make_trace(cfg, 12, 1024, 32, device=prog.device)
+    buckets = [-(-len(r.prompt) // 16) * 16 for r in reqs]
+    if not (min(buckets) < FLASH_MIN_SEQ <= max(buckets)):
+        raise AssertionError(f"prefills not on both sides of flash: "
+                             f"{buckets}")
+
+    # -- the counted window: telemetry on
+    obs = launch.make_obs(cfg, args)
+    captures = graphs.CAPTURE_COUNTS["decode"]
+    counts.reset()
+    done, on_s = launcher_run(torch, launch, prog, main_argv, obs)
+    launches = counts.snapshot()
+    captured = graphs.CAPTURE_COUNTS["decode"] - captures
+    snap = json.loads(metrics_path.read_text())
+
+    got = [(c.rid, len(c.tokens), c.finish_reason) for c in done]
+    want = [(r.rid, len(r.prompt) + r.max_new, "length") for r in reqs]
+    if got != want:
+        raise AssertionError(f"completions {got} != {want}")
+    if check_schema.main([str(metrics_path),
+                          str(check_schema.SCHEMA_PATH)]) != 0:
+        raise AssertionError("the metrics snapshot fails the schema")
+    hist, ctr = snap["histograms"], snap["counters"]
+    tpot_want = sum(r.max_new - 1 for r in reqs)
+    if (hist["serve.ttft_ms"]["count"], hist["serve.tpot_ms"]["count"]) != (
+            12, tpot_want):
+        raise AssertionError(f"ttft / tpot samples "
+                             f"{hist['serve.ttft_ms']['count']} / "
+                             f"{hist['serve.tpot_ms']['count']}, want 12 / "
+                             f"{tpot_want}")
+    steps = ctr['program.steps{kind="decode_sample"}']
+    if not (steps == ctr["serve.decode_steps"] > 0 and captured == 1):
+        raise AssertionError(f"program.steps {steps} vs decode steps "
+                             f"{ctr['serve.decode_steps']}, {captured} "
+                             f"captures")
+    gemv, fused = launches["photonic_mvm_fused_gemv"], \
+        launches["photonic_mvm_fused"]
+    flash = launches["flash_attention"]
+    if not (0 < gemv < fused and flash > 0
+            and launches["flash_attention_mma"] == flash):
+        raise AssertionError(f"kernels not on the launcher's path (both "
+                             f"fused regimes, the tensor-core flash): "
+                             f"{launches}")
+    for name in ("photonic_mvm_fused", "flash_attention"):
+        key = f'kernel.launches{{kernel="{name}"}}'
+        if ctr[key] != launches[name]:
+            raise AssertionError(f"{key} {ctr[key]} != {launches[name]}")
+    trace = check_launcher_trace(trace_path, [r.rid for r in reqs])
+
+    # -- the same Program and trace with telemetry off, on and off again
+    # (not counted): equal tokens, and drain walls in turns, since the
+    # window's drain also pays the Program's first calls
+    walls = {"on": [on_s], "off": []}
+    for on in (False, True, False):
+        argv = main_argv if on else LAUNCH_ARGS + LAUNCH_MAIN
+        again, wall = launcher_run(
+            torch, launch, prog, argv,
+            launch.make_obs(cfg, launch.parse_args(argv)) if on else None)
+        if [c.tokens.tolist() for c in again] != [c.tokens.tolist()
+                                                  for c in done]:
+            raise AssertionError(f"tokens differ with telemetry "
+                                 f"{'on' if on else 'off'}")
+        walls["on" if on else "off"].append(wall)
+    energy = snap["energy"]
+    result = {
+        "phase": "serve_launcher", "gpu": gpu, "arch": cfg.name,
+        "argv": main_argv[:-4], "build_s": build_s,
+        "prompt_lens": [len(r.prompt) for r in reqs],
+        "max_new": [r.max_new for r in reqs],
+        "percentiles_ms": percentiles(snap),
+        "mean_occupancy": hist["serve.active_slots"]["mean"],
+        "idle_fraction": ctr["serve.idle_slot_steps"]
+        / (ctr["serve.decode_steps"] * 4),
+        "overhead": 1.0 - ctr["serve.useful_steps"]
+        / ctr["serve.slot_steps"],
+        "decode_steps": ctr["serve.decode_steps"],
+        "program_steps": {k: v for k, v in ctr.items()
+                          if k.startswith("program.steps")},
+        "reuse_ratio": energy["reuse_ratio"],
+        "write_energy_saved_uJ": energy["write_energy_saved_uJ"],
+        "drain_s_telemetry_on": walls["on"],
+        "drain_s_telemetry_off": walls["off"],
+        "tokens_equal_telemetry_off": True, "decode_captures": captured,
+        "launches": launches, "trace": trace}
+    # the fault-model run's array budget: half the Program's tiles, so
+    # the hybrid mapping streams some banks
+    from repro_torch import resident
+    budget = tiles // 2
+    plan = resident.plan_hybrid_mapping(resident.specs_from_program(prog),
+                                        budget)
+    if not (plan.resident and plan.streamed):
+        raise AssertionError(f"budget {budget} of {tiles} tiles: "
+                             f"{len(plan.resident)} resident, "
+                             f"{len(plan.streamed)} streamed banks")
+    del prog
+    gc.collect()
+
+    # -- cheaper runs: 4 requests each, full width
+    short = ["--requests", "4", "--new-tokens", "32"]
+    for scheduler in ("wave", "engine"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = launch.main(LAUNCH_ARGS + short + ["--scheduler", scheduler]
+                          + (["--stats"] if scheduler == "wave" else []))
+        torch.cuda.synchronize()
+        if len(got) != 4 or metrics_lib.enabled():
+            raise AssertionError(f"{scheduler}: {len(got)} completions")
+        result[f"{scheduler}_s"] = time.perf_counter() - t0
+    noisy_path = out / "noisy.json"
+    noisy_argv = LAUNCH_ARGS + [
+        "--requests", "4", "--new-tokens", "8", "--noise", LAUNCH_NOISE,
+        "--calibrate-every", "4", "--array-budget", str(budget), "--stats",
+        "--metrics-out", str(noisy_path)]
+    counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = launch.main(noisy_argv)
+    torch.cuda.synchronize()
+    noisy_s = time.perf_counter() - t0
+    noisy = counts.snapshot()
+    nsnap = json.loads(noisy_path.read_text())
+    gauges = nsnap["gauges"]
+    if len(got) != 4 or check_schema.validate(
+            nsnap, check_schema.load_schema()):
+        raise AssertionError("fault-model launcher run")
+    if not (noisy["photonic_mvm"] > 0 and noisy["photonic_mvm_t"] > 0
+            and noisy["photonic_mvm_fused"] == 0):
+        raise AssertionError(f"the fault model's split kernels: {noisy}")
+    if not (gauges["residency.used_tiles"] <= budget
+            and gauges["calibration.sweeps"] > 0):
+        raise AssertionError(f"residency over budget or no calibration: "
+                             f"{gauges}")
+    result.update({
+        "fault_model": {"argv": noisy_argv[:-2], "array_budget": budget,
+                        "mrr_tiles_128": tiles, "wall_s": noisy_s,
+                        "banks_resident_streamed": [len(plan.resident),
+                                                    len(plan.streamed)],
+                        "residency_hit_rate": gauges["residency.hit_rate"],
+                        "calibration_sweeps": gauges["calibration.sweeps"],
+                        "reuse_ratio": nsnap["energy"]["reuse_ratio"],
+                        "write_energy_saved_uJ":
+                            nsnap["energy"]["write_energy_saved_uJ"],
+                        "launches": noisy}})
+    emit(result)
+    shutil.rmtree(out)
     return launches
 
 
@@ -2437,6 +2680,7 @@ def main() -> int:
     del timer
     # each path's launches are counted in its own window
     fused_path = timed("serve", serve, torch, smi)
+    timed("serve_launcher", serve_launcher, torch, smi)
     torch.cuda.reset_peak_memory_stats()
     fault_path = timed("serve_noisy", serve_noisy, torch, smi)
     timed("small_model_fault_checks", small_model_fault_checks, torch)

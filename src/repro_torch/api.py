@@ -26,6 +26,14 @@ caches go through it.  Prefill stays eager.
 Greedy decoding matches the reference token for token on the test
 configs; temperature sampling draws from a ``torch.Generator`` and is not
 expected to reproduce ``jax.random``.
+
+The Program keeps the reference's ledger on the default metrics registry:
+``program.builds``, a ``program.bank.<k>`` gauge per ``bank_stats()`` key
+and ``program.partition.dropped_rules`` (0: the port has no mesh) at each
+build, and, while ``obs.metrics.enabled()``, one
+``program.steps{kind=prefill|prefill_chunk|decode|decode_sample}`` per
+step.  They are host-side Python outside any captured region, so a
+replayed decode step counts as a step, exactly as an eager one does.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from repro_torch.core import prepared as prepared_lib
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.graphs import DecodeCell
 from repro_torch.models import transformer as tfm
+from repro_torch.obs import metrics as metrics_lib
 
 NEG_INF = -1e30
 
@@ -147,12 +156,11 @@ def decode_step_fn(cfg: ModelConfig, *, act_pspec=None, legacy_decode=False,
                    execution=None):
     """Pure ``fn(params, batch, caches, pos) -> (logits (B, V), caches)``;
     ``pos`` an int or (B,) positions.  The caches are updated in place.
-    ``legacy_decode=True`` raises: the port's forward has one decode
-    path."""
+    ``legacy_decode=True`` runs the baseline attention decode
+    (``attention.gqa_decode_legacy``: the token's K/V written into the
+    cache at a scalar ``pos`` inside the block, attention over the whole
+    buffer)."""
     _no_mesh(act_pspec)
-    if legacy_decode:
-        raise NotImplementedError("legacy_decode: the port's forward has no "
-                                  "legacy decode path")
 
     @torch.no_grad()
     def fn(params, batch, caches, pos):
@@ -162,9 +170,17 @@ def decode_step_fn(cfg: ModelConfig, *, act_pspec=None, legacy_decode=False,
             pos = torch.as_tensor(pos).to(dev, torch.long)
         logits, caches, _ = tfm.forward(params, cfg, {"tokens": tokens},
                                         mode="decode", caches=caches,
-                                        pos=pos, execution=execution)
+                                        pos=pos, legacy_decode=legacy_decode,
+                                        execution=execution)
         return logits[:, 0, :], caches
     return fn
+
+
+def _count_step(kind: str) -> None:
+    """One ``program.steps{kind=...}`` on the default registry, while the
+    hot-path instrumentation is enabled."""
+    if metrics_lib.enabled():
+        metrics_lib.counter("program.steps", kind=kind).inc()
 
 
 # =========================================================================
@@ -197,6 +213,13 @@ class Program:
             else leaf, params)
         bank = prepared_lib.prepare_params(moved, cfg.compute_dtype,
                                            bk.is_photonic)
+        # bank accounting as registry gauges (the last Program built wins:
+        # builds are one-time events, not hot-path)
+        reg = metrics_lib.default_registry()
+        reg.counter("program.builds").inc()
+        for k, v in prepared_lib.prepared_stats(bank).items():
+            reg.gauge(f"program.bank.{k}").set(v)
+        reg.gauge("program.partition.dropped_rules").set(0)
         return cls(cfg=cfg, backend=bk, bank=bank, device=dev)
 
     def update_noise(self, noise) -> None:
@@ -233,6 +256,7 @@ class Program:
         head runs over every position first, as in the reference, so its
         A8 scale covers all prefill rows.  Returns (logits (B, V),
         caches)."""
+        _count_step("prefill")
         logits, caches = _prefill(self.cfg, self.bank, batch, cache_len,
                                   self.backend)
         B, S = logits.shape[:2]
@@ -259,6 +283,7 @@ class Program:
         [q_offset, q_offset + W); ``last`` (B,) indexes logits WITHIN the
         chunk (default: final column)."""
         self._refuse_chunks("prefill_chunk")
+        _count_step("prefill_chunk")
         tokens = self._tokens(tokens)
         B, W = tokens.shape
         if last is None:
@@ -308,15 +333,21 @@ class Program:
             self.bank, {"tokens": tokens}, caches, pos)[0]
 
     @torch.no_grad()
+    def _decode_logits(self, tokens, caches, pos):
+        """One decode step: through the caches' decode cell when they have
+        one, else eagerly."""
+        cell = self._cells.get(id(caches))
+        if cell is not None and cell.caches is caches:
+            return cell.step(tokens, pos).clone()
+        return self._decode_forward(self.backend, tokens, caches, pos)
+
     def decode(self, tokens, caches, pos):
         """One token per sequence.  tokens: (B, 1); ``pos`` an int (aligned)
         or (B,) per-slot positions.  Caches are updated in place (through
         their decode cell, when they have one).  Returns (logits (B, V),
         caches)."""
-        cell = self._cells.get(id(caches))
-        if cell is not None and cell.caches is caches:
-            return cell.step(tokens, pos).clone(), caches
-        return self._decode_forward(self.backend, tokens, caches, pos), caches
+        _count_step("decode")
+        return self._decode_logits(tokens, caches, pos), caches
 
     def decode_sample(self, tokens, caches, pos, generator=None,
                       temperature: float = 0.0):
@@ -324,7 +355,8 @@ class Program:
         if temperature > 0.0 and generator is None:
             raise ValueError("decode_sample(temperature>0) needs a "
                              "torch.Generator")
-        logits, caches = self.decode(tokens, caches, pos)
+        _count_step("decode_sample")
+        logits = self._decode_logits(tokens, caches, pos)
         return sample(logits, self.cfg.vocab_size, generator,
                       temperature), caches
 
@@ -352,6 +384,7 @@ class Program:
                 toks.append(cur)
                 if i == max_new - 1:
                     break
+                _count_step("decode_sample")
                 nxt = sample(cell.step(cur, S + i), self.cfg.vocab_size,
                              gen, temperature)
                 cur = nxt.long()[:, None]

@@ -159,8 +159,11 @@ def run_stack(block_fn: BlockFn, params: Any, x: torch.Tensor,
 def _write_prefill(view, new) -> None:
     """Copy a prefill block's returned cache into its [r, t] view at offset
     0 of every axis; a leaf the block already wrote in place (the view
-    itself) is skipped.  A leaf shorter than the view (the conv tail of a
-    prompt shorter than W-1) fills the leading rows only."""
+    itself) or only read (None: a legacy decode step's cross K/V) is
+    skipped.  A leaf shorter than the view (the conv tail of a prompt
+    shorter than W-1) fills the leading rows only."""
+    if new is None:
+        return
     if isinstance(view, dict):
         for k in view:
             _write_prefill(view[k], new[k])

@@ -205,6 +205,30 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
     return y, {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
 
 
+def gqa_decode_legacy(p, cfg: ModelConfig, x, cache, pos, *,
+                      transpose=False, backend=None):
+    """Baseline decode (the reference's A/B knob): write the token's K/V
+    into the cache buffer at the scalar ``pos`` inside the block (in
+    place) and attend against the whole buffer.  Returns the cache itself,
+    which the stack runner leaves as it is."""
+    B, S, d = x.shape
+    if isinstance(pos, torch.Tensor) and pos.ndim > 0:
+        raise ValueError("legacy decode takes a scalar position")
+    pos = int(pos)
+    q, k, v = _project_qkv(p, cfg, x, transpose, backend, 1)
+    cos, sin = rope_angles(_decode_positions(pos, x.device), cfg.head_dim,
+                           cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    cache["k"][:, pos:pos + 1] = k.to(cache["k"].dtype)
+    cache["v"][:, pos:pos + 1] = v.to(cache["v"].dtype)
+    L = cache["k"].shape[1]
+    mask = (torch.arange(L, device=x.device) <= pos)[None, :]
+    out = _gqa_attend(q, cache["k"], cache["v"], mask)
+    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)
+    return y, cache
+
+
 def init_gqa_cache(cfg: ModelConfig, batch: int, length: int, dtype,
                    device):
     KV, hd = cfg.num_kv_heads, cfg.head_dim

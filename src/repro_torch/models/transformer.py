@@ -152,14 +152,17 @@ def _cross_kv(p, cfg, memory, B, backend):
 
 
 def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
-                mode, causal, pos, backend, transpose, memory=None):
+                mode, causal, pos, backend, transpose, memory=None,
+                legacy_decode=False):
     """One pre-norm residual layer.  Returns (h, cache, aux): an attention
     layer writes its K/V into ``cache`` in place and returns it; an SSM
     layer returns its new state (decode: the full-slice update; prefill:
     the final state and conv tail, written into the slice by
     ``core.sharing.run_stack``); a cross-attention layer returns its
     memory's K/V in prefill (written at offset 0 by ``run_stack``) and
-    None in decode, where it only reads the cache."""
+    None in decode, where it only reads the cache.  ``legacy_decode``
+    sends a GQA self-attention layer's decode through
+    ``attention.gqa_decode_legacy``, which writes the cache itself."""
     if mode == "prefill_chunk" and mixer_kind != "attn":
         # SSM state integration and cross-attention memory streams would
         # need chunk-to-chunk state threading; the scheduler prefills such
@@ -208,6 +211,8 @@ def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
         mla = cfg.mla is not None
         if mode == "decode":
             dec = attn.mla_decode if mla else attn.gqa_decode
+            if legacy_decode and not mla:
+                dec = attn.gqa_decode_legacy
             y, new_cache = dec(p["mixer"], cfg, hn, cache, pos,
                                transpose=transpose, backend=backend)
         elif mode == "prefill_chunk":
@@ -239,7 +244,7 @@ def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
 
 
 def group_block_fn(cfg: ModelConfig, spec: SegmentSpec, mode, pos, backend,
-                   memory=None):
+                   memory=None, legacy_decode=False):
     def block_fn(p_r, h, cache_t, aux, *, transpose, reuse_index):
         new_cache = {} if cache_t is not None else None
         for i in range(spec.group_size):
@@ -248,7 +253,8 @@ def group_block_fn(cfg: ModelConfig, spec: SegmentSpec, mode, pos, backend,
                 p_r[f"l{i}"], cfg, h, c_i, aux,
                 mixer_kind=spec.mixer_kinds[i], ffn_kind=spec.ffn_kinds[i],
                 mode=mode, causal=spec.causal, pos=pos, backend=backend,
-                transpose=transpose, memory=memory)
+                transpose=transpose, memory=memory,
+                legacy_decode=legacy_decode)
             if new_cache is not None:
                 new_cache[f"l{i}"] = c_i
         return h, new_cache, aux
@@ -354,7 +360,7 @@ def encoder_pass(params, cfg: ModelConfig, batch, backend):
 
 
 def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
-            pos=None, execution=None):
+            pos=None, legacy_decode=False, execution=None):
     """Run the model.
 
     batch: {"tokens": (B, S) int tensor} plus the modality extras outside
@@ -364,10 +370,20 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
     and ``pos`` a scalar or a (B,) tensor of per-slot positions;
     prefill_chunk: ``pos`` is the chunk's q_offset and ``caches`` the
     partially filled capacity buffers).  caches are updated IN PLACE and
-    returned.  Returns (logits (B, S, V), caches, aux)."""
+    returned.  ``legacy_decode`` (decode, scalar ``pos``) runs the GQA
+    layers' baseline decode, which writes each layer's cache in the block,
+    so the stack runner writes no deltas; as in the reference it leaves
+    MLA's decode as it is, and it refuses stacks whose decode step returns
+    a delta the runner would then not write (MLA, whisper's self- and
+    cross-attention layer).  Returns (logits (B, S, V), caches, aux)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     check_ported(cfg)
+    legacy = legacy_decode and mode == "decode"
+    if legacy and (cfg.mla is not None or any(
+            "attn_cross" in spec.mixer_kinds for spec in build_segments(cfg))):
+        raise ValueError(f"{cfg.name}: legacy_decode needs GQA attention "
+                         f"layers that write their own cache")
     dtype = torch_dtype(cfg.compute_dtype)
     backend = backend_lib.resolve(execution if execution is not None
                                   else cfg)
@@ -385,11 +401,13 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
         if spec.stream == "encoder":
             continue                        # run by encoder_pass
         seg_cache = caches.get(spec.name) if caches is not None else None
-        block = group_block_fn(cfg, spec, mode, pos, backend, memory)
+        block = group_block_fn(cfg, spec, mode, pos, backend, memory,
+                               legacy_decode=legacy)
         h, seg_cache, aux = run_stack(
             block, params["segments"][spec.name], h, shareds[spec.name],
             cache=seg_cache, aux0=aux,
-            decode_pos=pos if mode == "decode" else None, backend=backend)
+            decode_pos=pos if mode == "decode" and not legacy else None,
+            backend=backend)
     h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = backend.dot(h, cast(params["embed"]["table"], h.dtype),

@@ -3,15 +3,17 @@
 Both schedulers' stats derive from :class:`ServingStats`: every field is a
 property backed by a counter ``serve.<field>`` in a
 :class:`~repro_torch.obs.metrics.MetricsRegistry`, so ``stats.requests +=
-1`` updates the registry and a registry snapshot carries the same numbers.
+1`` updates the registry and a registry snapshot carries the same numbers,
+and the shared waste metric, ``overhead``, lives once, on the base class.
 
-``WaveStats`` is the reference's, field for field.  ``ContinuousStats``
-keeps the port scheduler's counters (requests, generated tokens, prefill
-chunks, decode steps); the reference's prompt, padding and idle-lane
-counters, its slot-step totals and the occupancy histogram come with the
-scheduler's telemetry (a later slice), so it has no ``overhead`` yet.
+``ContinuousStats`` also records the per-step *active-slot histogram*
+(``observe_active``): the occupancy distribution over time, not only the
+aggregate idle counter.  Both classes are the reference's, field for
+field.
 """
 from __future__ import annotations
+
+import collections
 
 from repro_torch.obs import metrics as _metrics
 
@@ -83,21 +85,49 @@ for _f in ("waves", "padded_tokens"):
 
 
 class ContinuousStats(ServingStats):
-    """Work counters of one continuous scheduler."""
+    """Continuous batching: bucket padding and idle decode lanes, plus the
+    per-step active-slot occupancy distribution."""
 
-    FIELDS = ("requests", "generated_tokens", "prefill_chunks",
-              "decode_steps")
+    FIELDS = ServingStats.FIELDS + ("prefills", "decode_steps",
+                                    "padded_prefill_tokens",
+                                    "idle_slot_steps", "prefill_chunks")
+
+    def __init__(self, registry: _metrics.MetricsRegistry | None = None,
+                 _capacity: int = 1):
+        super().__init__(registry)
+        self._capacity = _capacity
+        # the exact integer distribution, and a registry histogram so the
+        # percentile export shares one schema with the latencies
+        self.occupancy: collections.Counter = collections.Counter()
+        self._occ_hist = self.registry.histogram("serve.active_slots",
+                                                 lo=0.5, growth=1.05)
+
+    def observe_active(self, n: int) -> None:
+        """Record one decode step's active-slot count."""
+        self.occupancy[int(n)] += 1
+        self._occ_hist.record(n)
+        self.registry.gauge("serve.slots.active").set(n)
 
     @property
-    def overhead(self) -> float:
-        raise NotImplementedError(
-            "the port's ContinuousStats counts no slot steps yet (the "
-            "scheduler's telemetry is a later slice)")
+    def occupancy_distribution(self) -> dict:
+        """{active_slots: steps} over all decode steps, exact."""
+        return dict(sorted(self.occupancy.items()))
 
-    def as_dict(self) -> dict:
-        return {f: getattr(self, f) for f in self.FIELDS}
+    @property
+    def mean_occupancy(self) -> float:
+        steps = sum(self.occupancy.values())
+        if not steps:
+            return 0.0
+        return sum(k * v for k, v in self.occupancy.items()) / steps
+
+    @property
+    def idle_fraction(self) -> float:
+        if not self.decode_steps:
+            return 0.0
+        return self.idle_slot_steps / (self.decode_steps * self._capacity)
 
 
-for _f in ("prefill_chunks", "decode_steps"):
+for _f in ("prefills", "decode_steps", "padded_prefill_tokens",
+           "idle_slot_steps", "prefill_chunks"):
     setattr(ContinuousStats, _f, _counter_property(_f))
 del _f

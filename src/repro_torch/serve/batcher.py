@@ -9,6 +9,7 @@ ContinuousScheduler`` is the production path.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -55,14 +56,17 @@ class WaveBatcher:
     Takes a built ``api.Program`` or the (params, cfg) pair, built on
     ``device`` (default CUDA).  A wave's requests share their modality
     ``extras`` (one batched prefill), passed to ``generate`` as the first
-    request's.  The reference's ``telemetry=`` lifecycle
-    hooks (latency histograms, wave spans) come with the port's serving
-    telemetry, a later slice; ``stats`` counts the same work as the
-    reference's."""
+    request's.  ``telemetry`` (an optional
+    :class:`repro_torch.obs.serving.ServingObs`) shares the registry with
+    ``self.stats`` and adds request-lifecycle latency histograms and wave
+    spans in the Chrome trace.  Waves run as one blocking ``generate``, so
+    per-request TTFT inside a wave is not observable: the tracker records
+    admission at wave start and completion at wave end (the continuous
+    scheduler is the per-token path)."""
 
     def __init__(self, params, cfg: ModelConfig = None, wave_size: int = 8,
-                 pad_id: int = 0, temperature: float = 0.0, *,
-                 device=None):
+                 pad_id: int = 0, temperature: float = 0.0, telemetry=None,
+                 *, device=None):
         if isinstance(params, api.Program):
             self.program = params
             cfg = params.cfg
@@ -76,10 +80,14 @@ class WaveBatcher:
         self.pad_id = pad_id
         self.temperature = temperature
         self.queue: list[Request] = []
-        self.stats = WaveStats()
+        self.obs = telemetry
+        self.stats = WaveStats(
+            registry=telemetry.registry if telemetry else None)
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
+        if self.obs:
+            self.obs.tracker.on_submit(req.rid)
 
     @staticmethod
     def _extras_match(a: Optional[dict], b: Optional[dict]) -> bool:
@@ -114,10 +122,22 @@ class WaveBatcher:
             # left-pad so every prompt ends at the same position (the
             # aligned decode then starts all rows together)
             prompts[i, max_prompt - len(r.prompt):] = r.prompt
-        out = self.program.generate(prompts, max_new,
-                                    extras=wave[0].extras,
-                                    temperature=self.temperature)
-        out = out.cpu().numpy().astype(np.int32)
+        if self.obs:
+            for r in wave:
+                self.obs.tracker.on_admit(r.rid, len(r.prompt), max_prompt)
+            if self.obs.meter is not None:
+                self.obs.meter.on_prefill(B * max_prompt)
+        tr = self.obs.tracer if self.obs else None
+        # the span closes after the tokens' read-back (obs/tracing.py)
+        with (tr.span("wave", requests=B, max_prompt=max_prompt,
+                      max_new=max_new) if tr else contextlib.nullcontext()):
+            out = self.program.generate(prompts, max_new,
+                                        extras=wave[0].extras,
+                                        temperature=self.temperature)
+            out = out.cpu().numpy().astype(np.int32)
+        if self.obs and self.obs.meter is not None:
+            for _ in range(max_new - 1):
+                self.obs.meter.on_decode_step(B)
         comps = []
         for i, r in enumerate(wave):
             toks = out[i, max_prompt - len(r.prompt):
@@ -125,6 +145,8 @@ class WaveBatcher:
             comps.append(Completion(rid=r.rid, tokens=toks,
                                     prompt_len=len(r.prompt),
                                     padded_to=max_prompt))
+            if self.obs:
+                self.obs.tracker.on_finish(r.rid)
             self.stats.prompt_tokens += len(r.prompt)
             self.stats.padded_tokens += max_prompt - len(r.prompt)
             self.stats.generated_tokens += r.max_new

@@ -10,8 +10,7 @@ The functions here are thin shims for the old call sites:
 ``prefill_step`` / ``decode_step`` wrap the functional steps of
 ``repro_torch.api`` over raw params, and ``generate`` builds a Program per
 call.  Greedy outputs are token-identical to the Program methods.  The
-port has no mesh (``act_pspec``, ``mesh``) and one decode path (no
-``legacy_decode``): those arguments raise.
+port has no mesh: ``act_pspec`` and ``mesh`` raise.
 """
 from __future__ import annotations
 
@@ -44,8 +43,9 @@ def prefill_step(params, cfg: ModelConfig, batch, cache_len: int,
 def decode_step(params, cfg: ModelConfig, batch, caches, pos,
                 act_pspec=None, legacy_decode=False, execution=None):
     """One token for every sequence: batch["tokens"] (B, 1); ``pos`` an int
-    (aligned decode) or (B,) per-slot positions.  The caches are updated
-    in place and returned with the logits (B, V)."""
+    (aligned decode) or (B,) per-slot positions (``legacy_decode``: an int
+    only).  The caches are updated in place and returned with the logits
+    (B, V)."""
     fn = api.decode_step_fn(cfg, act_pspec=act_pspec,
                             legacy_decode=legacy_decode, execution=execution)
     return fn(params, batch, caches, pos)

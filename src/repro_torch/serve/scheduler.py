@@ -14,10 +14,15 @@ Bank residency (``residency=``, a ``resident.ProgramResidency``) and the
 calibration loop (``calibration=``, a ``serve.calibration.CalibrationLoop``)
 hook in as in the reference: every prefill and decode step looks each bank
 up once, and a calibration sweep follows the residency hook of a decode
-step.  Where the reference binds a meter through its telemetry
-(``telemetry.meter``), the caller binds it with
-``ProgramResidency.bind_meter``.  Left out for later slices: telemetry
-and the mesh.
+step.  ``telemetry=`` (an ``obs.serving.ServingObs``) carries the
+request tracker (TTFT, TPOT, e2e and queue histograms), the Chrome-trace
+spans (``prefill_chunk``, ``decode_step``, the ``active_slots`` counter
+track) and the photonic meter, fed by every prefill and decode step and
+bound to the residency when both are given; the stats share its registry.
+``on_token(rid, tok)`` and ``on_complete(completion)`` stream results as
+they land.  All of it runs on the host between device steps: nothing of it
+enters the decode graph, and it adds no device synchronization.  Left out
+for a later slice: the mesh.
 
 The decode step runs through one ``graphs.DecodeCell`` over the pool's
 caches, built once at the pool's capacity and registered with the
@@ -30,9 +35,10 @@ protocol: ``submit`` requests, ``drain`` completions.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
-from typing import Optional, Protocol, runtime_checkable
+from typing import Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -114,7 +120,9 @@ class ContinuousScheduler:
                  prefill_bucket: int = 16,
                  prefill_chunk: Optional[int] = None,
                  admission: Optional[ReuseAwareAdmission] = None,
-                 residency=None, calibration=None):
+                 on_token: Optional[Callable[[int, int], None]] = None,
+                 on_complete: Optional[Callable[[Completion], None]] = None,
+                 telemetry=None, residency=None, calibration=None):
         if not isinstance(program, api.Program):
             raise TypeError("ContinuousScheduler serves a built Program")
         self.program = program
@@ -135,6 +143,8 @@ class ContinuousScheduler:
             admission = ResidencyAwareAdmission.from_base(
                 ReuseAwareAdmission.build(cfg), residency)
         self.admission = admission or ReuseAwareAdmission.build(cfg)
+        self.on_token = on_token
+        self.on_complete = on_complete
         self.pool = SlotPool(cfg, capacity, max_len, device=program.device)
         # the compiled decode step over the pool, kept for its life
         self.decode_cell = program.decode_cell(self.pool.caches)
@@ -155,7 +165,17 @@ class ContinuousScheduler:
         # allocated but not decoded until their last chunk lands
         self._prefilling: dict[int, dict] = {}
         self.queue: collections.deque[Request] = collections.deque()
-        self.stats = ContinuousStats()
+        # telemetry: latency histograms, Chrome-trace spans and the
+        # photonic meter; the stats counters share its registry so one
+        # snapshot carries everything
+        self.obs = telemetry
+        if (self.residency is not None and self.obs is not None
+                and self.obs.meter is not None):
+            # resident hits must never be billed again as refresh writes
+            self.residency.bind_meter(self.obs.meter)
+        self.stats = ContinuousStats(
+            registry=telemetry.registry if telemetry else None,
+            _capacity=capacity)
         self.generator = None
         if temperature > 0.0:
             self.generator = torch.Generator(
@@ -173,6 +193,8 @@ class ContinuousScheduler:
         if req.max_new < 1:
             raise ValueError("max_new must be >= 1")
         self.queue.append(req)
+        if self.obs:
+            self.obs.tracker.on_submit(req.rid)
 
     def drain(self) -> list[Completion]:
         """Run until queue and slots are empty; completions in finish order."""
@@ -196,9 +218,36 @@ class ContinuousScheduler:
             done.extend(self._advance_chunks())
         if self.pool.num_active > len(self._prefilling):
             done.extend(self._decode_once())
+        if self.obs and self.obs.tracer.enabled:
+            self.obs.tracer.counter("active_slots", self.pool.num_active)
         return done
 
     # ------------------------------------------------------------ internals
+    def _span(self, name: str, **args):
+        tr = self.obs.tracer if self.obs else None
+        if tr is not None and tr.enabled:
+            return tr.span(name, **args)
+        return contextlib.nullcontext()
+
+    def _admitted(self, req: Request, padded: int) -> None:
+        """Account an admission whose prefill (monolithic or chunked)
+        streams ``padded`` positions through the stack: the tracker, the
+        meter, the residency lookups and the stats counters."""
+        plen = len(req.prompt)
+        if self.obs:
+            self.obs.tracker.on_admit(req.rid, plen, padded)
+            if self.obs.meter is not None:
+                self.obs.meter.on_prefill(padded)
+        if self.residency is not None:
+            self.residency.on_prefill(padded)
+        st = self.stats
+        st.requests += 1
+        st.prefills += 1
+        st.prompt_tokens += plen
+        st.padded_prefill_tokens += padded - plen
+        st.slot_steps += padded
+        st.useful_steps += plen
+
     def _sample(self, logits) -> int:
         return int(api.sample(logits, self.cfg.vocab_size, self.generator,
                               self.temperature)[0])
@@ -220,8 +269,7 @@ class ContinuousScheduler:
                           prompt=np.asarray(req.prompt, np.int32),
                           padded_to=bucket)
         slot = self.pool.allocate(state)
-        if self.residency is not None:
-            self.residency.on_prefill(bucket)
+        self._admitted(req, bucket)
         toks = np.full((1, bucket), self.pad_id, np.int32)
         toks[0, :plen] = req.prompt
         batch = {"tokens": toks}
@@ -231,7 +279,6 @@ class ContinuousScheduler:
         self.pool.write_prefill(slot, caches, plen)
         tok = self._sample(logits)
         self._cur[slot, 0] = tok
-        self.stats.requests += 1
         return self._commit_token(slot, tok)
 
     def _start_chunked(self, req: Request) -> None:
@@ -246,14 +293,12 @@ class ContinuousScheduler:
                           prompt=np.asarray(req.prompt, np.int32),
                           padded_to=padded)
         slot = self.pool.allocate(state)
-        if self.residency is not None:
-            self.residency.on_prefill(padded)
+        self._admitted(req, padded)
         toks = np.full((1, padded), self.pad_id, np.int32)
         toks[0, :plen] = req.prompt
         self._prefilling[slot] = {
             "state": state, "tokens": toks, "off": 0,
             "caches": self.program.empty_caches(1, self.pool.max_len)}
-        self.stats.requests += 1
 
     def _advance_chunks(self) -> list[Completion]:
         """One prefill chunk for every staging slot; final chunks publish
@@ -265,8 +310,12 @@ class ContinuousScheduler:
             state, off = st["state"], st["off"]
             last = off + W >= st["tokens"].shape[1]
             idx = state.prompt_len - 1 - off if last else W - 1
-            logits, st["caches"] = self.program.prefill_chunk(
-                st["tokens"][:, off:off + W], st["caches"], off, last=[idx])
+            # no read-back inside: on the card this span is the chunk's
+            # host dispatch (obs/tracing.py)
+            with self._span("prefill_chunk", rid=state.rid, off=off):
+                logits, st["caches"] = self.program.prefill_chunk(
+                    st["tokens"][:, off:off + W], st["caches"], off,
+                    last=[idx])
             st["off"] = off + W
             self.stats.prefill_chunks += 1
             if not last:
@@ -286,6 +335,15 @@ class ContinuousScheduler:
         state.tokens.append(tok)
         state.generated += 1
         self.stats.generated_tokens += 1
+        if self.obs:
+            # the first token comes out of prefill (TTFT); later ones are
+            # decode inter-arrivals (TPOT)
+            if state.generated == 1:
+                self.obs.tracker.on_first_token(state.rid)
+            else:
+                self.obs.tracker.on_token(state.rid)
+        if self.on_token is not None:
+            self.on_token(state.rid, tok)
         hit_eos = state.eos_id is not None and tok == state.eos_id
         if state.generated >= state.max_new or hit_eos:
             self.pool.free(slot)
@@ -296,6 +354,10 @@ class ContinuousScheduler:
                                        np.asarray(state.tokens, np.int32)]),
                 prompt_len=state.prompt_len, padded_to=state.padded_to,
                 finish_reason="eos" if hit_eos else "length")
+            if self.obs:
+                self.obs.tracker.on_finish(state.rid, comp.finish_reason)
+            if self.on_complete is not None:
+                self.on_complete(comp)
             return comp
         return None
 
@@ -305,18 +367,30 @@ class ContinuousScheduler:
         # write is dead data and they commit no tokens
         active = [s for s in self.pool.active_slots()
                   if s not in self._prefilling]
+        self.stats.observe_active(len(active))
+        if self.obs and self.obs.meter is not None:
+            # the decode step runs the FULL pool through the stack; idle
+            # slots ride along (the occupancy histogram exposes the waste)
+            self.obs.meter.on_decode_step(self.pool.capacity)
         if self.residency is not None:
             self.residency.on_decode_step(self.pool.capacity)
         if self.calibration is not None:
             self.calibration.on_step()
-        nxt, self.pool.caches = self.program.decode_sample(
-            self._cur, self.pool.caches, self.pool.position_vector(),
-            generator=self.generator, temperature=self.temperature)
-        nxt = nxt.cpu().numpy()
+        # the span closes after the tokens' read-back, so on the card it
+        # covers the step's device time, not the enqueue of a replay
+        with self._span("decode_step", active=len(active),
+                        capacity=self.pool.capacity):
+            nxt, self.pool.caches = self.program.decode_sample(
+                self._cur, self.pool.caches, self.pool.position_vector(),
+                generator=self.generator, temperature=self.temperature)
+            nxt = nxt.cpu().numpy()
         self.stats.decode_steps += 1
+        self.stats.slot_steps += self.pool.capacity
+        self.stats.idle_slot_steps += self.pool.capacity - len(active)
         done = []
         for slot in active:
             self.pool.advance(slot)
+            self.stats.useful_steps += 1
             comp = self._commit_token(slot, int(nxt[slot]))
             if comp is None:
                 self._cur[slot, 0] = int(nxt[slot])

@@ -102,6 +102,12 @@ class SlotPool:
         self._free.append(slot)
         return state
 
+    def reset(self) -> None:
+        """Drop all slots (cache memory is kept allocated)."""
+        self.positions[:] = 0
+        self.slots = [None] * self.capacity
+        self._free = list(range(self.capacity))
+
     def write_prefill(self, slot: int, prefill_caches, prompt_len: int
                       ) -> None:
         """Copy a batch-1 prefilled cache tree ([R, T, 1, Lp, ...] leaves,
@@ -124,3 +130,7 @@ class SlotPool:
         """(B,) per-slot next-write positions for the decode step (a copy:
         the decode cell stages it through its own pinned buffer)."""
         return self.positions.astype(np.int64)
+
+    def remaining(self, slot: int) -> int:
+        """Context budget left in ``slot`` (tokens)."""
+        return self.max_len - int(self.positions[slot])

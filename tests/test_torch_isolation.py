@@ -86,6 +86,24 @@ def test_ssm_slice_modules_are_checked_and_standalone(module):
     assert bad == []
 
 
+# the serving launcher and telemetry slice's new and extended modules
+SLICE12_MODULES = ["launch/__init__.py", "launch/serve.py",
+                   "obs/__init__.py", "obs/tracing.py", "obs/serving.py",
+                   "obs/check_schema.py", "obs/stats.py", "api.py",
+                   "serve/slots.py", "serve/scheduler.py", "serve/batcher.py",
+                   "serve/engine.py", "models/attention.py",
+                   "models/transformer.py", "core/sharing.py"]
+
+
+@pytest.mark.parametrize("module", SLICE12_MODULES)
+def test_launcher_slice_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert bad == []
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
@@ -120,6 +138,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         bridge.params_from_flat({"a/b": [1.0]})
     prog = api.Program.build(cfg, params, execution="photonic", device="cpu")
     assert prog.device.type == "cpu"
+    from repro_torch.launch import serve as launch
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.main(["--arch", "minitron-4b", "--smoke", "--requests", "1"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -2,7 +2,8 @@
 the JAX reference's on the same weights (float32 dense and MoE smoke
 configs): completions and greedy tokens identical, ``WaveStats`` equal
 field for field, and the arguments the port has no counterpart for (a
-mesh, ``act_pspec``, ``legacy_decode``) refused.  Modality extras are
+mesh, ``act_pspec``) refused.  ``legacy_decode`` runs since slice 12
+(``tests/test_torch_serve_launch.py``).  Modality extras are
 taken since slice 11 (``tests/test_torch_vlm.py``,
 ``tests/test_torch_audio.py``).
 
@@ -153,9 +154,10 @@ def test_engine_cast_params_and_refusals():
     with pytest.raises(NotImplementedError):
         t_engine.prefill_step(tp, tc, {"tokens": prompt}, 8,
                               act_pspec=object())
-    with pytest.raises(NotImplementedError):
-        t_engine.decode_step(tp, tc, {"tokens": prompt[:, :1]}, {}, 4,
-                             legacy_decode=True)
+    with pytest.raises(ValueError, match="scalar position"):
+        caches = t_api.Program.build(tc, tp, device="cpu").empty_caches(1, 8)
+        t_engine.decode_step(tp, tc, {"tokens": prompt[:, :1]}, caches,
+                             np.array([4]), legacy_decode=True)
     with pytest.raises(NotImplementedError):
         t_api.decode_step_fn(tc, act_pspec=object())
 
@@ -177,7 +179,12 @@ def test_stats_are_registry_backed():
     assert ws.overhead == pytest.approx(0.3)
     cs = ContinuousStats()
     cs.decode_steps += 3
-    assert cs.as_dict() == {"requests": 0, "generated_tokens": 0,
-                            "prefill_chunks": 0, "decode_steps": 3}
-    with pytest.raises(NotImplementedError):
-        cs.overhead
+    assert cs.as_dict() == {"requests": 0, "prompt_tokens": 0,
+                            "generated_tokens": 0, "slot_steps": 0,
+                            "useful_steps": 0, "prefills": 0,
+                            "decode_steps": 3, "padded_prefill_tokens": 0,
+                            "idle_slot_steps": 0, "prefill_chunks": 0,
+                            "overhead": 0.0}
+    cs.slot_steps += 8
+    cs.useful_steps += 6
+    assert cs.overhead == pytest.approx(0.25)
