@@ -5,6 +5,7 @@
     logits, caches = prog.prefill(batch, cache_len)
     tok, caches = prog.decode_sample(tokens, caches, pos)
     out = prog.generate(prompt, max_new=32)
+    ce, aux = prog.loss(batch)                  # held-out eval
 
 ``build`` resolves the backend, moves the params to the device, casts them
 to the compute dtype and — photonic — programs every matmul weight into a
@@ -52,6 +53,7 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.graphs import DecodeCell
 from repro_torch.models import transformer as tfm
 from repro_torch.obs import metrics as metrics_lib
+from repro_torch.train.trainer import cross_entropy
 
 NEG_INF = -1e30
 
@@ -264,6 +266,18 @@ class Program:
             last = torch.full((B,), S - 1, dtype=torch.long)
         last = torch.as_tensor(last).to(self.device, torch.long)
         return logits[torch.arange(B, device=self.device), last], caches
+
+    @torch.no_grad()
+    def loss(self, batch):
+        """Mean next-token cross-entropy of ``batch`` (eval; no gradients)
+        through the prepared banks on the Program's backend.  Returns (ce,
+        aux) 0-d float32 tensors."""
+        batch = _as_batch(batch, self.device)
+        logits, _, aux = tfm.forward(self.bank, self.cfg, batch, mode="train",
+                                     execution=self.backend)
+        ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:],
+                           self.cfg.vocab_size)
+        return ce, aux
 
     def _refuse_chunks(self, what: str) -> None:
         if not tfm.chunkable(self.cfg):

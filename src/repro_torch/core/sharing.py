@@ -19,6 +19,11 @@ buffer at ``decode_pos`` (a per-row scatter for a (B,) position vector),
 or None for a leaf it only read (cross-attention K/V, written once by the
 prefill), which stays untouched.  The cache object passed in is the one
 returned.
+
+With ``remat`` (training, no cache) each reuse runs under
+``torch.utils.checkpoint``: only its input is kept for the backward, and
+the reuse is recomputed there against the shared weights (the reference's
+``jax.checkpoint(one_reuse(t))`` boundary).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import obu
@@ -124,30 +130,41 @@ def _delta_update(cache_leaf: torch.Tensor, delta: torch.Tensor, r: int,
 
 def run_stack(block_fn: BlockFn, params: Any, x: torch.Tensor,
               shared: SharedStack, cache: Any = None, aux0=0.0,
-              decode_pos=None, backend=None):
+              remat: bool = False, decode_pos=None, backend=None):
     """Run a PRM-shared stack.
 
     params: tree with leading axis R; cache: optional tree with leading
-    axes [R, T, ...], updated in place (see module docstring); decode_pos:
-    set in decode mode, where block cache returns are deltas.  Returns
+    axes [R, T, ...], updated in place (see module docstring); remat:
+    recompute each reuse in the backward (no cache); decode_pos: set in
+    decode mode, where block cache returns are deltas.  Returns
     (x, cache, aux)."""
+    if remat and cache is not None:
+        raise ValueError("remat runs without a cache (train mode)")
     T = shared.reuse_times
     R = shared.num_physical
     backend = backend_lib.resolve(backend)
     bpt = shared.block_perm_table
     aux = torch.as_tensor(aux0, dtype=torch.float32)
+
+    def one_reuse(t, p_r, h, aux, c_t):
+        if shared.shuffle_active[t]:
+            h = backend.shuffle(h, shared.perm_table[t],
+                                block_perm=bpt[t] if bpt else None,
+                                block=shared.shuffle_block)
+        return block_fn(p_r, h, c_t, aux,
+                        transpose=bool(shared.transpose_flags[t]),
+                        reuse_index=t)
+
     for r in range(R):
         p_r = tree_index(params, r)
         for t in range(T):
-            if shared.shuffle_active[t]:
-                x = backend.shuffle(x, shared.perm_table[t],
-                                    block_perm=bpt[t] if bpt else None,
-                                    block=shared.shuffle_block)
             c_t = tree_index(tree_index(cache, r), t) if cache is not None \
                 else None
-            x, new_c, aux = block_fn(p_r, x, c_t, aux,
-                                     transpose=bool(shared.transpose_flags[t]),
-                                     reuse_index=t)
+            if remat:
+                x, new_c, aux = checkpoint(one_reuse, t, p_r, x, aux, None,
+                                           use_reentrant=False)
+            else:
+                x, new_c, aux = one_reuse(t, p_r, x, aux, c_t)
             if cache is not None:
                 if decode_pos is not None:
                     _write_deltas(cache, new_c, r, t, decode_pos)

@@ -342,10 +342,12 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 # =========================================================================
 # forward
 # =========================================================================
-def encoder_pass(params, cfg: ModelConfig, batch, backend):
+def encoder_pass(params, cfg: ModelConfig, batch, backend,
+                 remat: bool = False):
     """Whisper's encoder over the stub frame embeddings: ``audio_proj``,
-    the ``enc`` segment (non-causal, mode ``train``: no cache), then
-    ``enc_final_norm``.  Returns the memory (B, F, d) and the aux."""
+    the ``enc`` segment (non-causal, mode ``train``: no cache; ``remat``
+    recomputes each reuse in the backward), then ``enc_final_norm``.
+    Returns the memory (B, F, d) and the aux."""
     dtype = torch_dtype(cfg.compute_dtype)
     frames = batch["audio_embeds"].to(dtype)
     h = apply_linear(params["audio_proj"], frames, backend=backend)
@@ -354,13 +356,13 @@ def encoder_pass(params, cfg: ModelConfig, batch, backend):
     h, _, aux = run_stack(group_block_fn(cfg, spec, "train", None, backend),
                           params["segments"][spec.name], h,
                           shareds_for(cfg)[spec.name], aux0=aux,
-                          backend=backend)
+                          remat=remat, backend=backend)
     return apply_norm(params["enc_final_norm"], h, cfg.norm,
                       cfg.norm_eps), aux
 
 
 def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
-            pos=None, legacy_decode=False, execution=None):
+            pos=None, remat=False, legacy_decode=False, execution=None):
     """Run the model.
 
     batch: {"tokens": (B, S) int tensor} plus the modality extras outside
@@ -370,7 +372,9 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
     and ``pos`` a scalar or a (B,) tensor of per-slot positions;
     prefill_chunk: ``pos`` is the chunk's q_offset and ``caches`` the
     partially filled capacity buffers).  caches are updated IN PLACE and
-    returned.  ``legacy_decode`` (decode, scalar ``pos``) runs the GQA
+    returned.  ``remat`` (mode ``train``) recomputes each reuse of every
+    stack in the backward, keeping only its input.  ``legacy_decode``
+    (decode, scalar ``pos``) runs the GQA
     layers' baseline decode, which writes each layer's cache in the block,
     so the stack runner writes no deltas; as in the reference it leaves
     MLA's decode as it is, and it refuses stacks whose decode step returns
@@ -396,7 +400,7 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
                               batch["image_embeds"].to(dtype),
                               backend=backend)
     if cfg.family == "audio" and mode != "decode":
-        memory, aux = encoder_pass(params, cfg, batch, backend)
+        memory, aux = encoder_pass(params, cfg, batch, backend, remat=remat)
     for spec in build_segments(cfg):
         if spec.stream == "encoder":
             continue                        # run by encoder_pass
@@ -405,7 +409,7 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
                                legacy_decode=legacy)
         h, seg_cache, aux = run_stack(
             block, params["segments"][spec.name], h, shareds[spec.name],
-            cache=seg_cache, aux0=aux,
+            cache=seg_cache, aux0=aux, remat=remat,
             decode_pos=pos if mode == "decode" and not legacy else None,
             backend=backend)
     h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)

@@ -1,0 +1,98 @@
+"""AdamW with a cosine schedule and global-norm clipping (port of
+``repro.optim.adamw``).
+
+Trees are the port's nested dicts of tensors.  Master params stay float32;
+the forward casts them to ``cfg.compute_dtype`` inside the graph, so the
+gradients reaching :func:`update` are float32.  The update runs without
+autograd and returns new tensors: the params, ``m`` and ``v`` passed in
+are left as they were.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.prepared import flatten_with_path
+
+
+@dataclasses.dataclass(frozen=True)
+class OptState:
+    m: Any                      # float32 tree shaped like the params
+    v: Any
+    step: torch.Tensor          # int32, 0-d
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in the reference's order (dict keys sorted at every level)."""
+    return [leaf for _, leaf in flatten_with_path(tree)]
+
+
+def init(params) -> OptState:
+    z = lambda p: torch.zeros_like(p, dtype=torch.float32)
+    step = torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
+    return OptState(m=tree_map(z, params), v=tree_map(z, params), step=step)
+
+
+def cosine_lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up to ``tcfg.lr``, then a cosine to 0 at
+    ``total_steps`` (float32, on ``step``'s device)."""
+    step = step.to(torch.float32)
+    warm = torch.clamp(step / max(tcfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - tcfg.warmup_steps)
+                       / max(tcfg.total_steps - tcfg.warmup_steps, 1),
+                       0.0, 1.0)
+    return tcfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
+
+
+def global_norm(tree) -> torch.Tensor:
+    total = 0
+    for x in tree_leaves(tree):
+        total = total + torch.sum(torch.square(x.to(torch.float32)))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def update(params, grads, state: OptState, tcfg: TrainConfig):
+    """One AdamW step.  Returns (new_params, new_state, metrics)."""
+    step = state.step + 1
+    lr = cosine_lr(tcfg, step)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(tcfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    b1, b2 = tcfg.beta1, tcfg.beta2
+    c1 = 1 - torch.pow(torch.full((), b1, device=step.device), step)
+    c2 = 1 - torch.pow(torch.full((), b2, device=step.device), step)
+
+    def upd(p, g, m, v):
+        g = g.to(torch.float32) * scale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
+        mh = m / c1
+        vh = v / c2
+        p_new = p - lr * (mh / (torch.sqrt(vh) + 1e-8)
+                          + tcfg.weight_decay * p)
+        return p_new.to(p.dtype), m, v
+
+    out = tree_map(upd, params, grads, state.m, state.v)
+    new_p, new_m, new_v = (_pick(out, i) for i in range(3))
+    metrics = {"lr": lr, "grad_norm": gnorm}
+    return new_p, OptState(m=new_m, v=new_v, step=step), metrics
+
+
+def _pick(tree, i):
+    """Element ``i`` of every (p, m, v) leaf of ``tree``."""
+    if isinstance(tree, tuple):
+        return tree[i]
+    return {k: _pick(v, i) for k, v in tree.items()}

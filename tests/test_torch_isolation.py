@@ -104,6 +104,24 @@ def test_launcher_slice_modules_are_checked_and_standalone(module):
     assert bad == []
 
 
+# the training slice's new and extended modules
+SLICE13_MODULES = ["launch/train.py", "train/__init__.py",
+                   "train/trainer.py", "train/checkpoint.py",
+                   "optim/__init__.py", "optim/adamw.py",
+                   "data/__init__.py", "data/pipeline.py", "api.py",
+                   "core/sharing.py", "models/transformer.py"]
+
+
+@pytest.mark.parametrize("module", SLICE13_MODULES)
+def test_training_slice_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax",
+                                     "ml_dtypes")]
+    assert bad == []
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)

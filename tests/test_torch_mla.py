@@ -383,3 +383,53 @@ def test_small_mla_check_bound_covers_the_emulated_flash_rounding(seed):
         logits[mma], _ = prog.prefill({"tokens": toks}, 112)
     gap = cs.rel_l2(logits[True], logits[False])
     assert 0.05 <= gap <= 0.067 < cs.MLA_MODEL_TOL
+
+
+def test_a8_flip_ulps_measures_bf16_flips():
+    """``chip_smoke.a8_flip_ulps``: at a scale of 1 (amax 127), 10.5 and
+    10.5625, one bf16 ulp apart, round to 10 and 11 (half to even): each
+    value lies within one ulp of the boundary 10.5; 10.375 against 10.625
+    (four ulps apart) put 10.625 two ulps from it."""
+    cs = _chip_smoke()
+
+    def bf(*v):
+        return torch.tensor((127.0,) + v, dtype=torch.bfloat16)
+    assert cs.a8_flip_ulps(bf(3.0), bf(3.0)) == 0.0
+    assert cs.a8_flip_ulps(bf(10.5), bf(10.5625)) == 1.0
+    assert cs.a8_flip_ulps(bf(10.375), bf(10.625)) == 2.0
+
+
+def test_small_mla_taught_check_runs_on_the_cpu():
+    """``chip_smoke.small_mla_check``'s taught comparison with the card's
+    part played by the emulating program itself (each MVM input recorded):
+    the taught logits equal it bit for bit, every call is taught, no A8
+    code flips, and the flips group per layer (7 calls a layer, then the
+    lm head)."""
+    import collections
+    cs = _chip_smoke()
+    cfg, params, toks = cs.small_mla_model(7)
+    records = []
+    base = type(cs.exact_backend(mma_flash=True))
+
+    class Recording(base):
+        def _photonic_matmul(self, x, *a, **k):
+            records.append(x.clone())
+            return super()._photonic_matmul(x, *a, **k)
+
+    card = t_api.Program.build(cfg, params, device="cpu",
+                               execution=Recording("photonic",
+                                                   flash_min_seq=64))
+    lg, _ = card.prefill({"tokens": toks}, 112)
+    flips = {}
+    taught = t_api.Program.build(
+        cfg, params, device="cpu", execution=cs.exact_backend(
+            mma_flash=True, flash_min_seq=64,
+            teacher=collections.deque(records), flips=flips,
+            input_tol=cs.MLA_INPUT_TOL))
+    lt, _ = taught.prefill({"tokens": toks}, 112)
+    assert torch.equal(lg, lt) and lg.dtype == torch.bfloat16
+    assert flips["calls"] == len(records) == 15
+    assert cs.per_layer_flips(cfg, flips["per_call"]) == [0, 0, 0]
+    assert flips["max_flip_bf16_ulps"] == 0.0
+    with pytest.raises(AssertionError):
+        cs.per_layer_flips(cfg, [0] * 14)

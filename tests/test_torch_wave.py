@@ -7,13 +7,15 @@ mesh, ``act_pspec``) refused.  ``legacy_decode`` runs since slice 12
 taken since slice 11 (``tests/test_torch_vlm.py``,
 ``tests/test_torch_audio.py``).
 
-The MoE waves run on xla.  On photonic, one of these waves parts from the
-reference at its third generated token through the reference's own
-sensitivity: after one decode step the two caches differ by 1.5e-6 (float32
-summation order), and the reference's next logits move 0.03 rel-L2 between
-its own caches and the port's (an A8 or routing flip), while on the port's
-caches the two agree to 5e-7.  ``test_torch_graphs.py`` holds photonic MoE
-decode steps to the reference from shared caches, and
+The MoE waves run on xla as they are.  On photonic they are compared
+*taught* (``test_photonic_moe_waves_taught``, with ``test_torch_vlm``'s
+``taught``): untaught, one of these waves parts from the reference at its
+third generated token through the reference's own sensitivity: after one
+decode step the two caches differ by 1.5e-6 (float32 summation order),
+and the reference's next logits move 0.03 rel-L2 between its own caches
+and the port's (an A8 or routing flip), while on the port's caches the
+two agree to 5e-7.  ``test_torch_graphs.py`` holds photonic MoE decode
+steps to the reference from shared caches, and
 ``test_torch_moe_serving.py`` its greedy tokens."""
 import dataclasses
 import functools
@@ -41,6 +43,7 @@ from repro_torch.serve import engine as t_engine
 from repro_torch.serve.batcher import Request as TRequest
 from repro_torch.serve.batcher import WaveBatcher as TWave
 from repro_torch.serve.scheduler import ContinuousScheduler, Scheduler
+from test_torch_vlm import RecordingBackend, taught
 
 torch.set_num_threads(2)
 V = 211
@@ -89,6 +92,37 @@ def test_wave_batcher_token_identical_to_reference(name, execution):
     assert tw.stats.as_dict() == jw.stats.as_dict()
     assert tw.stats.waves == 3 and tw.stats.padding_overhead == pytest.approx(
         jw.stats.padding_overhead)
+
+
+def test_photonic_moe_waves_taught(monkeypatch):
+    """granite's MoE waves on photonic, taught: the reference records the
+    input of each of its MVM calls, the port checks its own input to the
+    same call (rel-L2 <= 1e-5; each differing A8 code a one-step flip
+    within ``chip_smoke.A8_FLIP_BAND`` of its boundary) and multiplies the
+    reference's.  The same completions, greedy tokens and ``WaveStats``
+    (one A8 code flips on these requests, and is taught away)."""
+    jc, tc, params, tp = _model("granite-moe-1b-a400m")
+    jprog = j_api.Program.build(jc, params,
+                                execution=RecordingBackend("photonic"))
+    tprog = t_api.Program.build(tc, tp, execution="photonic", device="cpu")
+
+    def drain(wave, prog, request):
+        w = wave(prog, wave_size=2)
+        for r in _requests(request):
+            w.submit(r)
+        done = w.drain()
+        return ([(c.rid, np.asarray(c.tokens), c.prompt_len, c.padded_to,
+                  c.finish_reason) for c in done], w.stats.as_dict())
+
+    want, got, flips = taught(monkeypatch,
+                              lambda: drain(JWave, jprog, JRequest),
+                              lambda: drain(TWave, tprog, TRequest))
+    assert [c[0] for c in got[0]] == [c[0] for c in want[0]]
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_array_equal(g[1], w[1])
+        assert g[2:] == w[2:]
+    assert got[1] == want[1] and got[1]["waves"] == 3
+    assert flips <= 4
 
 
 def test_wave_batcher_builds_from_params_and_refuses_extras():
