@@ -144,6 +144,14 @@ the script exits non-zero without printing the final ``ok`` line):
    and flash launches held to the config's exact count, each launch to
    its plain version on its own inputs and the CE to xla's at the W8A8
    bound;
+3n. since slice 14 the paper's own models (``paper_phase``): Tables 2, 3
+   and Fig. 1 from the port's cost model (Table 3 held to the paper),
+   Tables 4 and 5 through ``repro_torch.paper_run`` with every MLP and
+   Mixer trained on the card at the reference's setting (120 steps of
+   batch 64), three train steps and the VGG-13 / ResNet-18 forwards held
+   to the CPU, their images/s, and a card-trained Mixer 2x4 quantized
+   W8A8 bit for bit as on the CPU (no port kernel: cuBLAS and cuDNN in
+   float32);
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
@@ -3041,6 +3049,204 @@ def train_phase(torch, gpu):
 
 
 # -------------------------------------------------------------------------
+# phase 3n: the paper's own models, PTQ and tables
+# -------------------------------------------------------------------------
+PAPER_TOL = 1e-4            # card vs CPU: forwards, params after 3 steps
+PAPER_LOSS_TOL = 1e-5       # card vs CPU: each of the 3 losses, relative
+TABLE3_DELAY_TOL, TABLE3_ENERGY_TOL = 1e-3, 5e-3   # tests/test_core.py's
+TABLE3_LATENCY = (0.567, 0.01)                     # gates on Table 3
+
+
+def conv_flops(pm, cfg) -> int:
+    """Multiply-adds x 2 of one 32x32 image through VGG-13 or ResNet-18
+    (convolutions at their SAME output sizes, and the head)."""
+    flops, size, cin = 0, 32, 3
+    if isinstance(cfg, pm.VGGConfig):
+        for item in pm.VGG13_PLAN:
+            if item == "M":
+                size //= 2
+                continue
+            flops += 2 * size * size * 9 * cin * item
+            cin = item
+        return flops + 2 * 512 * cfg.classes
+    flops += 2 * size * size * 9 * 3 * 64
+    cin = 64
+    for cout, blocks, stride in pm.RESNET18_STAGES:
+        size = -(-size // stride)
+        flops += 2 * size * size * 9 * (cin + cout) * cout     # block 0
+        if stride != 1 or cin != cout:
+            flops += 2 * size * size * cin * cout              # projection
+        flops += (blocks - 1) * 2 * (2 * size * size * 9 * cout * cout)
+        cin = cout
+    return flops + 2 * 512 * cfg.classes
+
+
+def paper_phase(torch, gpu):
+    """The paper's own models (``repro_torch.models.paper_models``), W8A8
+    PTQ and the runner of its tables (``repro_torch.paper_run``), on the
+    card.  Tables 2, 3 and Fig. 1 from the port's cost model, Table 3 held
+    to the paper at ``tests/test_core.py``'s gates; Tables 4 and 5 at the
+    reference's full setting (120 steps of batch 64, 4 eval batches of 256:
+    2 MLPs and 3 Mixers, then 5 Mixers, all trained on the card), every
+    loss finite and the params and energy columns equal to the same
+    functions on the CPU (accuracies reported, not gated: a synthetic task
+    and random weights); three ``train_classifier`` steps of the MLP 1x6
+    and the Mixer 2x4 on the card against the CPU; VGG-13 and ResNet-18,
+    shared and not, forward at batch 8 against the CPU and timed at batch
+    256; a Mixer 2x4 trained on the card (its step walls) and quantized
+    W8A8, int8 leaves and scales bit for bit those of its CPU copy, as is
+    the serving path's A8 scale of each leaf in float32 and bf16, with the
+    dequantized model's accuracy beside the float one.  No port kernel
+    runs here: the models multiply through ``obu.blend_dot`` (cuBLAS) and
+    convolve through cuDNN, float32 with TF32 off (``main``)."""
+    from repro_torch import paper_run, vision_task
+    from repro_torch.core import photonic
+    from repro_torch.core.sharing import tree_leaves, tree_map
+    from repro_torch.models import paper_models as pm
+    from repro_torch.quant import w8a8
+
+    # ---- Tables 2, 3 and Fig. 1: the cost model ----
+    t2, t3, f1 = (paper_run.bench_table2(), paper_run.bench_table3(),
+                  paper_run.bench_fig1())
+    bad = []
+    for det in t3.details:
+        d_no, e_no, d_re, e_re = det["paper"]
+        for got, want, tol in ((det["delay_no_reuse_ns"], d_no,
+                                TABLE3_DELAY_TOL),
+                               (det["delay_reuse_ns"], d_re,
+                                TABLE3_DELAY_TOL),
+                               (det["energy_no_reuse_uJ"], e_no,
+                                TABLE3_ENERGY_TOL),
+                               (det["energy_reuse_uJ"], e_re,
+                                TABLE3_ENERGY_TOL)):
+            if abs(got - want) / want > tol:
+                bad.append((det["tile"], got, want))
+    latency = t3.details[-1]["latency_saving"]
+    for b in (t2, t3, f1):
+        emit({"paper": b.name, "row": b.row()})
+    if bad or abs(latency - TABLE3_LATENCY[0]) > TABLE3_LATENCY[1]:
+        raise AssertionError(f"Table 3 off the paper: {bad}, latency "
+                             f"saving {latency}")
+
+    # ---- Tables 4 and 5, trained on the card ----
+    out = {"paper": "tables", "gpu": gpu}
+    t = time.perf_counter()
+    t4 = paper_run.bench_table4(device="cuda")
+    torch.cuda.synchronize()
+    out["table4_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    t5 = paper_run.bench_table5(device="cuda")
+    torch.cuda.synchronize()
+    out["table5_s"] = time.perf_counter() - t
+    wrong = []
+    for (model, arc, cfg), row in zip(paper_run.table4_variants(),
+                                      t4.details):
+        p, sh, _ = paper_run.build(cfg, device="cpu")
+        if (row["params_M"], row["energy_uJ"]) != paper_run.cost_columns(
+                cfg, p, sh) or row.get("losses_finite") is False:
+            wrong.append(row)
+        emit({"paper": "table4", **row})
+    for (tag, rc), row in zip(paper_run.table5_variants(), t5.details):
+        p, _, _ = paper_run.build(pm.MixerConfig(blocks=8, reuse=rc),
+                                  device="cpu")
+        if row["params"] != pm.param_count(p) or not row["losses_finite"]:
+            wrong.append(row)
+        emit({"paper": "table5", **row})
+    trained = [r for r in t4.details if r["acc_proxy"] is not None]
+    out.update({"table4_row": t4.row(), "table5_row": t5.row(),
+                "trained": len(trained) + len(t5.details)})
+    emit(out)
+    if wrong or len(trained) != 5 or len(t5.details) != 5:
+        raise AssertionError(f"Tables 4/5 on the card: {wrong}")
+
+    # ---- three train steps, card against CPU ----
+    variants = {f"{m} {a}": cfg for m, a, cfg in paper_run.table4_variants()}
+    steps = {}
+    for name in ("MLP layer-wise 1x6", "MLP-Mixer block-wise 2x4"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p, _, fwd = paper_run.build(variants[name], device=dev)
+            losses = []
+            p3, _ = vision_task.train_classifier(
+                fwd, p, steps=3, batch_size=64, eval_batches=1, device=dev,
+                losses=losses)
+            runs[dev] = (p3, losses)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][1],
+                                                           runs["cpu"][1]))
+        steps[name] = {"params_rel_l2": max(tree_leaves(tree_map(
+            lambda a, b: rel_l2(a.cpu(), b), runs["cuda"][0],
+            runs["cpu"][0]))),
+                       "loss_rel": loss_rel, "losses": runs["cuda"][1]}
+    emit({"paper": "train_steps_card_vs_cpu", "steps": 3, "batch": 64,
+          **steps})
+    if any(v["params_rel_l2"] > PAPER_TOL or v["loss_rel"] > PAPER_LOSS_TOL
+           for v in steps.values()):
+        raise AssertionError(f"3 train steps, card vs CPU: {steps}")
+
+    # ---- VGG-13 and ResNet-18: card against CPU, images/s ----
+    timer = Timer(torch)
+    task = vision_task.make_task(device="cpu")
+    x8 = task(20_000, 8)[0]
+    x256 = task(20_001, 256)[0].cuda()
+    convs = []
+    for model, arc, cfg in paper_run.table4_variants():
+        if model not in ("VGG-13", "ResNet-18"):
+            continue
+        fwd = pm.vgg13_forward if model == "VGG-13" else pm.resnet18_forward
+        p, _, _ = paper_run.build(cfg, device="cpu")
+        pc = pm.to_device(p, "cuda")
+        with torch.no_grad():
+            err = rel_l2(fwd(pc, cfg, x8.cuda()).cpu(), fwd(p, cfg, x8))
+            ms = timer.ms(lambda: fwd(pc, cfg, x256), 10)
+        flops = conv_flops(pm, cfg) * 256
+        convs.append({"model": model, "arc": arc,
+                      "params": pm.param_count(p),
+            "card_vs_cpu_rel_l2": err, "batch": 256, "ms": ms,
+            "images_per_s": 256 / ms * 1e3, "gflop": flops / 1e9,
+            "fp32_bound_ms": flops / FP32_FLOPS * 1e3})
+    del timer
+    emit({"paper": "conv_forwards", "rows": convs})
+    if any(c["card_vs_cpu_rel_l2"] > PAPER_TOL for c in convs):
+        raise AssertionError(f"conv forwards, card vs CPU: {convs}")
+
+    # ---- a Mixer 2x4 trained on the card, quantized W8A8 ----
+    p, _, fwd = paper_run.build(variants["MLP-Mixer block-wise 2x4"],
+                                device="cuda")
+    walls, losses = [], []
+    with timed_calls(vision_task, "train_step", walls):
+        pt, acc = vision_task.train_classifier(fwd, p, steps=120,
+                                               batch_size=64, device="cuda",
+                                               losses=losses)
+    q, s = w8a8.quantize_params(pt)
+    ptc = pm.to_device(pt, "cpu")
+    qc, sc = w8a8.quantize_params(ptc)
+    bits = all(tree_leaves(tree_map(
+        lambda a, b: a is b if a is None else (
+            a.dtype == b.dtype and torch.equal(a.cpu(), b)), (q, s), (qc, sc))))
+    # the serving path's A8 scale, per tensor, in float32 and bf16: the
+    # card's must equal the CPU's bit for bit, as the W8 scales above do
+    a8 = all(torch.equal(photonic.a8_scale(a.to(dt)).cpu(),
+                         photonic.a8_scale(b.to(dt)))
+             for a, b in zip(tree_leaves(pt), tree_leaves(ptc))
+             for dt in (torch.float32, torch.bfloat16))
+    acc_dq = vision_task.accuracy(fwd, w8a8.dequantize_params(q, s),
+                                  vision_task.make_task(device="cuda"))
+    ptq = {"paper": "w8a8_mixer_2x4", "gpu": gpu,
+           "step_wall_ms_median": statistics.median(walls[1:]) * 1e3,
+           "step_wall_ms_first": walls[0] * 1e3, "steps": len(walls),
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "acc_float": acc, "acc_w8a8": acc_dq,
+           "quantization_error": w8a8.quantization_error(pt),
+           "model_bytes_w8a8": w8a8.model_bytes(q),
+           "model_bytes_float": w8a8.model_bytes(pt),
+           "int8_and_scales_bit_equal_to_cpu": bits,
+           "a8_scales_bit_equal_to_cpu": a8}
+    emit(ptq)
+    if not (bits and a8 and all(map(np.isfinite, losses)) and len(walls) == 120):
+        raise AssertionError(f"W8A8 on the card-trained Mixer: {ptq}")
+
+
+# -------------------------------------------------------------------------
 def summary(name, rows, launches, at, source, replaces):
     """One kernel's entry: errors are maxima over every case (``worst_at``
     names the case of the largest rel-L2); times are those of case ``at``."""
@@ -3122,6 +3328,7 @@ def main() -> int:
           AUDIO_FUSED_PER_PASS, 12)
     timed("small_memory_checks", small_memory_checks, torch)
     timed("train", train_phase, torch, smi)
+    timed("paper", paper_phase, torch, smi)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
 
     split = "src/repro_torch/csrc/photonic_mvm_split.cu"

@@ -92,6 +92,23 @@ def apply_channel_permutation(x: torch.Tensor, perm) -> torch.Tensor:
     return x.index_select(-1, idx)
 
 
+def group_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Channel-group shuffle of the last axis (reshape/transpose form; the
+    permutation-vector form is bit-identical)."""
+    *lead, c = x.shape
+    if c % groups != 0:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    x = x.reshape(*lead, groups, c // groups)
+    return x.transpose(-1, -2).reshape(*lead, c)
+
+
+def optical_transpose(w: torch.Tensor) -> torch.Tensor:
+    """Transpose of the last two dims: the OBU's vertical-input path.  At
+    matmul use-sites :func:`blend_dot` with ``transpose=True`` contracts
+    over the weight's last dim instead."""
+    return w.transpose(-1, -2)
+
+
 def blend_dot(x: torch.Tensor, w: torch.Tensor, *,
               transpose: bool) -> torch.Tensor:
     """``x @ w`` or ``x @ w.T`` (w: (k, n), or (n, k) when transposed) with

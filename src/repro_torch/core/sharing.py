@@ -28,6 +28,7 @@ the reuse is recomputed there against the shared weights (the reference's
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -36,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import obu
-from repro_torch.core.prm import ReuseConfig, ReusePlan
+from repro_torch.core.prm import ReuseConfig, ReusePlan, no_reuse
 
 
 def tree_index(tree, i):
@@ -44,6 +45,35 @@ def tree_index(tree, i):
     if isinstance(tree, dict):
         return {k: tree_index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (and the
+    same places of ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of nested dicts, lists and tuples in the reference's order
+    (dict keys sorted); None is no leaf, as in ``jax.tree.leaves``."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_stack(trees):
+    """Stack the leaves of same-structured nested dicts on a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(list(trees), dim=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +123,10 @@ class SharedStack:
     @property
     def reuse_times(self) -> int:
         return self.plan.reuse_times
+
+
+def identity_stack(depth: int, channels: int) -> SharedStack:
+    return SharedStack.build(depth, channels, no_reuse(depth))
 
 
 BlockFn = Callable[..., tuple]
@@ -198,3 +232,19 @@ def _write_deltas(cache, delta, r, t, pos):
             _write_deltas(cache[k], delta[k], r, t, pos)
         return
     _delta_update(cache, delta, r, t, pos)
+
+
+# ---------------------------------------------------------------------------
+# parameter bookkeeping
+# ---------------------------------------------------------------------------
+def stacked_init(init_one: Callable[[torch.Generator], Any],
+                 generator: torch.Generator, num_physical: int) -> Any:
+    """R independent draws of a block's params from ``generator``, stacked
+    on axis 0 (the reference vmaps ``init_one`` over R split keys)."""
+    return tree_stack([init_one(generator) for _ in range(num_physical)])
+
+
+def param_count(tree) -> int:
+    """Elements over every leaf (a leaf without a shape raises, as in the
+    reference; ``models.paper_models.param_count`` skips such leaves)."""
+    return int(sum(math.prod(x.shape) for x in tree_leaves(tree)))

@@ -1,9 +1,10 @@
 """AdamW with a cosine schedule and global-norm clipping (port of
 ``repro.optim.adamw``).
 
-Trees are the port's nested dicts of tensors.  Master params stay float32;
-the forward casts them to ``cfg.compute_dtype`` inside the graph, so the
-gradients reaching :func:`update` are float32.  The update runs without
+Trees are the port's nested dicts of tensors, walked by
+``core.sharing.tree_map`` and ``tree_leaves`` (dict keys sorted).  Master
+params stay float32; the forward casts them to ``cfg.compute_dtype``
+inside the graph, so the gradients reaching :func:`update` are float32.  The update runs without
 autograd and returns new tensors: the params, ``m`` and ``v`` passed in
 are left as they were.
 """
@@ -16,7 +17,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.prepared import flatten_with_path
+from repro_torch.core.sharing import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,19 +25,6 @@ class OptState:
     m: Any                      # float32 tree shaped like the params
     v: Any
     step: torch.Tensor          # int32, 0-d
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts of one structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree) -> list:
-    """Leaves in the reference's order (dict keys sorted at every level)."""
-    return [leaf for _, leaf in flatten_with_path(tree)]
 
 
 def init(params) -> OptState:

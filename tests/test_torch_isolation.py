@@ -122,6 +122,44 @@ def test_training_slice_modules_are_checked_and_standalone(module):
     assert bad == []
 
 
+# the paper-models slice's new and extended modules
+SLICE14_MODULES = ["models/paper_models.py", "quant/__init__.py",
+                   "quant/w8a8.py", "vision_task.py", "paper_run.py",
+                   "core/photonic.py", "core/obu.py", "core/sharing.py",
+                   "bridge.py"]
+
+
+@pytest.mark.parametrize("module", SLICE14_MODULES)
+def test_paper_slice_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax",
+                                     "ml_dtypes", "benchmarks")]
+    assert bad == []
+
+
+def test_paper_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch import bridge, paper_run, vision_task
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vision_task.make_task()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vision_task.train_classifier(lambda p, x: x, {}, steps=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper_run.build(paper_run.table4_variants()[0][2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper_run.bench_table4(quick=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper_run.bench_table5(quick=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper_run.main(["--only", "table3"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bridge.paper_params_from_flat({"convs/0": [1.0]})
+    assert vision_task.make_task(device="cpu")(0, 2)[0].device.type == "cpu"
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
