@@ -152,6 +152,20 @@ the script exits non-zero without printing the final ``ok`` line):
    to the CPU, their images/s, and a card-trained Mixer 2x4 quantized
    W8A8 bit for bit as on the CPU (no port kernel: cuBLAS and cuDNN in
    float32);
+3o. since slice 15 sharded execution (``sharded_phase``), right after the
+   launcher, as ranks over ``torch.distributed`` sharing the card (gloo;
+   every line names the transport): the small float32 model's
+   ``launch/shardcheck.py`` gates on 2x2 ranks, then minitron-4b R&B at
+   full width on 1x2, 2x2 and 2x1 ranks (one 4 x 600 prefill, 8 decode
+   steps; every dot of a prefill and a decode step taught against the
+   single-device kernel on the same input; the 2x1 logits bit-equal to
+   the unsharded Program's and its drain token-identical to the unsharded
+   scheduler's; the 1x2 / 2x2 readings printed beside the unsharded
+   Program's own flash-vs-einsum gap); every rank's fused launches held
+   to ``fused_per_pass`` with each input on the card, one line per rank
+   (launches, taught dots, bank piece shapes, peak memory, wall); then
+   ``python -m repro_torch.launch.serve --mesh 1x2`` (its ``main``) serves
+   4 requests;
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
@@ -1393,6 +1407,361 @@ def serve_launcher(torch, gpu):
 # -------------------------------------------------------------------------
 # phase 2, slice 2: the split MVMs and the blend
 # -------------------------------------------------------------------------
+# -------------------------------------------------------------------------
+# phase 3s: sharded execution as ranks on the card (slice 15)
+# -------------------------------------------------------------------------
+# one prefill of 4 x 600 tokens per mesh: two rows per data shard on 2x1
+# and 2x2 (a rank left one row takes another float32 einsum path in the
+# decode attention than two rows do: torch treats a size-1 batch dim
+# apart, so 2x1 at 2 rows drifts from the unsharded logits after the
+# first decode step, and at 4 rows it does not)
+SHARD_ROWS = 4
+SHARD_PROMPT = 600
+SHARD_DECODE = 8              # then 8 decode steps on the unsharded tokens
+SHARD_MESHES = ("1x2", "2x2", "2x1")
+# the 2x1 drain's prompts stay under flash_min_seq, so the unsharded
+# scheduler prefills on the einsum path too (flash is off on a mesh)
+SHARD_DRAIN_LENS = (40, 200, 300, 450)
+SHARD_DRAIN_NEW = 8
+# a row-parallel dot rounds each rank's partial to bf16 before the sum:
+# against the single-device kernel on the same input, within that rounding
+SHARD_SPLIT_TOL = 2.0 ** -8
+
+
+def taught_dots(prog, whole, records):
+    """``prog``'s backend made to check each sharded photonic dot: after
+    the rank's sharded dot, the single-device kernel runs on the same input
+    rows at the same A8 scale (the step's max over the data axes) against
+    the whole bank ``whole`` (tag -> PreparedTensor), and ``records`` gets
+    (rule, rel-L2, bit-equal).  Returns the backend to restore."""
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.core.photonic import a8_scale_from_amax
+    from repro_torch.kernels import ops
+
+    class Taught(type(prog.backend)):
+        def _photonic_matmul_sharded(self, x, prep, pair, *, transpose, bias,
+                                     block_perm, block, activation, tp_hint):
+            y = super()._photonic_matmul_sharded(
+                x, prep, pair, transpose=transpose, bias=bias,
+                block_perm=block_perm, block=block, activation=activation,
+                tp_hint=tp_hint)
+            if prep is None:                  # quantized in the step
+                wq, ws = pair
+            else:
+                w = whole[prep.tag]
+                for i in prep.placement.index:
+                    w = w[i]
+                wq, ws = ((w.wq_t, w.scale_t) if transpose
+                          else (w.wq, w.scale))
+            xs = a8_scale_from_amax(self._rows_amax(x))
+            y1 = ops.photonic_matmul_fused(
+                x, wq, ws, x_scale=xs, transpose=transpose, bias=bias,
+                block_perm=block_perm, block=block,
+                activation=activation or "none")
+            rule = backend_lib.partition_rule(
+                self.mesh.axis_size("model"), x.shape[-1],
+                wq.shape[0] if transpose else wq.shape[1],
+                block_perm=block_perm, tp_hint=tp_hint,
+                collective=self.tp_collective)
+            records.append((rule, rel_l2(y, y1), bool((y == y1).all())))
+            return y
+
+    base = prog.backend
+    prog.backend = Taught(**{f.name: getattr(base, f.name)
+                             for f in dataclasses.fields(base)})
+    return base
+
+
+def sharded_rank(mesh, job):
+    """One rank of the full-width sharded runs (``launch.mesh.init_ranks``
+    starts it, ranks sharing the card over gloo): minitron-4b R&B built on
+    the rank's mesh (one rank at a time, to cap the card's peak), then
+    ``job["prompts"]`` prefilled and ``SHARD_DECODE`` decode steps on
+    ``job["tokens"]`` (the unsharded run's greedy tokens), and with
+    ``job["drain"]`` a ``ContinuousScheduler`` drain.  The counted window
+    holds exactly those steps: every fused-MVM input on the card, and the
+    rank's fused launches equal to ``fused_per_pass`` per pass
+    (reduce_scatter: one kernel a dot), no flash.  Then, outside it, the
+    prefill and one decode step again with each dot taught
+    (``taught_dots``) against the whole bank.  Returns the logits and
+    completions, the launch counts and the rank's report."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prepared
+    from repro_torch.kernels import counts
+    from repro_torch.kernels import photonic_mvm as pm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("minitron-4b", reuse=True)
+    t0 = time.perf_counter()
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            params = tfm.init_model(cfg, seed=0, device=mesh.device)
+            whole = {leaf.tag: leaf for leaf in prepared.tree_leaves(
+                prepared.prepare_params(params, cfg.compute_dtype, True))
+                if isinstance(leaf, prepared.PreparedTensor)}
+            prog = api.Program.build(cfg, params, execution="photonic",
+                                     mesh=mesh)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    build_s = time.perf_counter() - t0
+    per_prefill = fused_per_pass(cfg, prefill=True)
+    per_decode = fused_per_pass(cfg, prefill=False)
+    out = {"rank": mesh.rank, "coords": mesh.coords,
+           "transport": mesh.describe(), "build_s": build_s}
+
+    wq_shapes, off_card = set(), []
+    fused = pm.photonic_mvm_fused
+
+    def on_card(x, wq, x_scale, w_scale, **kw):
+        for t in (x, wq, x_scale, w_scale, kw.get("bias")):
+            if t is not None and t.device.type != "cuda":
+                off_card.append(tuple(t.shape))
+        wq_shapes.add(tuple(wq.shape))
+        return fused(x, wq, x_scale, w_scale, **kw)
+
+    prompts = torch.as_tensor(job["prompts"]).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    pm.photonic_mvm_fused = on_card
+    counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prog.prefill({"tokens": prompts},
+                                  SHARD_PROMPT + SHARD_DECODE)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    if counts.snapshot()["photonic_mvm_fused"] != per_prefill:
+        raise AssertionError(f"rank {mesh.rank}: prefill fused launches "
+                             f"{counts.snapshot()} != {per_prefill}")
+    steps = [logits.float().cpu()]
+    t0 = time.perf_counter()
+    for i, tok in enumerate(job["tokens"]):
+        lg, caches = prog.decode(torch.as_tensor(tok)[:, None].cuda(),
+                                 caches, SHARD_PROMPT + i)
+        steps.append(lg.float().cpu())
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    out["logits"] = steps
+    out["cache_rows"] = int(caches["main"]["l0"]["k"].shape[2])
+    want = per_prefill + per_decode * len(job["tokens"])
+    if "drain" in job:
+        sched = ContinuousScheduler(prog, capacity=4, max_len=512)
+        for rid, prompt, max_new in job["drain"]:
+            sched.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+        t0 = time.perf_counter()
+        done = sched.drain()
+        torch.cuda.synchronize()
+        out["drain_s"] = time.perf_counter() - t0
+        out["tokens"] = {c.rid: c.tokens.tolist() for c in done}
+        out["drain_decode_steps"] = sched.stats.decode_steps
+        out["pool_rows"], out["pool_lo"] = sched.pool.rows, sched.pool.lo
+        want += (per_prefill * len(job["drain"])
+                 + per_decode * sched.stats.decode_steps)
+    launches = counts.snapshot()
+    pm.photonic_mvm_fused = fused
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if off_card:
+        raise AssertionError(f"rank {mesh.rank}: fused-MVM inputs off the "
+                             f"card: {off_card[:4]}")
+    if launches["photonic_mvm_fused"] != want or launches[
+            "flash_attention"] != 0:
+        raise AssertionError(f"rank {mesh.rank}: launches {launches}, "
+                             f"fused expected {want}, flash 0 on a mesh")
+
+    # outside the counted window: each dot of a prefill and a decode step
+    # against the single-device kernel on the same input
+    records = []
+    base = taught_dots(prog, whole, records)
+    _, caches = prog.prefill({"tokens": prompts}, SHARD_PROMPT + 1)
+    prog.decode(torch.as_tensor(job["tokens"][0])[:, None].cuda(), caches,
+                SHARD_PROMPT)
+    prog.backend = base
+    taught = {}
+    for rule, rel, same in records:
+        t = taught.setdefault(rule, {"calls": 0, "bit_equal": 0,
+                                     "max_rel_l2": 0.0})
+        t["calls"] += 1
+        t["bit_equal"] += same
+        t["max_rel_l2"] = max(t["max_rel_l2"], rel)
+    for rule, t in taught.items():
+        ok = (t["bit_equal"] == t["calls"] if rule in ("column",
+                                                       "replicated")
+              else t["max_rel_l2"] <= job["split_tol"])
+        if not ok:
+            raise AssertionError(f"rank {mesh.rank}: taught {rule} dots "
+                                 f"{t} (column/replicated bit-equal, row "
+                                 f"rules within {job['split_tol']})")
+    if len(records) != per_prefill + per_decode:
+        raise AssertionError(f"rank {mesh.rank}: {len(records)} taught "
+                             f"dots, {per_prefill + per_decode} expected")
+    out.update({"launches": launches, "fused_expected": want,
+                "fused_per_prefill": per_prefill,
+                "fused_per_decode": per_decode, "taught_dots": taught,
+                "wq_shapes": sorted(wq_shapes),
+                "rank_wall_s": time.perf_counter() - t_rank})
+    return out
+
+
+def sharded_phase(torch, gpu):
+    """(a) The small float32 model's shardcheck gates as 2x2 ranks on the
+    card (parity, collectives, DP serving, dropped rules, refusals, the R&B
+    and MoE variants).  (b) minitron-4b R&B at full width on 1x2, 2x2 and
+    2x1 ranks: one 4 x 600 prefill and 8 decode steps on the unsharded
+    run's tokens, each rank's fused launches held to ``fused_per_pass``,
+    and every dot of a prefill and a decode step taught against the
+    single-device kernel on the same input (``sharded_rank``).  The 2x1
+    (data-parallel) logits must equal the unsharded Program's bit for bit
+    and its drain of 4 requests the unsharded scheduler's tokens at the
+    same capacity.  The 1x2 and 2x2 readings are printed beside the
+    unsharded Program's own distance between its two attention routes
+    (flash, and the einsum a mesh runs): at full width with random
+    weights, one float rounding moved anywhere carries the logits that far
+    (per-tensor A8 scales couple every row), past the 0.055 bound, so
+    those readings are not gated end to end; the taught dots are.  Last,
+    ``launch.serve``'s ``--mesh 1x2`` serves 4 requests."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import shardcheck as sc
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    t0 = time.perf_counter()
+    fails, rep = sc.run("2x2", "photonic", serve=True, collectives=True,
+                        dropped=True, refusals=True, variants=True,
+                        device="cuda")
+    if fails:
+        raise AssertionError(f"shardcheck on the card: {fails}")
+    lr, dr = rep["unsharded"]
+    r0 = rep["ranks"][0]
+    emit({"phase": "sharded_small", "gpu": gpu, "mesh": "2x2",
+          "transport": r0["transport"],
+          "prefill_rel_l2": rel_l2(r0["prefill"], lr),
+          "decode_rel_l2": rel_l2(r0["decode"], dr),
+          "variants_rel_l2": {
+              k: [rel_l2(v[0], rep["unsharded_variants"][k][0]),
+                  rel_l2(v[1], rep["unsharded_variants"][k][1])]
+              for k, v in r0["variants"].items()},
+          "wall_s": time.perf_counter() - t0})
+
+    cfg = get_arch("minitron-4b", reuse=True)
+    rng = np.random.default_rng(15)
+    V = cfg.vocab_size
+    prompts = rng.integers(0, V, (SHARD_ROWS, SHARD_PROMPT))
+    drain = [(rid, rng.integers(1, V, n).astype(np.int32), SHARD_DRAIN_NEW)
+             for rid, n in enumerate(SHARD_DRAIN_LENS)]
+    # the unsharded Program on the card, same weights (seed 0), on both
+    # attention routes: flash at 600 rows (its default) and the einsum a
+    # mesh runs (use_flash is off there, as in the reference)
+    params = tfm.init_model(cfg, seed=0)
+    prog = api.Program.build(cfg, params, execution="photonic")
+    del params
+    flash_on = prog.backend
+    runs = {}
+    for route in ("einsum", "flash"):
+        prog.backend = dataclasses.replace(flash_on,
+                                           flash=route == "flash")
+        logits, caches = prog.prefill({"tokens": prompts},
+                                      SHARD_PROMPT + SHARD_DECODE)
+        ref, tokens = [logits.float().cpu()], []
+        for i in range(SHARD_DECODE):
+            tok = (torch.argmax(ref[-1], dim=-1).numpy() if route == "einsum"
+                   else runs["einsum"][1][i])
+            tokens.append(tok)
+            lg, caches = prog.decode(torch.as_tensor(tok)[:, None].cuda(),
+                                     caches, SHARD_PROMPT + i)
+            ref.append(lg.float().cpu())
+        runs[route] = (ref, tokens)
+    prog.backend = flash_on
+    ref, tokens = runs["einsum"]
+    route_gap = [rel_l2(a, b) for a, b in zip(runs["flash"][0], ref)]
+    sched = ContinuousScheduler(prog, capacity=4, max_len=512)
+    for rid, prompt, max_new in drain:
+        sched.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+    want_tokens = {c.rid: c.tokens.tolist() for c in sched.drain()}
+    del prog, caches, sched, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    readings = {}
+    for shape in SHARD_MESHES:
+        job = {"prompts": prompts, "tokens": tokens,
+               "split_tol": SHARD_SPLIT_TOL}
+        if shape == "2x1":
+            job["drain"] = drain
+        ranks = mesh_lib.init_ranks(sharded_rank, shape, device="cuda",
+                                    args=(job,))
+        rels = [rel_l2(got, want) for got, want in
+                zip(ranks[0]["logits"], ref)]
+        same = all(all(torch.equal(a, b) for a, b in
+                       zip(r["logits"], ranks[0]["logits"])) for r in ranks)
+        exact = all(torch.equal(a, b) for a, b in
+                    zip(ranks[0]["logits"], ref))
+        readings[shape] = {"prefill_rel_l2": rels[0],
+                           "decode_rel_l2": rels[1:],
+                           "bit_equal_to_unsharded": exact,
+                           "ranks_equal": same}
+        drains = [r.pop("tokens", None) for r in ranks]
+        for r in ranks:
+            r.pop("logits")
+            emit({"phase": "sharded_rank", "gpu": gpu, "mesh": shape, **r})
+        emit({"phase": "sharded_reading", "gpu": gpu, "mesh": shape,
+              **readings[shape]})
+        if not same or not all(np.isfinite(rels)):
+            raise AssertionError(f"{shape}: ranks equal {same}, rel-L2 "
+                                 f"{rels}")
+        if shape == "2x1":
+            # data parallel: the abs-max over "data" makes every dot the
+            # unsharded one, so logits and tokens are the unsharded ones
+            if not exact:
+                raise AssertionError(f"2x1 logits not bit-equal to the "
+                                     f"unsharded Program: {rels}")
+            for r, got in zip(ranks, drains):
+                if got != want_tokens:
+                    bad = sorted(k for k in want_tokens
+                                 if got.get(k) != want_tokens[k])
+                    raise AssertionError(f"2x1 rank {r['rank']}: drain "
+                                         f"tokens differ from the unsharded "
+                                         f"scheduler's (rids {bad})")
+    # the launcher's --mesh, as a user runs it: it spawns its ranks, each
+    # serves the trace, rank 0 reports and returns its completions
+    from repro_torch.launch import serve as launch
+    t1 = time.perf_counter()
+    got = launch.main(LAUNCH_ARGS + ["--mesh", "1x2", "--requests", "4",
+                                     "--max-prompt", "256",
+                                     "--new-tokens", "8"])
+    if not (len(got) == 4 and all(
+            c.finish_reason == "length" and len(c.tokens) > c.prompt_len
+            for c in got)):
+        raise AssertionError(f"launcher --mesh 1x2: {got}")
+    emit({"phase": "sharded_launcher", "gpu": gpu, "mesh": "1x2",
+          "requests": len(got),
+          "new_tokens": [len(c.tokens) - c.prompt_len for c in got],
+          "wall_s": time.perf_counter() - t1})
+    result = {"phase": "sharded", "gpu": gpu, "arch": cfg.name,
+              "R": cfg.reuse.num_basic, "T": cfg.reuse.reuse_times,
+              "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+              "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+              "padded_vocab": cfg.padded_vocab, "dtype": cfg.compute_dtype,
+              "readings": readings,
+              "unsharded_route_gap_rel_l2": route_gap,
+              "drain_2x1_token_identical": True,
+              "drain_requests": len(drain),
+              "transport": ranks[0]["transport"],
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
 def split_cases():
     """(label, M, K, N, transpose): the split pipeline's matmuls at the
     fused kernel's serving shapes — minitron-4b's 3072->3072 (wq, wo),
@@ -3313,6 +3682,7 @@ def main() -> int:
     # each path's launches are counted in its own window
     fused_path = timed("serve", serve, torch, smi)
     timed("serve_launcher", serve_launcher, torch, smi)
+    timed("sharded", sharded_phase, torch, smi)
     torch.cuda.reset_peak_memory_stats()
     fault_path = timed("serve_noisy", serve_noisy, torch, smi)
     timed("small_model_fault_checks", small_model_fault_checks, torch)

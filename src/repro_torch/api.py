@@ -28,10 +28,23 @@ Greedy decoding matches the reference token for token on the test
 configs; temperature sampling draws from a ``torch.Generator`` and is not
 expected to reproduce ``jax.random``.
 
+**On a mesh** (``Program.build(mesh=...)``, on each rank that
+``launch.mesh.init_ranks`` started): the methods take the whole batch, as
+the reference's take global arrays, and every rank passes the same one.  A
+step whose B rows divide over the data axes runs on this rank's shard of
+them (``rows_sharded``), else on all of them; its logits, or sampled
+tokens, are all-gathered over "data", so every rank returns the whole
+batch's; its caches hold the rank's rows.  The dots run sharded over
+"model" (``core/backend.py``); the rank holds its piece of each bank.
+Decode steps run eagerly (``graphs.MESH_RULE``).  A 1x1 mesh is the
+unsharded path.  Left for later slices: ``cfg.fsdp`` on a mesh and the
+train cell on a mesh (``Program.loss``), which raise.
+
 The Program keeps the reference's ledger on the default metrics registry:
 ``program.builds``, a ``program.bank.<k>`` gauge per ``bank_stats()`` key
-and ``program.partition.dropped_rules`` (0: the port has no mesh) at each
-build, and, while ``obs.metrics.enabled()``, one
+and ``program.partition.dropped_rules`` (the rules the mesh's partition
+report dropped; 0 without a mesh) at each build, and, while
+``obs.metrics.enabled()``, one
 ``program.steps{kind=prefill|prefill_chunk|decode|decode_sample}`` per
 step.  They are host-side Python outside any captured region, so a
 replayed decode step counts as a step, exactly as an eager one does.
@@ -39,6 +52,7 @@ replayed decode step counts as a step, exactly as an eager one does.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 import weakref
 from typing import Any
 
@@ -53,6 +67,8 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.graphs import DecodeCell
 from repro_torch.models import transformer as tfm
 from repro_torch.obs import metrics as metrics_lib
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import partition
 from repro_torch.train.trainer import cross_entropy
 
 NEG_INF = -1e30
@@ -117,9 +133,118 @@ def _device_of(params) -> torch.device:
     return params["embed"]["table"].device
 
 
-def _no_mesh(act_pspec) -> None:
-    if act_pspec is not None:
-        raise NotImplementedError("act_pspec: the port has no mesh yet")
+# =========================================================================
+# mesh plumbing (the reference's, as placement rules of the ranks)
+# =========================================================================
+def _backend_mesh(backend):
+    """The backend's mesh when it partitions (more than one position)."""
+    bk = backend_lib.resolve(backend)
+    return bk.mesh if bk.mesh_active else None
+
+
+def _row_split(backend, B: int):
+    """This rank's rows of a B-row step: a slice when the rows divide over
+    the data axes of an active mesh, else None (every rank runs all
+    rows)."""
+    mesh = _backend_mesh(backend)
+    if mesh is None:
+        return None
+    d_axes = partition.data_axes(mesh)
+    dp = partition.dp_size(mesh)
+    if dp <= 1 or B % dp != 0:
+        return None
+    n = B // dp
+    i = mesh.index(d_axes)
+    return slice(i * n, (i + 1) * n)
+
+
+def _mesh_act_pspec(backend, B: int):
+    """The train/loss cell's residual spec (batch over data, replicated
+    d_model); None when the batch does not divide the data axes."""
+    mesh = _backend_mesh(backend)
+    if mesh is None:
+        return None
+    dp = partition.dp_size(mesh)
+    if dp <= 1 or B % dp != 0:
+        return None
+    return partition.act_pspec(mesh, "replicated")
+
+
+def _serve_act_pspec(backend, B: int):
+    """The serving steps' residual spec: batch over data (when it divides)
+    and replicated over "model", as every rank holds its rows outside the
+    dots.  Unlike the train cell's it also applies on pure-TP meshes
+    (dp == 1); None off-mesh and on a 1x1 mesh."""
+    mesh = _backend_mesh(backend)
+    if mesh is None:
+        return None
+    dp = partition.dp_size(mesh)
+    if dp > 1 and B % dp != 0:
+        return None
+    return partition.act_pspec(mesh, "replicated")
+
+
+def _constrain_caches(caches, cfg: ModelConfig, backend, B: int, L):
+    """The cache placement of a B-row step: ``partition.cache_pspecs``'s
+    batch over the data axes, replicated over "model" (every rank keeps
+    whole KV heads).  A rank's caches hold its rows; raises when they
+    hold another count (``L``, the cache length, places nothing here: a
+    rank keeps every position).  No-op off-mesh and on a 1x1 mesh."""
+    if _backend_mesh(backend) is None:
+        return caches
+    sl = _row_split(backend, B)
+    rows = B if sl is None else sl.stop - sl.start
+    leaf = caches
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    if leaf is not None and leaf.shape[2] != rows:
+        raise ValueError(f"caches of {leaf.shape[2]} rows on a rank whose "
+                         f"share of a {B}-row step is {rows} rows")
+    return caches
+
+
+def _check_act_pspec(execution, act_pspec) -> None:
+    """A step function's ``act_pspec`` needs an execution backend with an
+    active mesh (the spec places rows on its data axes)."""
+    if act_pspec is not None and _backend_mesh(execution) is None:
+        raise ValueError("act_pspec needs an execution Backend with an "
+                         "active mesh")
+
+
+def _step_rows(backend, B: int, act_pspec):
+    """(row slice or None, backend for the step) of a functional step
+    (after :func:`_check_act_pspec`).  ``act_pspec`` must be the serving
+    spec or None: the port places the residual batch-over-data, replicated
+    over "model", only."""
+    bk = backend_lib.resolve(backend)
+    if act_pspec is None:
+        return None, bk
+    if tuple(act_pspec) != _serve_act_pspec(bk, B):
+        raise NotImplementedError(
+            f"act_pspec {tuple(act_pspec)}: a rank holds its data shard's "
+            f"rows replicated over 'model' "
+            f"({_serve_act_pspec(bk, B)}); sequence- and hidden-sharded "
+            f"residuals are left for a later slice")
+    sl = _row_split(bk, B)
+    return sl, (bk if sl is None else dataclasses.replace(
+        bk, rows_sharded=True))
+
+
+def _rows_of(batch: dict, sl, B: int) -> dict:
+    """The rows ``sl`` of a batch (an extra of one row serves every row and
+    is kept whole)."""
+    if sl is None:
+        return batch
+    return {k: (v[sl] if v.shape[0] == B else v) for k, v in batch.items()}
+
+
+def _gather_rows(t, backend, sl):
+    """The whole batch of a per-row output: ``t`` (this rank's rows)
+    all-gathered over the data axes when the rows were split."""
+    if sl is None:
+        return t
+    mesh = backend.mesh
+    return coll.all_gather(t, mesh, partition.data_axes(mesh), dim=0)
 
 
 # =========================================================================
@@ -144,12 +269,19 @@ def prefill_step_fn(cfg: ModelConfig, cache_len: int, *, act_pspec=None,
                     execution=None):
     """Pure ``fn(params, batch) -> (last_logits (B, V), caches)`` over raw
     params (no banks: a photonic backend quantizes each weight in the
-    step); the caches are made on the params' device."""
-    _no_mesh(act_pspec)
+    step); the caches are made on the params' device.  With ``act_pspec``
+    (the serving spec of ``execution``'s mesh) the step runs on this
+    rank's rows and returns theirs."""
+    _check_act_pspec(execution, act_pspec)
 
     @torch.no_grad()
     def fn(params, batch):
-        logits, caches = _prefill(cfg, params, batch, cache_len, execution)
+        batch = _as_batch(batch, _device_of(params))
+        B = batch["tokens"].shape[0]
+        sl, bk = _step_rows(execution if execution is not None else cfg,
+                            B, act_pspec)
+        logits, caches = _prefill(cfg, params, _rows_of(batch, sl, B),
+                                  cache_len, bk)
         return logits[:, -1, :], caches
     return fn
 
@@ -161,19 +293,28 @@ def decode_step_fn(cfg: ModelConfig, *, act_pspec=None, legacy_decode=False,
     ``legacy_decode=True`` runs the baseline attention decode
     (``attention.gqa_decode_legacy``: the token's K/V written into the
     cache at a scalar ``pos`` inside the block, attention over the whole
-    buffer)."""
-    _no_mesh(act_pspec)
+    buffer).  With ``act_pspec`` (the serving spec of ``execution``'s
+    mesh) the step runs on this rank's rows of the tokens and positions,
+    with the rank's caches, and returns its rows' logits."""
+    _check_act_pspec(execution, act_pspec)
 
     @torch.no_grad()
     def fn(params, batch, caches, pos):
         dev = _device_of(params)
         tokens = _as_tokens(batch["tokens"], dev)
+        sl, bk = (None, execution) if act_pspec is None else _step_rows(
+            execution, tokens.shape[0], act_pspec)
         if not isinstance(pos, int):
-            pos = torch.as_tensor(pos).to(dev, torch.long)
+            pos = torch.as_tensor(np.asarray(pos) if not isinstance(
+                pos, torch.Tensor) else pos).to(dev, torch.long)
+            if sl is not None:
+                pos = pos[sl]
+        if sl is not None:
+            tokens = tokens[sl]
         logits, caches, _ = tfm.forward(params, cfg, {"tokens": tokens},
                                         mode="decode", caches=caches,
                                         pos=pos, legacy_decode=legacy_decode,
-                                        execution=execution)
+                                        execution=bk)
         return logits[:, 0, :], caches
     return fn
 
@@ -200,48 +341,117 @@ class Program:
     # tree alive, so the id is not reused while it is registered)
     _cells: Any = dataclasses.field(default_factory=weakref.WeakValueDictionary,
                                     repr=False, compare=False)
+    # the whole bank's accounting (a mesh rank holds pieces of it)
+    _stats: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def build(cls, cfg: ModelConfig, params, *, execution=None,
-              device=None) -> "Program":
+              device=None, mesh=None) -> "Program":
         """Resolve the substrate, move ``params`` (nested dict of tensors,
         the reference's keys) to ``device`` and prepare the banks once.
-        ``device`` defaults to CUDA and raises when no CUDA device exists;
-        pass ``device="cpu"`` for the plain CPU path."""
-        dev = resolve_device(device)
+        ``device`` defaults to CUDA (on a mesh rank, the rank's device) and
+        raises when no CUDA device exists; pass ``device="cpu"`` for the
+        plain CPU path.
+
+        ``mesh`` (a ``launch.mesh.Mesh``; on more than one position, the
+        rank's bound mesh from ``launch.mesh.init_ranks``) makes the mesh a
+        property of execution: the partition rules resolve the bank's
+        specs, the rank keeps its piece of every bank, and the dots run
+        sharded (``core/backend.py``).  ``None`` and a 1x1 mesh are the
+        unsharded path.  Rules that do not divide a concrete dim are
+        replicated, not an error: surfaced here as a one-line warning."""
         bk = backend_lib.resolve(execution if execution is not None else cfg)
+        if mesh is not None and bk.mesh is not None and bk.mesh != mesh:
+            raise ValueError(
+                "Program.build(mesh=...) conflicts with the mesh the "
+                "execution Backend already carries — pass one or the other")
+        if mesh is not None and bk.mesh is None:
+            bk = dataclasses.replace(bk, mesh=mesh)
+        mesh = bk.mesh
+        if bk.mesh_active:
+            if not mesh.bound:
+                raise ValueError(
+                    f"a {dict(mesh.shape)} mesh runs as {mesh.size} ranks: "
+                    f"start them with launch.mesh.init_ranks and build the "
+                    f"Program on each rank's mesh")
+            if cfg.fsdp:
+                raise NotImplementedError(
+                    "cfg.fsdp on a mesh (weights' embed axis over the data "
+                    "axes) is left for a later slice")
+            if device is None:
+                device = mesh.device
+        dev = resolve_device(device)
         moved = prepared_lib.map_with_path(
             lambda _p, leaf: leaf.to(dev) if isinstance(leaf, torch.Tensor)
             else leaf, params)
         bank = prepared_lib.prepare_params(moved, cfg.compute_dtype,
                                            bk.is_photonic)
+        del moved
+        stats = prepared_lib.prepared_stats(bank)
+        dropped = 0
+        if mesh is not None:
+            report = partition.PartitionReport(dropped=[])
+            specs = partition.model_specs(bank)
+            partition.bank_shardings(bank, specs, mesh, cfg.fsdp, report)
+            if bk.mesh_active:
+                bank = partition.place_bank(bank, specs, mesh)
+            dropped = len(report.dropped)
+            if report.dropped:
+                warnings.warn(partition.dropped_summary(report),
+                              stacklevel=2)
         # bank accounting as registry gauges (the last Program built wins:
         # builds are one-time events, not hot-path)
         reg = metrics_lib.default_registry()
         reg.counter("program.builds").inc()
-        for k, v in prepared_lib.prepared_stats(bank).items():
+        for k, v in stats.items():
             reg.gauge(f"program.bank.{k}").set(v)
-        reg.gauge("program.partition.dropped_rules").set(0)
-        return cls(cfg=cfg, backend=bk, bank=bank, device=dev)
+        reg.gauge("program.partition.dropped_rules").set(dropped)
+        return cls(cfg=cfg, backend=bk, bank=bank, device=dev, _stats=stats)
+
+    @property
+    def mesh(self):
+        """The execution mesh (None: unsharded single-device semantics)."""
+        return self.backend.mesh
 
     def update_noise(self, noise) -> None:
         """Swap the fault-model config on the live Program (in place): the
         calibration loop's republish step.  The banks and caches stay;
-        the device gain cache of the old config is dropped."""
+        the device gain cache of the old config is dropped.  The backend's
+        checks re-run: noise with a multi-position mesh raises."""
         self.backend = dataclasses.replace(self.backend, noise=noise)
         noise_lib.clear_gain_cache()
 
     # -------------------------------------------------------------- stats
     def bank_stats(self) -> dict:
+        """The bank's accounting (the whole bank's, on a mesh rank too)."""
+        if self._stats is not None:
+            return dict(self._stats)
         return prepared_lib.prepared_stats(self.bank)
 
     def verify_banks(self) -> float:
         """Max W0 checksum error across all programmed banks (~0 for
-        uncorrupted banks; 0.0 for a pure-fp xla bank)."""
-        errs = [prepared_lib.verify_bank(leaf)
-                for leaf in prepared_lib.tree_leaves(self.bank)
-                if isinstance(leaf, prepared_lib.PreparedTensor)]
+        uncorrupted banks; 0.0 for a pure-fp xla bank).  On a mesh rank the
+        banks' pieces are gathered whole for the check (every rank of the
+        mesh calls it)."""
+        errs = []
+        for leaf in prepared_lib.tree_leaves(self.bank):
+            if not isinstance(leaf, prepared_lib.PreparedTensor):
+                continue
+            if leaf.placement is not None:
+                leaf = prepared_lib.PreparedTensor(
+                    *(self.backend._whole(leaf, f)
+                      for f in prepared_lib.FIELDS), tag=leaf.tag)
+            errs.append(prepared_lib.verify_bank(leaf))
         return max(errs, default=0.0)
+
+    # --------------------------------------------------------- mesh rows
+    def _rows(self, B: int):
+        """(this rank's row slice or None, the step's backend) for a
+        B-row step."""
+        sl = _row_split(self.backend, B)
+        if sl is None:
+            return None, self.backend
+        return sl, dataclasses.replace(self.backend, rows_sharded=True)
 
     # -------------------------------------------------------------- steps
     def _tokens(self, tokens) -> torch.Tensor:
@@ -259,20 +469,32 @@ class Program:
         A8 scale covers all prefill rows.  Returns (logits (B, V),
         caches)."""
         _count_step("prefill")
-        logits, caches = _prefill(self.cfg, self.bank, batch, cache_len,
-                                  self.backend)
-        B, S = logits.shape[:2]
+        batch = _as_batch(batch, self.device)
+        B, S = batch["tokens"].shape
+        sl, bk = self._rows(B)
+        logits, caches = _prefill(self.cfg, self.bank, _rows_of(batch, sl, B),
+                                  cache_len, bk)
         if last is None:
             last = torch.full((B,), S - 1, dtype=torch.long)
         last = torch.as_tensor(last).to(self.device, torch.long)
-        return logits[torch.arange(B, device=self.device), last], caches
+        if sl is not None:
+            last = last[sl]
+        caches = _constrain_caches(caches, self.cfg, bk, B, cache_len)
+        rows = torch.arange(logits.shape[0], device=self.device)
+        return _gather_rows(logits[rows, last], bk, sl), caches
 
     @torch.no_grad()
     def loss(self, batch):
         """Mean next-token cross-entropy of ``batch`` (eval; no gradients)
         through the prepared banks on the Program's backend.  Returns (ce,
-        aux) 0-d float32 tensors."""
+        aux) 0-d float32 tensors.  Not on an active mesh (the train cell on
+        a mesh is left for a later slice)."""
         batch = _as_batch(batch, self.device)
+        if self.backend.mesh_active:
+            spec = _mesh_act_pspec(self.backend, batch["tokens"].shape[0])
+            raise NotImplementedError(
+                f"Program.loss on a mesh (the train cell, residual spec "
+                f"{spec}) is left for a later slice")
         logits, _, aux = tfm.forward(self.bank, self.cfg, batch, mode="train",
                                      execution=self.backend)
         ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:],
@@ -286,8 +508,11 @@ class Program:
                              f"cross-attention layers")
 
     def empty_caches(self, B: int, cache_len: int):
-        """Zero capacity caches for the chunked-prefill entry points."""
-        return tfm.init_caches(self.cfg, B, cache_len, dtype=self._dtype(),
+        """Zero capacity caches for the chunked-prefill entry points (on a
+        mesh rank, for its rows of a B-row step)."""
+        sl = _row_split(self.backend, B)
+        rows = B if sl is None else sl.stop - sl.start
+        return tfm.init_caches(self.cfg, rows, cache_len, dtype=self._dtype(),
                                device=self.device)
 
     @torch.no_grad()
@@ -303,10 +528,14 @@ class Program:
         if last is None:
             last = torch.full((B,), W - 1, dtype=torch.long)
         last = torch.as_tensor(last).to(self.device, torch.long)
+        sl, bk = self._rows(B)
+        if sl is not None:
+            tokens, last = tokens[sl], last[sl]
         logits, caches, _ = tfm.forward(
             self.bank, self.cfg, {"tokens": tokens}, mode="prefill_chunk",
-            caches=caches, pos=int(q_offset), execution=self.backend)
-        return logits[torch.arange(B, device=self.device), last], caches
+            caches=caches, pos=int(q_offset), execution=bk)
+        rows = torch.arange(tokens.shape[0], device=self.device)
+        return _gather_rows(logits[rows, last], bk, sl), caches
 
     def prefill_chunked(self, batch, cache_len: int, chunk: int, last=None):
         """Chunked prefill over a whole batch: fixed-width query chunks
@@ -346,10 +575,28 @@ class Program:
         return decode_step_fn(self.cfg, execution=backend)(
             self.bank, {"tokens": tokens}, caches, pos)[0]
 
+    def _decode_rows(self, tokens, caches, pos):
+        """One eager decode step on an active mesh: this rank's rows of the
+        tokens and positions, with its caches.  Returns (row slice or None,
+        step backend, the rows' logits)."""
+        tokens = self._tokens(tokens)
+        sl, bk = self._rows(tokens.shape[0])
+        _constrain_caches(caches, self.cfg, bk, tokens.shape[0], None)
+        if sl is not None:
+            tokens = tokens[sl]
+            if not isinstance(pos, int):
+                pos = torch.as_tensor(np.asarray(pos) if not isinstance(
+                    pos, torch.Tensor) else pos)[sl]
+        return sl, bk, self._decode_forward(bk, tokens, caches, pos)
+
     @torch.no_grad()
     def _decode_logits(self, tokens, caches, pos):
         """One decode step: through the caches' decode cell when they have
-        one, else eagerly."""
+        one, else eagerly; on an active mesh eagerly on the rank's rows,
+        the logits gathered (``graphs.MESH_RULE``)."""
+        if self.backend.mesh_active:
+            sl, bk, logits = self._decode_rows(tokens, caches, pos)
+            return _gather_rows(logits, bk, sl)
         cell = self._cells.get(id(caches))
         if cell is not None and cell.caches is caches:
             return cell.step(tokens, pos).clone()
@@ -370,6 +617,14 @@ class Program:
             raise ValueError("decode_sample(temperature>0) needs a "
                              "torch.Generator")
         _count_step("decode_sample")
+        if self.backend.mesh_active and temperature <= 0.0:
+            # greedy on the rank's rows; the tokens are gathered over data
+            with torch.no_grad():
+                sl, bk, logits = self._decode_rows(tokens, caches, pos)
+            return _gather_rows(sample(logits, self.cfg.vocab_size),
+                                bk, sl), caches
+        # a draw samples the whole batch's logits (gathered on a mesh), so
+        # it consumes the generator as the unsharded program does
         logits = self._decode_logits(tokens, caches, pos)
         return sample(logits, self.cfg.vocab_size, generator,
                       temperature), caches
@@ -392,6 +647,16 @@ class Program:
         toks = [prompt]
         cur = sample(logits, self.cfg.vocab_size, gen,
                      temperature).long()[:, None]
+        if self.backend.mesh_active:
+            # eager steps on the rank's rows (graphs.MESH_RULE)
+            for i in range(max_new):
+                toks.append(cur)
+                if i == max_new - 1:
+                    break
+                nxt, caches = self.decode_sample(cur, caches, S + i, gen,
+                                                 temperature)
+                cur = nxt.long()[:, None]
+            return torch.cat(toks, dim=1)
         cell = DecodeCell(self, caches)
         try:
             for i in range(max_new):

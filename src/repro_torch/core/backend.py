@@ -28,9 +28,37 @@ the OBU activation shuffle in ``core/sharing.py`` goes through
     run the blend kernel; long-sequence attention runs the flash kernel
     (``kernels/flash_attention.py``).
 
-Left out for later slices: the mesh/sharded branches (``_reuse_dot_sharded``
-among them) and the TPU tile plans (``bm/bk/bn``, ``adaptive``: the CUDA
-kernels pick their own tiles).
+**Sharded execution** (``mesh``: a bound ``launch.mesh.Mesh`` with more
+than one position).  The port runs one process per mesh position.  Outside
+the dots a rank holds its data shard's rows (``rows_sharded``, set by the
+Program for the steps whose batch divides over the data axes), replicated
+over "model".  Inside, each photonic dot takes the reference's rule from
+:func:`partition_rule` (the rules decide the float summation order):
+
+  * ``column``: the rank's N/tp columns of the bank, the kernel's fused
+    epilogue, then an all-gather over "model";
+  * ``scatter``: the rank's K/tp slice of x and of the bank, the kernel
+    without epilogue, a reduce-scatter, ``_epilogue_unfused`` on the
+    rank's slice, then an all-gather;
+  * ``ring``: tp chunk kernels with ring hops, in the reference's order;
+  * ``psum``: an all-reduce, then the whole epilogue;
+  * ``replicated``: the whole weight.
+
+The A8 scale is the unsharded one: the abs-max is all-reduced (MAX) over
+the data axes when rows are split, so the A8 grid is bitwise the single
+device's.  The reuse-resident MVM splits the bank's columns when N
+divides and never splits the T streams.  The blocked shuffle keeps the
+channel axis whole (a rank's rows are already local).  Flash is off under
+an active mesh (``use_flash``), as in the reference.  A fault model on a
+multi-position mesh raises.  A 1x1 mesh takes the exact unsharded path.
+The xla backend runs its dots whole on the rank's rows (the reference
+leaves xla to GSPMD; no rule to follow).  A bank placed on a rank
+(``core/prepared.Placement``) holds its ``field_specs`` piece; a rule that
+reads a field in another layout gathers it over "model" once and keeps the
+piece it reads.
+
+Left out: the TPU tile plans (``bm/bk/bn``, ``adaptive``: the CUDA kernels
+pick their own tiles).
 """
 from __future__ import annotations
 
@@ -42,12 +70,85 @@ import torch
 
 from repro_torch.core import noise as noise_lib
 from repro_torch.core import obu
+from repro_torch.core.photonic import a8_scale_from_amax
 from repro_torch.core.prepared import (PreparedTensor, quantize_weight,
                                        quantize_weight_t)
 from repro_torch.kernels import ops
 from repro_torch.kernels.photonic_mvm import apply_activation
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import partition as _partition
 
 EXECUTIONS = ("xla", "photonic")
+
+# How a row-parallel (K-split) matmul rejoins its partial sums (the
+# reference's ``TP_COLLECTIVES``):
+#   * "reduce_scatter" — each rank keeps its own output slice, runs the
+#     epilogue on it, and the slices are gathered; bitwise equal to "psum"
+#     (the same partial sums are added);
+#   * "psum" — the full all-reduce, epilogue after it; the only row-
+#     parallel form when the output slices do not divide or a blocked
+#     shuffle crosses them;
+#   * "ring" — tp per-chunk kernels interleaved with ring hops.
+TP_COLLECTIVES = ("reduce_scatter", "psum", "ring")
+
+
+def partition_rule(tp: int, K: int, N: int, *, block_perm=None,
+                   tp_hint=None, collective: str = "reduce_scatter") -> str:
+    """The tensor-parallel rule of a (K, N) matmul on ``tp`` "model"
+    ranks (the reference's decision table, unchanged): ``"column"``,
+    ``"scatter"``, ``"ring"``, ``"psum"`` or ``"replicated"``.
+    ``tp_hint="row"`` marks a pair-second matmul (w_down after up/gate, wo
+    after qkv): it takes a row rule whenever K divides."""
+    if tp <= 1:
+        return "replicated"
+    if collective not in TP_COLLECTIVES:
+        raise ValueError(f"unknown tp_collective {collective!r}; "
+                         f"have {TP_COLLECTIVES}")
+
+    def row_rule():
+        # scatter/ring need the output slices to divide and the epilogue
+        # to be slice-local (a blocked shuffle crosses slices)
+        if collective == "psum" or N % tp != 0 or block_perm is not None:
+            return "psum"
+        return "ring" if collective == "ring" else "scatter"
+
+    row_ok = K % tp == 0
+    if tp_hint == "row" and row_ok:
+        return row_rule()
+    if N % tp == 0 and block_perm is None:
+        return "column"
+    if row_ok:
+        return row_rule()
+    return "replicated"
+
+
+def bank_field(prep, name: str, dim, mesh, cache: bool = True):
+    """Field ``name`` of bank ``prep`` as a dot reads it on this rank:
+    ``dim`` (-1 or -2) split over "model" into the rank's piece, or whole
+    (``dim=None``).  A piece the rank holds is returned as it is; any other
+    layout is gathered over "model" from the held pieces, cut, and kept in
+    the bank's placement cache (``cache=False``: not kept)."""
+    held = getattr(prep, name)
+    pl = prep.placement
+    hdim = pl.model_dim(name) if pl is not None else None
+    if hdim == dim:
+        return held
+    key = pl.key(name, dim) if pl is not None and cache else None
+    if key is not None and key in pl.cache:
+        return pl.cache[key]
+    whole = held if hdim is None else coll.all_gather(held, mesh, "model",
+                                                       dim=hdim)
+    out = whole if dim is None else _piece(whole, dim, mesh).contiguous()
+    if key is not None:
+        pl.cache[key] = out
+    return out
+
+
+def _piece(t, dim: int, mesh):
+    """This rank's block of ``t`` along ``dim`` over "model"."""
+    tp = mesh.axis_size("model")
+    n = t.shape[dim] // tp
+    return t.narrow(dim, mesh.index("model") * n, n)
 
 
 def _epilogue_unfused(y, bias, block_perm, block, activation):
@@ -90,11 +191,28 @@ class Backend:
     flash: bool = True                # long photonic attention -> flash
     flash_min_seq: int = 512          # query lengths below this take the
                                       # einsum path
+    mesh: Any = None                  # launch.mesh.Mesh | None: with more
+                                      # than one position, dots run sharded
+    tp_collective: str = "reduce_scatter"
+                                      # row-parallel rejoin (TP_COLLECTIVES)
+    rows_sharded: bool = False        # the step's rows are this rank's data
+                                      # shard (set per step by the Program)
 
     def __post_init__(self):
         if self.execution not in EXECUTIONS:
             raise ValueError(f"unknown execution backend "
                              f"{self.execution!r}; have {EXECUTIONS}")
+        if self.tp_collective not in TP_COLLECTIVES:
+            raise ValueError(f"unknown tp_collective "
+                             f"{self.tp_collective!r}; have {TP_COLLECTIVES}")
+        if self.noise_active and self.mesh_active:
+            # the fault model perturbs the full output-channel axis; a rank
+            # sees a slice and its per-tile random streams would diverge
+            # from the single-device pattern (Program.build's and
+            # update_noise's replace() re-run this)
+            raise NotImplementedError(
+                "NoiseConfig injection is single-device only; drop the "
+                "noise or the multi-device mesh")
 
     @property
     def is_photonic(self) -> bool:
@@ -107,10 +225,25 @@ class Backend:
         return (self.is_photonic and self.noise is not None
                 and self.noise.enabled)
 
+    @property
+    def mesh_active(self) -> bool:
+        """True when dots run sharded: a mesh of more than one position.
+        A 1x1 mesh takes the exact unsharded path."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    def whole_rows(self) -> "Backend":
+        """This backend for rows gathered whole over the data axes."""
+        if not self.rows_sharded:
+            return self
+        return dataclasses.replace(self, rows_sharded=False)
+
     # ----------------------------------------------------------- attention
     def use_flash(self, q_len: int) -> bool:
-        """Photonic execution only, at or above ``flash_min_seq`` rows."""
-        return self.is_photonic and self.flash and q_len >= self.flash_min_seq
+        """Photonic execution only, at or above ``flash_min_seq`` rows, and
+        not under an active mesh (the reference keeps the einsum path
+        there: GSPMD partitions it, the kernel would need a schedule)."""
+        return (self.is_photonic and self.flash and not self.mesh_active
+                and q_len >= self.flash_min_seq)
 
     def attention(self, q, k, v, *, causal: bool = True, q_offset=None):
         """q: (B, Sq, H, hd); k: (B, L, KV, hd); v: (B, L, KV, hd_v).
@@ -128,13 +261,15 @@ class Backend:
 
     # ------------------------------------------------------------- matmuls
     def dot(self, x, w, *, transpose: bool = False, bias=None,
-            block_perm=None, block: int = 0, activation=None):
+            block_perm=None, block: int = 0, activation=None, tp_hint=None):
         """``x @ w`` (w: (k, n)) or ``x @ w.T`` (w: (n, k)) plus an optional
-        blend epilogue.  ``w`` may be a fp tensor or a PreparedTensor bank."""
+        blend epilogue.  ``w`` may be a fp tensor or a PreparedTensor bank.
+        ``tp_hint="row"`` marks a pair-second matmul for the sharded
+        dispatch (:func:`partition_rule`); it has no effect off-mesh."""
         if isinstance(w, PreparedTensor):
             return self.dot_prepared(x, w, transpose=transpose, bias=bias,
                                      block_perm=block_perm, block=block,
-                                     activation=activation)
+                                     activation=activation, tp_hint=tp_hint)
         if not self.is_photonic:
             y = obu.blend_dot(x, w, transpose=transpose)
             return _epilogue_xla(y, bias, block_perm, block, activation)
@@ -146,6 +281,11 @@ class Backend:
             wq, wscale = quantize_weight_t(w)
         else:
             wq, wscale = quantize_weight(w)
+        if self.mesh_active:
+            return self._photonic_matmul_sharded(
+                x, None, (wq, wscale), transpose=transpose, bias=bias,
+                block_perm=block_perm, block=block, activation=activation,
+                tp_hint=tp_hint)
         return self._photonic_matmul(x, wq, wscale, transpose=transpose,
                                      bias=bias, block_perm=block_perm,
                                      block=block, activation=activation,
@@ -153,31 +293,42 @@ class Backend:
 
     def dot_prepared(self, x, prep: PreparedTensor, *,
                      transpose: bool = False, bias=None, block_perm=None,
-                     block: int = 0, activation=None):
+                     block: int = 0, activation=None, tp_hint=None):
         """``dot`` against a programmed bank: the transposed orientation
         uses the per-row image (``wq_t``/``scale_t``)."""
+        wname, sname = ("wq_t", "scale_t") if transpose else ("wq", "scale")
         if not self.is_photonic:
             # xla pointed at a photonic bank: dequantize the W8 image
+            wq, sc = self._whole(prep, wname), self._whole(prep, sname)
             if transpose:
-                w = (prep.wq_t.to(torch.float32)
-                     * (prep.scale_t / 127.0)[..., :, None]).to(x.dtype)
+                w = (wq.to(torch.float32)
+                     * (sc / 127.0)[..., :, None]).to(x.dtype)
             else:
-                w = (prep.wq.to(torch.float32)
-                     * (prep.scale / 127.0)[..., None, :]).to(x.dtype)
+                w = (wq.to(torch.float32)
+                     * (sc / 127.0)[..., None, :]).to(x.dtype)
             y = obu.blend_dot(x, w, transpose=transpose)
             return _epilogue_xla(y, bias, block_perm, block, activation)
-        if transpose:
-            if prep.shape[-1] != x.shape[-1]:
-                raise ValueError(f"transpose blend needs square-compatible "
-                                 f"dims, got x{tuple(x.shape)} "
-                                 f"w{prep.shape}")
-            wq, wscale = prep.wq_t, prep.scale_t
-        else:
-            wq, wscale = prep.wq, prep.scale
-        return self._photonic_matmul(x, wq, wscale, transpose=transpose,
-                                     bias=bias, block_perm=block_perm,
-                                     block=block, activation=activation,
+        if transpose and prep.shape[-1] != x.shape[-1]:
+            raise ValueError(f"transpose blend needs square-compatible "
+                             f"dims, got x{tuple(x.shape)} w{prep.shape}")
+        if self.mesh_active:
+            return self._photonic_matmul_sharded(
+                x, prep, None, transpose=transpose, bias=bias,
+                block_perm=block_perm, block=block, activation=activation,
+                tp_hint=tp_hint)
+        return self._photonic_matmul(x, getattr(prep, wname),
+                                     getattr(prep, sname),
+                                     transpose=transpose, bias=bias,
+                                     block_perm=block_perm, block=block,
+                                     activation=activation,
                                      bank_tag=prep.tag)
+
+    def _whole(self, prep: PreparedTensor, name: str):
+        """A bank field whole on this rank (gathered when it is placed in
+        pieces; not kept)."""
+        if prep.placement is None:
+            return getattr(prep, name)
+        return bank_field(prep, name, None, self.mesh, cache=False)
 
     def _photonic_matmul(self, x, wq, wscale, *, transpose, bias,
                          block_perm, block, activation, bank_tag):
@@ -201,6 +352,105 @@ class Backend:
         return _epilogue_unfused(mm(x, wq, wscale), bias, block_perm, block,
                                  activation)
 
+    def _rows_amax(self, x):
+        """|x|'s max over the step's rows: this rank's, all-reduced (MAX)
+        over the data axes when the rows are split.  Max is exact, so the
+        A8 grid is bitwise the single device's."""
+        amax = x.abs().amax()
+        if self.rows_sharded:
+            amax = coll.pmax(amax, self.mesh,
+                             _partition.data_axes(self.mesh))
+        return amax
+
+    def _photonic_matmul_sharded(self, x, prep, whole, *, transpose, bias,
+                                 block_perm, block, activation, tp_hint):
+        """One photonic dot on this rank under :func:`partition_rule`
+        (see the module docstring).  ``prep`` is a bank (possibly placed in
+        pieces), or ``whole`` the (wq, wscale) of an in-step quantized
+        weight, whole on every rank."""
+        mesh = self.mesh
+        tp = mesh.axis_size("model")
+        K = x.shape[-1]
+        wname, sname = ("wq_t", "scale_t") if transpose else ("wq", "scale")
+        if prep is not None:
+            N = prep.shape[-2] if transpose else prep.shape[-1]
+        else:
+            N = whole[0].shape[-2] if transpose else whole[0].shape[-1]
+        rule = partition_rule(tp, K, N, block_perm=block_perm,
+                              tp_hint=tp_hint,
+                              collective=self.tp_collective)
+        col_dim = -2 if transpose else -1     # the weight's output dim
+        red_dim = -1 if transpose else -2     # and its reduction dim
+
+        def fetch(which, dim):
+            if prep is not None:
+                return bank_field(prep, wname if which == "w" else sname,
+                                  dim, mesh)
+            t = whole[0] if which == "w" else whole[1]
+            return t if dim is None else _piece(t, dim, mesh).contiguous()
+
+        xs = a8_scale_from_amax(self._rows_amax(x))
+        red = rule in ("scatter", "ring", "psum")
+        xl = _piece(x, -1, mesh).contiguous() if red else x
+        fused = self.fused
+
+        def kernel(wl, sl, epilogue, bl=None):
+            """One per-rank kernel call; ``epilogue=False`` leaves the raw
+            (partial) MVM for the collective to finish."""
+            if fused:
+                return ops.photonic_matmul_fused(
+                    xl, wl, sl, x_scale=xs, transpose=transpose,
+                    bias=bl if epilogue else None,
+                    block_perm=block_perm if epilogue else None,
+                    block=block,
+                    activation=(activation or "none") if epilogue
+                    else "none")
+            mm = (ops.photonic_matmul_prepared_t if transpose
+                  else ops.photonic_matmul_prepared)
+            y = mm(xl, wl, sl, x_scale=xs)
+            if epilogue:
+                y = _epilogue_unfused(y, bl, block_perm, block, activation)
+            return y
+
+        def my_bias():
+            return None if bias is None else coll.split_last(bias, mesh,
+                                                             "model")
+
+        if rule == "column":
+            y = kernel(fetch("w", col_dim), fetch("s", -1), True, my_bias())
+            return coll.all_gather(y, mesh, "model", dim=-1)
+        if rule == "scatter":
+            y = kernel(fetch("w", red_dim), fetch("s", None), False)
+            y = coll.psum_scatter(y, mesh, "model")
+            y = _epilogue_unfused(y, my_bias(), None, 0, activation)
+            return coll.all_gather(y, mesh, "model", dim=-1)
+        if rule == "ring":
+            wl, sl = fetch("w", red_dim), fetch("s", None)
+            chunk = N // tp
+            me = mesh.index("model")
+
+            def part(idx):
+                # the partial of output chunk ``idx`` on this K-slice
+                wc = wl.narrow(col_dim, idx * chunk, chunk).contiguous()
+                sc = sl.narrow(-1, idx * chunk, chunk).contiguous()
+                return kernel(wc, sc, False)
+
+            # start on the chunk owned by the downstream neighbour, send
+            # while computing the next: after tp-1 hops rank m holds the
+            # fully reduced chunk m
+            acc = part((me + tp - 1) % tp)
+            for s in range(1, tp):
+                acc = coll.ppermute_ring(acc, mesh, "model")
+                acc = acc + part((me + tp - 1 - s) % tp)
+            y = _epilogue_unfused(acc, my_bias(), None, 0, activation)
+            return coll.all_gather(y, mesh, "model", dim=-1)
+        if rule == "psum":
+            y = kernel(fetch("w", red_dim), fetch("s", None), False)
+            y = coll.psum(y, mesh, "model")
+            return _epilogue_unfused(y, bias, block_perm, block, activation)
+        # replicated: the whole weight, the kernel's own epilogue
+        return kernel(fetch("w", None), fetch("s", None), True, bias)
+
     def reuse_dot(self, x_stack, w):
         """T independent activation streams through ONE weight: x_stack
         (T, ..., k) @ w (k, n).  Photonic: the weight is programmed once
@@ -209,6 +459,9 @@ class Backend:
             return self.reuse_dot_prepared(x_stack, w)
         if not self.is_photonic:
             return obu.blend_dot(x_stack, w, transpose=False)
+        if self.mesh_active:
+            return self._reuse_dot_sharded(x_stack, None,
+                                           quantize_weight(w))
         y = ops.reuse_resident_matmul(x_stack, w)
         return self._perturb_reuse(y, bank_tag=None)
 
@@ -218,11 +471,34 @@ class Backend:
         xla pointed at a bank dequantizes its W8 image, as ``dot_prepared``
         does."""
         if not self.is_photonic:
-            w = (prep.wq.to(torch.float32)
-                 * (prep.scale / 127.0)[..., None, :]).to(x_stack.dtype)
+            w = (self._whole(prep, "wq").to(torch.float32)
+                 * (self._whole(prep, "scale") / 127.0)[..., None, :]
+                 ).to(x_stack.dtype)
             return obu.blend_dot(x_stack, w, transpose=False)
+        if self.mesh_active:
+            return self._reuse_dot_sharded(x_stack, prep, None)
         y = ops.reuse_resident_matmul_prepared(x_stack, prep.wq, prep.scale)
         return self._perturb_reuse(y, bank_tag=prep.tag)
+
+    def _reuse_dot_sharded(self, x_stack, prep, whole):
+        """The reuse-resident kernel on this rank: the bank's columns split
+        over "model" when N divides (the rank keeps its slice resident for
+        all T streams), else the whole bank; the T streams never split."""
+        mesh = self.mesh
+        tp = mesh.axis_size("model")
+        N = prep.shape[-1] if prep is not None else whole[0].shape[-1]
+        dim = -1 if tp > 1 and N % tp == 0 else None
+
+        def fetch(i, name):
+            if prep is not None:
+                return bank_field(prep, name, dim, mesh)
+            t = whole[i]
+            return t if dim is None else _piece(t, -1, mesh).contiguous()
+
+        y = ops.reuse_resident_matmul_prepared(x_stack, fetch(0, "wq"),
+                                               fetch(1, "scale"))
+        return y if dim is None else coll.all_gather(y, mesh, "model",
+                                                     dim=-1)
 
     def _perturb_reuse(self, y, *, bank_tag):
         """Fault-model hook of the reuse-resident paths: one programmed bank
@@ -238,7 +514,9 @@ class Backend:
     def shuffle(self, h, perm, block_perm=None, block: int = 0):
         """OBU electronic shuffle of the channel axis.  Photonic + blocked
         permutation (the paper's §3.2 method 1): the blend kernel, fused or
-        split alike.  Otherwise the static index gather."""
+        split alike; under an active mesh on the rank's rows, the channel
+        axis whole (the reference's mesh branch).  Otherwise the static
+        index gather."""
         if self.is_photonic and block_perm is not None and block > 0:
             return ops.blend_shuffle(h, None, block_perm, block=block,
                                      activation="none")

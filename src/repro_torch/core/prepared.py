@@ -117,9 +117,16 @@ class PreparedTensor:
     w0_colsum: torch.Tensor     # f32  (..., N)
     w0_rowsum_t: torch.Tensor   # f32  (..., K)
     tag: int = 0
+    # on a mesh rank: which piece of each field this rank holds (None: the
+    # whole bank)
+    placement: Any = dataclasses.field(default=None, compare=False,
+                                       repr=False)
 
     @property
     def shape(self):
+        """The logical weight shape (the whole bank's on a mesh rank)."""
+        if self.placement is not None:
+            return self.placement.shape(self.wq.ndim)
         return tuple(self.wq.shape)
 
     @property
@@ -132,7 +139,80 @@ class PreparedTensor:
     def __getitem__(self, idx):
         return PreparedTensor(self.wq[idx], self.scale[idx], self.wq_t[idx],
                               self.scale_t[idx], self.w0_colsum[idx],
-                              self.w0_rowsum_t[idx], tag=self.tag)
+                              self.w0_rowsum_t[idx], tag=self.tag,
+                              placement=(None if self.placement is None
+                                         else self.placement.at(idx)))
+
+    # ------------------------------------------------------------ sharding
+    @classmethod
+    def field_specs(cls, wspec: tuple, ndim: int,
+                    tag: int = 0) -> "PreparedTensor":
+        """Per-field specs from the owning weight's spec (the reference's
+        ``field_specs``, with spec tuples in place of PartitionSpecs):
+        ``wq``/``wq_t`` take the weight's spec (same array shape); the
+        per-column gains and checksum (``[..., N]``) follow the last dim's
+        entry, the per-row ones (``[..., K]``) the second-to-last's."""
+        entries = list(wspec) + [None] * (ndim - len(wspec))
+        lead, kax, nax = entries[:-2], entries[-2], entries[-1]
+        wfull = tuple(entries)
+        return cls(wq=wfull, scale=tuple(lead + [nax]), wq_t=wfull,
+                   scale_t=tuple(lead + [kax]),
+                   w0_colsum=tuple(lead + [nax]),
+                   w0_rowsum_t=tuple(lead + [kax]), tag=tag)
+
+    def local(self, wspec: tuple, mesh) -> "PreparedTensor":
+        """This rank's piece of the bank under the weight spec ``wspec``
+        (every field cut as :meth:`field_specs` says, each a contiguous
+        copy), with a :class:`Placement` recording what it holds."""
+        from repro_torch.sharding.partition import local_slice
+
+        specs = PreparedTensor.field_specs(wspec, self.ndim)
+        cut = {f: local_slice(getattr(self, f), getattr(specs, f),
+                              mesh).contiguous() for f in FIELDS}
+        return PreparedTensor(**cut, tag=self.tag,
+                              placement=Placement(specs, self.shape))
+
+
+FIELDS = ("wq", "scale", "wq_t", "scale_t", "w0_colsum", "w0_rowsum_t")
+
+
+class Placement:
+    """What a mesh rank holds of one programmed bank: ``specs`` (a
+    PreparedTensor of field specs), the whole bank's ``full_shape``, the
+    leading indices applied since (``bank[r]``), and a cache, shared by
+    every slice of the bank, of the field pieces that a dot's partition
+    rule reads in another layout than the held one (gathered over "model"
+    once, at their first use)."""
+
+    def __init__(self, specs, full_shape, index=(), cache=None):
+        self.specs = specs
+        self.full_shape = tuple(full_shape)
+        self.index = index
+        self.cache = {} if cache is None else cache
+
+    def at(self, idx) -> "Placement":
+        return Placement(self.specs, self.full_shape, self.index + (idx,),
+                         self.cache)
+
+    def shape(self, ndim: int) -> tuple:
+        return self.full_shape[len(self.full_shape) - ndim:]
+
+    def model_dim(self, field: str):
+        """The dim (negative, of the field as indexed) split over "model"
+        in the held piece, or None when the rank holds it whole."""
+        spec = getattr(self.specs, field)
+        ndim = len(self.full_shape) if field in ("wq", "wq_t") else \
+            len(self.full_shape) - 1
+        entries = list(spec) + [None] * (ndim - len(spec))
+        for d, e in enumerate(entries):
+            if e is not None:
+                return d - ndim
+        return None
+
+    def key(self, field: str, dim):
+        """Cache key of ``field`` cut along ``dim`` at the leading indices
+        applied (ints: the R stack's and a MoE bank's expert ids)."""
+        return (field, dim, self.index)
 
 
 def prepare_tensor(w: torch.Tensor, qmax: float = QMAX,
@@ -238,9 +318,9 @@ def bank_descriptors(bank: Any, prefix: str = "") -> list[dict]:
     for path, leaf in flatten_with_path(bank):
         if not isinstance(leaf, PreparedTensor):
             continue
-        k, n = int(leaf.wq.shape[-2]), int(leaf.wq.shape[-1])
+        k, n = int(leaf.shape[-2]), int(leaf.shape[-1])
         stacked = 1
-        for d in leaf.wq.shape[:-2]:
+        for d in leaf.shape[:-2]:
             stacked *= int(d)
         out.append({"path": prefix + keystr(path), "rows": k, "cols": n,
                     "stacked": stacked,

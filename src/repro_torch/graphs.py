@@ -23,10 +23,12 @@ difference of the launch counters is taken back and added on each replay
 
 Where the cell does not capture (:func:`eager_reason`), the same
 static-buffer code runs ``forward`` eagerly on every step: on a CPU device,
-and by rule for a Program whose backend has the fault model on, because
+by rule for a Program whose backend has the fault model on, because
 ``core/noise.py`` reseeds a host ``torch.Generator`` at every DAC draw and
 ``Program.update_noise`` swaps the noise config between steps (the same
-kernels run on the card either way).  On a CUDA device a capture that
+kernels run on the card either way), and by :data:`MESH_RULE` for a
+Program on an active mesh, whose ``decode`` steps its rows eagerly and
+never through a cell.  On a CUDA device a capture that
 fails raises; there is no silent return to eager dispatch.
 
 ``CAPTURE_COUNTS["decode"]`` counts captures, as the reference's
@@ -50,11 +52,19 @@ NOISE_RULE = ("the fault model is not captured: core/noise.py reseeds a "
               "Program.update_noise swaps the noise config between steps")
 
 
+MESH_RULE = ("a decode step on an active mesh is not captured: its "
+             "collectives run over gloo (ranks sharing a card), which a CUDA "
+             "graph cannot hold; Program steps it eagerly on the rank's rows "
+             "(a 1x1 mesh keeps its graph)")
+
+
 def eager_reason(program) -> Optional[str]:
     """Why ``program``'s decode step runs eagerly, or None when a cell
     captures it."""
     if program.device.type != "cuda":
         return "CPU device: no CUDA graphs, the cell runs eagerly"
+    if program.backend.mesh_active:
+        return MESH_RULE
     if program.backend.noise_active:
         return NOISE_RULE
     return None

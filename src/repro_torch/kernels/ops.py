@@ -11,6 +11,8 @@ source, all at once).
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import noise as noise_lib
 from repro_torch.core.photonic import a8_scale, quantize_symmetric
 from repro_torch.core.prepared import quantize_weight
@@ -24,23 +26,35 @@ from repro_torch.kernels.build import build as build_kernels  # noqa: F401
 # =========================================================================
 # split pipeline (write-once banks): A8 pass, then the MVM kernel
 # =========================================================================
-def photonic_matmul_prepared(x, wq, wscale):
+def _quantize_a8(x, x_scale):
+    """Per-tensor A8 of ``x``: derive the scale here (``x_scale=None``) or
+    quantize on a caller-supplied grid (the sharded backend passes the
+    whole activation's scale, so every rank of a partitioned matmul
+    quantizes as the single-device kernel would).  The reference's
+    ``_quantize_a8``: with a given float32 scale, x is divided in float32."""
+    if x_scale is None:
+        return quantize_symmetric(x, 8)
+    q = torch.clamp(torch.round(x / x_scale), -128.0, 127.0)
+    return q.to(torch.int8), x_scale
+
+
+def photonic_matmul_prepared(x, wq, wscale, x_scale=None):
     """Offset-decomposed MVM against a programmed bank: wq int8 (k, n)
     per-output-channel quantized, wscale f32 (n,).  Only the activations
-    are quantized here, per tensor (the reference's ``_quantize_a8``; its
-    ``x_scale`` override serves only the sharded path, not ported).  The
-    kernel's float32 output is cast to x's dtype, as in the reference."""
-    xq, xscale = quantize_symmetric(x, 8)
+    are quantized here, per tensor (or on the grid ``x_scale`` gives).
+    The kernel's float32 output is cast to x's dtype, as in the
+    reference."""
+    xq, xscale = _quantize_a8(x, x_scale)
     lead = x.shape[:-1]
     y = _pm.photonic_mvm(xq.reshape(-1, x.shape[-1]), wq, xscale,
                          wscale.reshape(-1))
     return y.reshape(*lead, wq.shape[1]).to(x.dtype)
 
 
-def photonic_matmul_prepared_t(x, wq, wscale):
+def photonic_matmul_prepared_t(x, wq, wscale, x_scale=None):
     """Prepared ``x @ w.T``: wq int8 (n, k) per-ROW quantized; wscale
     (n,)."""
-    xq, xscale = quantize_symmetric(x, 8)
+    xq, xscale = _quantize_a8(x, x_scale)
     lead = x.shape[:-1]
     y = _pm.photonic_mvm_t(xq.reshape(-1, x.shape[-1]), wq, xscale,
                            wscale.reshape(-1))
@@ -94,15 +108,17 @@ def blend_shuffle(x, bias, block_perm, *, block=128, activation="relu"):
 
 
 def photonic_matmul_fused(x, wq, wscale, *, transpose=False, bias=None,
-                          block_perm=None, block=0, activation="none"):
+                          block_perm=None, block=0, activation="none",
+                          x_scale=None):
     """One-kernel serving matmul against a prepared bank.
 
     x: fp (..., k); wq/wscale: a prepared orientation — (k, n)/per-column,
     or (n, k)/per-row with ``transpose=True``.  The A8 scale is a separate
     abs-max reduction over EVERY row of x (per tensor, as in the
-    reference); quantization, bias, activation and the blocked output
-    shuffle run inside the kernel."""
-    xscale = a8_scale(x)
+    reference), or ``x_scale`` (the sharded backend's whole-activation
+    scale); quantization, bias, activation and the blocked output shuffle
+    run inside the kernel."""
+    xscale = a8_scale(x) if x_scale is None else x_scale
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     n_out = wq.shape[0] if transpose else wq.shape[1]

@@ -19,7 +19,13 @@ On a CUDA device (the default ``--device cuda``; it raises without one):
   wave        static aligned waves (fallback; serve/batcher.py)
   engine      one aligned batch straight through Program.generate
 ``--execution`` picks the matmul substrate (xla | photonic).  ``--mesh``
-is refused: the port has no sharding yet.
+picks the execution mesh: ``auto`` the largest (data, model) mesh over the
+available devices (``launch/mesh.py``), ``DxM`` (e.g. ``1x2``) a given
+one.  A mesh of more than one position spawns its ranks
+(``launch.mesh.init_ranks``; ranks share the card when there are more
+ranks than cards): every rank builds the Program on its mesh and serves
+the same trace, and rank 0 prints the report.  The continuous scheduler's
+capacity rounds up to divide over the data shards.
 
 ``main`` parses the flags, builds the Program (:func:`build_program`) and
 serves the trace (:func:`serve`), so a caller can drain the same Program
@@ -28,19 +34,25 @@ with telemetry on and off.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.api import Program
 from repro_torch.configs import get_arch, smoke_variant, stub_extras
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs.serving import ServingObs
 from repro_torch.serve.batcher import Completion, Request, WaveBatcher
 from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.sharding import partition
 
 
 def _request_extras(cfg, rid: int, device=None):
@@ -87,8 +99,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["xla", "photonic"],
                     help="matmul substrate override (default: cfg.execution)")
     ap.add_argument("--mesh", default=None,
-                    help="execution mesh: refused, the port has no "
-                         "sharding yet")
+                    help="execution mesh: 'auto' (largest (data, model) "
+                         "mesh from the available devices), 'DxM' (e.g. "
+                         "1x2); ranks are spawned for it.  Default: none")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda, which "
                          "raises without a CUDA device; cpu runs the plain "
@@ -127,18 +140,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="write the metrics JSON snapshot "
                          "(obs/metrics_schema.json shape) here")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh: sharding is not yet ported to "
-                         "repro_torch; serve on one device")
     if args.calibrate_every and not args.noise:
         raise SystemExit("--calibrate-every needs --noise (nothing drifts "
                          "on the clean path)")
     return args
 
 
-def build_program(args):
-    """The config, random weights (seed 0) on ``args.device`` and the
-    Program built once from them.  Returns (cfg, program)."""
+def resolve_mesh(args):
+    """The ``--mesh`` flag as a mesh (None without the flag)."""
+    if not args.mesh:
+        return None
+    if args.mesh == "auto":
+        devices = None if torch.device(args.device).type == "cuda" else 1
+        return mesh_lib.make_mesh_auto(devices=devices)
+    return mesh_lib.parse_mesh(args.mesh)
+
+
+def build_program(args, mesh=None):
+    """The config, random weights (seed 0) on ``args.device`` (on a mesh
+    rank, the rank's device) and the Program built once from them, on
+    ``mesh`` when given; a partition rule the mesh drops is printed as a
+    warning.  Returns (cfg, program)."""
     cfg = smoke_variant(args.arch) if args.smoke else get_arch(
         args.arch, reuse=args.reuse)
     execution = args.execution
@@ -152,10 +174,19 @@ def build_program(args):
                              "--execution photonic")
         execution = backend_lib.Backend("photonic", noise=noise_cfg)
         print(f"[serve] photonic fault model on: {noise_cfg}")
-    params = tfm.init_model(cfg, seed=0, device=args.device)
-    prog = Program.build(cfg, params, execution=execution,
-                         device=args.device)
+    device = args.device if mesh is None or not mesh.bound or \
+        mesh.device is None else mesh.device
+    params = tfm.init_model(cfg, seed=0, device=device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        prog = Program.build(cfg, params, execution=execution,
+                             device=device, mesh=mesh)
     del params
+    for w in caught:
+        print(f"[serve] WARNING {w.message}")
+    if mesh is not None:
+        print(f"[serve] execution mesh {mesh.shape} ({mesh.size} ranks"
+              + (f", {mesh.describe()})" if mesh.size > 1 else ")"))
     if prog.backend.is_photonic:
         st = prog.bank_stats()
         print(f"[serve] photonic banks prepared once: "
@@ -287,8 +318,16 @@ def _serve_trace(prog, cfg, args, obs) -> list[Completion]:
         sched = WaveBatcher(prog, wave_size=args.capacity,
                             temperature=args.temperature, telemetry=obs)
     else:
+        capacity = args.capacity
+        if prog.backend.mesh_active:
+            # one per-shard sub-batch per data shard: round capacity up
+            dp = partition.dp_size(prog.mesh)
+            capacity = -(-capacity // dp) * dp
+            if capacity != args.capacity:
+                print(f"[serve] capacity {args.capacity} -> {capacity} "
+                      f"(divides over {dp} data shard(s))")
         sched = ContinuousScheduler(
-            prog, capacity=args.capacity,
+            prog, capacity=capacity,
             max_len=args.max_prompt + args.new_tokens,
             temperature=args.temperature, telemetry=obs,
             residency=residency, calibration=calibration)
@@ -357,9 +396,22 @@ def _serve_trace(prog, cfg, args, obs) -> list[Completion]:
     return comps
 
 
+def serve_rank(mesh, args) -> list[Completion]:
+    """One mesh rank of ``main``: build the Program on the rank's mesh and
+    serve the trace; only rank 0 prints."""
+    quiet = mesh.rank != 0
+    with contextlib.redirect_stdout(io.StringIO() if quiet else sys.stdout):
+        cfg, prog = build_program(args, mesh)
+        return serve(prog, args, make_obs(cfg, args))
+
+
 def main(argv=None) -> list[Completion]:
     args = parse_args(argv)
-    cfg, prog = build_program(args)
+    mesh = resolve_mesh(args)
+    if mesh is not None and mesh.size > 1:
+        return mesh_lib.init_ranks(serve_rank, mesh, device=args.device,
+                                   args=(args,))[0]
+    cfg, prog = build_program(args, mesh)
     return serve(prog, args, make_obs(cfg, args))
 
 

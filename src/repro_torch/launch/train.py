@@ -10,7 +10,9 @@
 A step's wall is taken after ``float(loss)``, the step's one host sync, so
 it holds the step's device time (the reference, dispatching
 asynchronously, reads its clock before that sync).  Training runs on the
-xla backend; there is no mesh.
+xla backend on one device: a mesh in training (the batch over "data",
+the gradients all-reduced over the ranks) is left for a later slice
+(``train/trainer.py``).
 
 On the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train \\

@@ -33,13 +33,15 @@ from repro_torch.models.layers import (apply_rope, cast, dense_init,
 NEG_INF = -1e30
 
 
-def _maybe_t(x, w, transpose, backend=None):
+def _maybe_t(x, w, transpose, backend=None, tp_hint=None):
     """OBU transpose where the matrix is square (wq, wo here); the identity
-    path otherwise (wk, wv)."""
+    path otherwise (wk, wv).  ``tp_hint`` passes through to
+    ``Backend.dot``: the output projections mark themselves "row", so a
+    mesh runs them row-parallel (``core.backend.partition_rule``)."""
     bk = resolve_backend(backend)
     if transpose and w.shape[0] == w.shape[1]:
-        return bk.dot(x, w, transpose=True)
-    return bk.dot(x, w, transpose=False)
+        return bk.dot(x, w, transpose=True, tp_hint=tp_hint)
+    return bk.dot(x, w, transpose=False, tp_hint=tp_hint)
 
 
 def _past_valid(pos, L, device):
@@ -129,7 +131,8 @@ def gqa_forward(p, cfg: ModelConfig, x, *, transpose=False, causal=True,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = resolve_backend(backend).attention(q, k, v, causal=causal)
-    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)
+    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
+                 tp_hint="row")
     if cache is not None:
         cache["k"][:, :S] = k.to(cache["k"].dtype)
         cache["v"][:, :S] = v.to(cache["v"].dtype)
@@ -157,7 +160,8 @@ def gqa_prefill_chunk(p, cfg: ModelConfig, x, cache, q_offset, *,
     out = resolve_backend(backend).attention(
         q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), causal=True,
         q_offset=off)
-    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)
+    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
+                 tp_hint="row")
     return y, cache
 
 
@@ -201,7 +205,8 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = _attend_decode(q, cache["k"], cache["v"], k, v, pos)
-    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)
+    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
+                 tp_hint="row")
     return y, {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
 
 
@@ -225,7 +230,8 @@ def gqa_decode_legacy(p, cfg: ModelConfig, x, cache, pos, *,
     L = cache["k"].shape[1]
     mask = (torch.arange(L, device=x.device) <= pos)[None, :]
     out = _gqa_attend(q, cache["k"], cache["v"], mask)
-    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)
+    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
+                 tp_hint="row")
     return y, cache
 
 
@@ -294,7 +300,8 @@ def _mla_attend_latents(p, cfg, x, qn, qr, ckv, kr, causal, q_offset,
                   dim=-1)
     q = torch.cat([qn, qr], dim=-1)
     out = bk.attention(q, k, v, causal=causal, q_offset=q_offset)
-    return bk.dot(out, cast(p["wo"], x.dtype), transpose=False)
+    return bk.dot(out, cast(p["wo"], x.dtype), transpose=False,
+                  tp_hint="row")
 
 
 def mla_forward(p, cfg: ModelConfig, x, *, transpose=False, causal=True,
@@ -376,7 +383,8 @@ def mla_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
                      dt))
     ctx = _mm("bshr,rhv->bshv", ctx_lat, w_uv, dt)
     y = resolve_backend(backend).dot(ctx.reshape(B, S, H * m.v_head_dim),
-                                     cast(p["wo"], dt), transpose=False)
+                                     cast(p["wo"], dt), transpose=False,
+                                     tp_hint="row")
     return y, {"ckv": ckv_new.to(ckv.dtype), "kr": kr_new.to(kr.dtype)}
 
 
@@ -421,4 +429,5 @@ def cross_attn_forward(p, cfg: ModelConfig, x, kv, *, transpose=False,
                  backend).reshape(B, S, H, hd)
     out = resolve_backend(backend).attention(q, kv["ck"], kv["cv"],
                                              causal=False)
-    return _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend)
+    return _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
+                 tp_hint="row")

@@ -119,17 +119,20 @@ def apply_mlp(p, x, act: str = "swiglu", transpose: bool = False,
         wu, wd = p["w_up"], p["w_down"]
         if transpose:
             return bk.dot(gelu(bk.dot(x, wd, transpose=True)), wu,
-                          transpose=True)
+                          transpose=True, tp_hint="row")
         return bk.dot(gelu(bk.dot(x, wu, transpose=False)), wd,
-                      transpose=False)
+                      transpose=False, tp_hint="row")
+    # the pair-second (ff -> d) projection carries tp_hint="row": on a mesh
+    # it runs row-parallel over the ff axis
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
     if transpose:
         g = bk.dot(x, wd, transpose=True, activation="silu")  # (ff,d).T
         u = bk.dot(x, wu, transpose=False)
-        return bk.dot(g * u, wg, transpose=True)               # (d,ff).T
+        return bk.dot(g * u, wg, transpose=True,               # (d,ff).T
+                      tp_hint="row")
     g = bk.dot(x, wg, transpose=False, activation="silu")
     u = bk.dot(x, wu, transpose=False)
-    return bk.dot(g * u, wd, transpose=False)
+    return bk.dot(g * u, wd, transpose=False, tp_hint="row")
 
 
 # ------------------------------------------------------------- embeddings

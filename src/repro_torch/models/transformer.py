@@ -151,6 +151,27 @@ def _cross_kv(p, cfg, memory, B, backend):
     return kv
 
 
+def _moe_ffn(p, cfg: ModelConfig, hn, transpose, backend):
+    """The MoE FFN.  Its token groups and expert capacities couple rows,
+    so on a mesh rank holding its data shard's rows it runs on the whole
+    batch, gathered over the data axes, and keeps its own rows of the
+    result: the routing, the drops and the load-balance loss are the
+    unsharded program's."""
+    bk = backend_lib.resolve(backend)
+    if not (bk.mesh_active and bk.rows_sharded):
+        return moe_lib.apply_moe(p, hn, cfg.moe, transpose=transpose,
+                                 backend=backend)
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding.partition import data_axes
+    d_axes = data_axes(bk.mesh)
+    whole = coll.all_gather(hn, bk.mesh, d_axes, dim=0)
+    y, aux = moe_lib.apply_moe(p, whole, cfg.moe, transpose=transpose,
+                               backend=bk.whole_rows())
+    n = hn.shape[0]
+    i = bk.mesh.index(d_axes)
+    return y[i * n:(i + 1) * n], aux
+
+
 def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
                 mode, causal, pos, backend, transpose, memory=None,
                 legacy_decode=False):
@@ -232,9 +253,7 @@ def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
     if ffn_kind != "none":
         hn = apply_norm(p["norm2"], h, cfg.norm, cfg.norm_eps)
         if ffn_kind == "moe":
-            y, moe_aux = moe_lib.apply_moe(p["ffn"], hn, cfg.moe,
-                                           transpose=transpose,
-                                           backend=backend)
+            y, moe_aux = _moe_ffn(p["ffn"], cfg, hn, transpose, backend)
             aux = aux + moe_aux["load_balance"]
         else:
             y = apply_mlp(p["ffn"], hn, act=cfg.mlp_act,

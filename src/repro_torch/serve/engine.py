@@ -9,8 +9,10 @@ New code uses :class:`repro_torch.api.Program` directly::
 The functions here are thin shims for the old call sites:
 ``prefill_step`` / ``decode_step`` wrap the functional steps of
 ``repro_torch.api`` over raw params, and ``generate`` builds a Program per
-call.  Greedy outputs are token-identical to the Program methods.  The
-port has no mesh: ``act_pspec`` and ``mesh`` raise.
+call.  Greedy outputs are token-identical to the Program methods.  On a
+mesh rank, ``act_pspec`` (the serving spec of the execution backend's
+mesh) runs a step on the rank's rows, and ``generate``'s ``mesh`` builds
+the Program on it.
 """
 from __future__ import annotations
 
@@ -63,9 +65,9 @@ def generate(params, cfg: ModelConfig, prompt, max_new: int, *,
     """Host-side autoregressive loop: prompt (B, S) -> (B, S + max_new),
     with the modality ``extras`` of a vlm or audio model.  Builds the
     Program (backend, prepared banks) on ``device`` (default
-    CUDA) per call, as the reference does."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: the port has no mesh yet")
-    prog = api.Program.build(cfg, params, execution=execution, device=device)
+    CUDA; on a mesh rank, its device) per call, as the reference does,
+    on ``mesh`` when given."""
+    prog = api.Program.build(cfg, params, execution=execution, device=device,
+                             mesh=mesh)
     return prog.generate(prompt, max_new, extras=extras,
                          temperature=temperature, seed=seed)

@@ -21,8 +21,16 @@ track) and the photonic meter, fed by every prefill and decode step and
 bound to the residency when both are given; the stats share its registry.
 ``on_token(rid, tok)`` and ``on_complete(completion)`` stream results as
 they land.  All of it runs on the host between device steps: nothing of it
-enters the decode graph, and it adds no device synchronization.  Left out
-for a later slice: the mesh.
+enters the decode graph, and it adds no device synchronization.
+
+A Program built with ``mesh=`` makes serving data-parallel: the scheduler
+inherits the Program's mesh (and refuses another one), the slot pool's
+batch axis spans the mesh's data shards (capacity must divide; each rank
+holds its shard block's caches) and admission packs per-shard
+sub-batches.  Every rank runs this same host loop on the same requests;
+each decode step runs the rank's rows and gathers the sampled tokens over
+"data", so every rank's scheduler sees every slot.  Chunked admission is
+off on an active mesh, as in the reference.
 
 The decode step runs through one ``graphs.DecodeCell`` over the pool's
 caches, built once at the pool's capacity and registered with the
@@ -122,10 +130,18 @@ class ContinuousScheduler:
                  admission: Optional[ReuseAwareAdmission] = None,
                  on_token: Optional[Callable[[int, int], None]] = None,
                  on_complete: Optional[Callable[[Completion], None]] = None,
-                 telemetry=None, residency=None, calibration=None):
+                 telemetry=None, residency=None, calibration=None,
+                 mesh=None):
         if not isinstance(program, api.Program):
             raise TypeError("ContinuousScheduler serves a built Program")
+        if mesh is not None and mesh != program.mesh:
+            # a pool placed on a mesh the Program does not run on would
+            # feed a rank's block of caches into unsharded steps
+            raise ValueError(
+                "mesh= conflicts with the Program's execution mesh; build "
+                "it with Program.build(..., mesh=mesh)")
         self.program = program
+        self.mesh = program.mesh
         cfg = program.cfg
         self.cfg = cfg
         self.pad_id = pad_id
@@ -145,7 +161,8 @@ class ContinuousScheduler:
         self.admission = admission or ReuseAwareAdmission.build(cfg)
         self.on_token = on_token
         self.on_complete = on_complete
-        self.pool = SlotPool(cfg, capacity, max_len, device=program.device)
+        self.pool = SlotPool(cfg, capacity, max_len, device=program.device,
+                             mesh=self.mesh)
         # the compiled decode step over the pool, kept for its life
         self.decode_cell = program.decode_cell(self.pool.caches)
         # Right padding is causally invisible to attention (masked by the
@@ -157,7 +174,8 @@ class ContinuousScheduler:
         # for a request with modality extras.
         self._exact_prefill = tfm.has_ssm(cfg)
         self.prefill_chunk = prefill_chunk
-        self._chunkable = prefill_chunk is not None and tfm.chunkable(cfg)
+        self._chunkable = (prefill_chunk is not None and tfm.chunkable(cfg)
+                           and not program.backend.mesh_active)
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         # slot -> in-progress chunked prefill (staging cache at pool

@@ -1,11 +1,20 @@
 """Slot-level KV/SSM cache pool for continuous batching (port of
-``repro.serve.slots`` without the mesh).
+``repro.serve.slots``).
 
 A ``SlotPool`` owns ONE preallocated cache tree shaped ``[R, T, B, L, ...]``
 where ``B`` is the slot capacity and ``L`` the per-slot context budget.
 Requests are left-aligned at position 0 of their slot and a per-slot
 position vector tracks each slot's fill.  Freeing a slot is bookkeeping
 only: stale cache contents beyond a slot's position are masked on read.
+
+**Data-parallel pools** (``mesh=`` with more than one data shard): the
+slot axis spans the mesh's ``dp`` data shards in contiguous blocks
+(capacity must divide).  Every rank keeps the bookkeeping of all slots,
+but its caches hold only its shard's block (``caches`` has capacity / dp
+rows; ``lo`` is the block's first slot), which is what a decode step on
+the rank's rows reads.  ``allocate`` packs per-shard sub-batches: the slot
+comes from the least-loaded shard block (ties to the lowest shard), the
+lowest index within it.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import numpy as np
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import partition
 
 
 @dataclasses.dataclass
@@ -57,14 +67,26 @@ class SlotPool:
     inserts a prefilled request at position 0, ``free`` recycles it."""
 
     def __init__(self, cfg: ModelConfig, capacity: int, max_len: int,
-                 dtype=None, device=None):
+                 dtype=None, device=None, mesh=None):
         if capacity < 1 or max_len < 2:
             raise ValueError("need capacity >= 1 and max_len >= 2")
         self.cfg = cfg
         self.capacity = capacity
         self.max_len = max_len
+        self.mesh = mesh
+        self.dp = 1
+        self.lo = 0
+        if mesh is not None and mesh.size > 1:
+            self.dp = partition.dp_size(mesh)
+            if capacity % self.dp != 0:
+                raise ValueError(
+                    f"slot capacity {capacity} must divide over the mesh's "
+                    f"{self.dp} data shard(s) (one per-shard sub-batch each)")
+        self.rows = capacity // self.dp
+        if self.dp > 1:
+            self.lo = mesh.index(partition.data_axes(mesh)) * self.rows
         dtype = torch_dtype(dtype or cfg.compute_dtype)
-        self.caches = tfm.init_caches(cfg, capacity, max_len, dtype=dtype,
+        self.caches = tfm.init_caches(cfg, self.rows, max_len, dtype=dtype,
                                       device=device)
         # next write position per slot; clamped to max_len - 1 so a full
         # slot's delta write lands in-bounds (and is masked on read)
@@ -84,11 +106,22 @@ class SlotPool:
         return [i for i, s in enumerate(self.slots) if s is not None]
 
     def allocate(self, state: SlotState) -> int:
-        """Claim the lowest free slot for ``state``."""
+        """Claim a free slot for ``state``: the lowest free index, or on a
+        data-parallel pool the lowest free index of the least-loaded shard
+        block (ties to the lowest shard)."""
         if not self._free:
             raise RuntimeError("slot pool exhausted")
         self._free.sort()
-        slot = self._free.pop(0)
+        if self.dp <= 1:
+            slot = self._free.pop(0)
+        else:
+            per = self.rows
+            free_by_shard = [[s for s in self._free if s // per == i]
+                             for i in range(self.dp)]
+            shard = min((i for i in range(self.dp) if free_by_shard[i]),
+                        key=lambda i: per - len(free_by_shard[i]))
+            slot = free_by_shard[shard][0]
+            self._free.remove(slot)
         self.slots[slot] = state
         return slot
 
@@ -118,7 +151,8 @@ class SlotPool:
         if prompt_len > self.max_len:
             raise ValueError(
                 f"prompt_len {prompt_len} exceeds slot budget {self.max_len}")
-        _insert(self.caches, prefill_caches, slot)
+        if self.lo <= slot < self.lo + self.rows:     # this rank's block
+            _insert(self.caches, prefill_caches, slot - self.lo)
         self.positions[slot] = prompt_len
 
     def advance(self, slot: int) -> None:

@@ -1,0 +1,111 @@
+"""Collectives over one set of mesh axes: the torch counterparts of the
+``jax.lax`` calls in the reference's sharded backend (``psum``,
+``psum_scatter``, ``all_gather``, ``pmax``, ``ppermute``).
+
+Each takes a bound ``launch.mesh.Mesh`` and the axes to reduce over (a
+name or a tuple of names).  Over an axis set of size 1 each is the
+identity, with no process group involved.  The transport rule lives in the
+mesh (``Mesh.staged``): an op the transport cannot run on this rank's
+tensors goes through host memory, and only that op.  Gloo's list forms of
+``all_gather`` and ``reduce_scatter`` are used throughout; its
+single-tensor forms abort a process on CUDA tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _host(x, mesh, op):
+    """``x`` as the transport takes it for ``op``: a host copy when the op
+    is staged, else ``x`` itself."""
+    return x.cpu() if mesh.staged(op) else x
+
+
+def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum of ``x`` over the ranks along ``axes`` (every rank gets it)."""
+    axes = _axes(axes)
+    if mesh.axis_size(axes) == 1:
+        return x
+    dist = _dist()
+    y = _host(x, mesh, "all_reduce").clone()
+    dist.all_reduce(y, group=mesh.group(axes))
+    return y.to(x.device)
+
+
+def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Elementwise max of ``x`` over the ranks along ``axes``."""
+    axes = _axes(axes)
+    if mesh.axis_size(axes) == 1:
+        return x
+    dist = _dist()
+    y = _host(x, mesh, "all_reduce").clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+    return y.to(x.device)
+
+
+def all_gather(x: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
+    """The ranks' ``x`` along ``axes`` concatenated on ``dim`` in rank
+    order (tiled, as ``jax.lax.all_gather(..., tiled=True)``)."""
+    axes = _axes(axes)
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    dist = _dist()
+    src = _host(x, mesh, "all_gather").contiguous()
+    out = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(out, src, group=mesh.group(axes))
+    return torch.cat(out, dim=dim).to(x.device)
+
+
+def psum_scatter(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum over the ranks along ``axes``, each rank keeping its own block
+    of the last dim (``jax.lax.psum_scatter(..., tiled=True)`` over the
+    last dim)."""
+    axes = _axes(axes)
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    dist = _dist()
+    src = _host(x, mesh, "reduce_scatter")
+    parts = [p.contiguous() for p in src.chunk(n, dim=-1)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=mesh.group(axes))
+    return out.to(x.device)
+
+
+def ppermute_ring(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """One hop of the ring ``i -> i + 1`` along ``axis``: every rank sends
+    ``x`` to its successor and returns what its predecessor sent."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return x
+    dist = _dist()
+    group = mesh.group(axis)
+    members = dist.get_process_group_ranks(group)
+    me = mesh.index(axis)
+    src = _host(x, mesh, "send_recv").contiguous()
+    recv = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, members[(me + 1) % n], group),
+           dist.P2POp(dist.irecv, recv, members[(me - 1) % n], group)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return recv.to(x.device)
+
+
+def split_last(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """This rank's block of ``x``'s last dim along ``axes`` (no
+    communication)."""
+    n = mesh.axis_size(_axes(axes))
+    if n == 1:
+        return x
+    w = x.shape[-1] // n
+    return x.narrow(-1, mesh.index(_axes(axes)) * w, w)

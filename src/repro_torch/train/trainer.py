@@ -6,7 +6,14 @@ AdamW update.
 Gradients come from ``torch.autograd`` over the xla backend's torch ops,
 as the reference differentiates XLA ops.  A photonic backend is refused:
 its MVM kernels carry no autograd, so a gradient through them would leave
-the weights out.  There is no ``act_pspec`` (no mesh).
+the weights out.
+
+Training keeps no mesh (no ``act_pspec``): the reference's train cell
+shards the batch over "data" and lets GSPMD all-reduce the gradients (and
+reduce-scatter them under ``cfg.fsdp``); the port's step would need that
+gradient exchange over the ranks, left for a later slice, so a config
+carrying a mesh-only setting (``cfg.fsdp`` is refused by
+``Program.build`` on a mesh) trains on one device.
 """
 from __future__ import annotations
 

@@ -160,6 +160,41 @@ def test_paper_entry_points_default_to_cuda_and_raise_without_it():
     assert vision_task.make_task(device="cpu")(0, 2)[0].device.type == "cpu"
 
 
+# the sharding slice's new modules and the modules it extended
+SLICE15_MODULES = ["sharding/__init__.py", "sharding/partition.py",
+                   "sharding/collectives.py", "launch/mesh.py",
+                   "launch/shardcheck.py", "core/backend.py",
+                   "core/prepared.py", "api.py", "graphs.py",
+                   "serve/slots.py", "serve/scheduler.py", "serve/engine.py",
+                   "launch/serve.py", "models/transformer.py"]
+
+
+@pytest.mark.parametrize("module", SLICE15_MODULES)
+def test_sharding_slice_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert bad == []
+
+
+def test_sharded_entry_points_default_to_cuda_and_raise_without_it():
+    """Spawning ranks defaults to the card and raises without one, as
+    the launchers do (``device="cpu"`` runs the plain paths)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch import shardcheck
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh_lib.init_ranks(print, "1x2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.main(["--arch", "minitron-4b", "--smoke", "--requests", "1",
+                     "--mesh", "1x2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shardcheck.main(["--mesh", "1x2"])
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)

@@ -6,7 +6,8 @@ ledger, tracker counts, trace rows and streaming callbacks as the
 reference's; ``gqa_decode_legacy`` and ``decode_step_fn(legacy_decode=
 True)``; ``SlotPool.reset`` / ``remaining``; the launcher's trace; and
 ``repro_torch.launch.serve.main`` on the CPU for every scheduler, the
-telemetry outputs, the fault model, a vlm and the refused ``--mesh``."""
+telemetry outputs, the fault model, a vlm and ``--mesh`` (a 1x1 mesh
+in-process, a malformed spec refused; ranks in ``test_torch_sharded``)."""
 import functools
 import json
 
@@ -417,8 +418,11 @@ def test_launcher_fault_model_and_vlm(capsys):
 
 
 def test_launcher_refusals():
-    with pytest.raises(SystemExit, match="sharding is not yet ported"):
-        t_launch.main(SMOKE + ["--mesh", "1x1"])
+    # --mesh is served since the sharding slice: a 1x1 mesh in-process,
+    # a malformed spec refused before any rank starts
+    assert len(t_launch.main(SMOKE + ["--mesh", "1x1"])) == 5
+    with pytest.raises(ValueError, match="must be DxM or PxDxM"):
+        t_launch.main(SMOKE + ["--mesh", "2xq"])
     with pytest.raises(SystemExit, match="needs --noise"):
         t_launch.main(SMOKE + ["--calibrate-every", "2"])
     with pytest.raises(SystemExit, match="--execution photonic"):

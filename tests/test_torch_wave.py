@@ -1,8 +1,8 @@
 """The port's wave batcher, ``Scheduler`` protocol and engine shims against
 the JAX reference's on the same weights (float32 dense and MoE smoke
 configs): completions and greedy tokens identical, ``WaveStats`` equal
-field for field, and the arguments the port has no counterpart for (a
-mesh, ``act_pspec``) refused.  ``legacy_decode`` runs since slice 12
+field for field, and a mesh or an ``act_pspec`` without ranks refused
+(sharded serving on ranks: ``tests/test_torch_sharded.py``).  ``legacy_decode`` runs since slice 12
 (``tests/test_torch_serve_launch.py``).  Modality extras are
 taken since slice 11 (``tests/test_torch_vlm.py``,
 ``tests/test_torch_audio.py``).
@@ -183,16 +183,20 @@ def test_engine_cast_params_and_refusals():
     assert t_engine.cast_params(tp, tc)["embed"]["table"].dtype == \
         torch.float32
     prompt = np.zeros((1, 4), np.int32)
-    with pytest.raises(NotImplementedError):
-        t_engine.generate(tp, tc, prompt, 2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # since the sharding slice: a mesh of several positions runs as ranks,
+    # and an act_pspec needs a backend on such a mesh
+    from repro_torch.launch import mesh as mesh_lib
+    with pytest.raises(ValueError, match="init_ranks"):
+        t_engine.generate(tp, tc, prompt, 2, device="cpu",
+                          mesh=mesh_lib.parse_mesh("2x2"))
+    with pytest.raises(ValueError, match="active mesh"):
         t_engine.prefill_step(tp, tc, {"tokens": prompt}, 8,
                               act_pspec=object())
     with pytest.raises(ValueError, match="scalar position"):
         caches = t_api.Program.build(tc, tp, device="cpu").empty_caches(1, 8)
         t_engine.decode_step(tp, tc, {"tokens": prompt[:, :1]}, caches,
                              np.array([4]), legacy_decode=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="active mesh"):
         t_api.decode_step_fn(tc, act_pspec=object())
 
 
