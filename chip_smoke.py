@@ -87,14 +87,15 @@ the script exits non-zero without printing the final ``ok`` line):
    counts in a path's window rest on kernels a replay was seen to run).
    The fault-model path is not captured by rule
    (``graphs.NOISE_RULE``, printed as ``decode_graph_reason``);
-3j. since slice 10 the MLA path: deepseek-v2-lite-16b with its R&B plan
-   (13 x 2: 64 routed experts top-6, 2 shared, one dense ``pre`` layer,
-   MLA with kv_lora 512, q/k head dim 192 and v 128) at full width and
-   depth, photonic, bf16, seeded random weights, through
+3j. since slice 10 the MLA path: deepseek-v2-lite-16b R&B (64 routed
+   experts top-6, 2 shared, one dense ``pre`` layer, MLA with kv_lora 512,
+   q/k head dim 192 and v 128) at full width, since slice 16 cut in depth
+   from its 13 x 2 plan to 4 x 2 (``mla_config``), photonic, bf16, seeded
+   random weights, through
    ``Program.generate`` and a ``ContinuousScheduler`` with chunked prefill
    (graph and eager drains as in 3i); launch counts zeroed just before and
    read just after, the fused MVM held to the config's count per pass
-   (``fused_per_pass``: 5155 per decode pass, 5182 per prefill pass or
+   (``fused_per_pass``: 1591 per decode pass, 1600 per prefill pass or
    chunk), flash to one tensor-core launch per layer of every pass of 512
    rows or more; then a small bf16 MLA model's card logits against the CPU
    program with the MVM kernels' arithmetic and the tensor-core flash's
@@ -165,7 +166,17 @@ the script exits non-zero without printing the final ``ok`` line):
    to ``fused_per_pass`` with each input on the card, one line per rank
    (launches, taught dots, bank piece shapes, peak memory, wall); then
    ``python -m repro_torch.launch.serve --mesh 1x2`` (its ``main``) serves
-   4 requests;
+   4 requests; since slice 16 the 2x1 ranks also build the model with
+   ``cfg.fsdp`` (``fsdp_serving``: prefill and 4 decode steps bit-equal
+   to the build without it, from half the bank bytes a rank);
+3p. since slice 16 training on a mesh (``train_mesh_phase``), right after
+   ``train``: granite-moe-1b-a400m R&B at full width on 2x1 ranks sharing
+   the card, 3 steps data-parallel and 3 with ``cfg.fsdp`` through
+   ``launch.train.run(mesh=)`` (FSDP bit-equal to DP; DP step 0 within
+   1e-3 of ``train``'s unsharded step 0; the FSDP checkpoint restored in
+   this process bit-equal to the ranks' state), then ``Program.loss`` of
+   the FSDP build on the mesh on photonic (CE within 1e-3 of the
+   unsharded einsum route, every fused launch checked and counted);
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
@@ -1426,6 +1437,81 @@ SHARD_DRAIN_NEW = 8
 # a row-parallel dot rounds each rank's partial to bf16 before the sum:
 # against the single-device kernel on the same input, within that rounding
 SHARD_SPLIT_TOL = 2.0 ** -8
+SHARD_FSDP_DECODE = 4         # the 2x1 FSDP build: the prefill, 4 steps
+
+
+def bank_bytes(bank) -> int:
+    """The bytes a rank holds of a Program's bank (every field of a
+    programmed bank, every float leaf)."""
+    from repro_torch.core import prepared
+    total = 0
+    for leaf in prepared.tree_leaves(bank):
+        ts = ([getattr(leaf, f) for f in prepared.FIELDS]
+              if isinstance(leaf, prepared.PreparedTensor) else [leaf])
+        total += sum(t.numel() * t.element_size() for t in ts)
+    return total
+
+
+def fsdp_serving(mesh, cfg, prompts, tokens, want, dense_bytes):
+    """minitron-4b R&B built again with ``cfg.fsdp`` on the same ranks (one
+    rank at a time): every bank field and float leaf cut over "data" on its
+    "embed" dim and gathered at each use.  The prefill and
+    ``SHARD_FSDP_DECODE`` decode steps on the same tokens must give the
+    logits ``want`` of the build without FSDP bit for bit, with the same
+    fused launches per pass.  Returns the rank's bank bytes, peak, walls
+    and launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.kernels import counts
+    from repro_torch.models import transformer as tfm
+
+    fcfg = dataclasses.replace(cfg, fsdp=True)
+    t0 = time.perf_counter()
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            params = tfm.init_model(fcfg, seed=0, device=mesh.device)
+            prog = api.Program.build(fcfg, params, execution="photonic",
+                                     mesh=mesh)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prog.prefill({"tokens": prompts},
+                                  SHARD_PROMPT + SHARD_DECODE)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    got = [logits.float().cpu()]
+    t0 = time.perf_counter()
+    for i, tok in enumerate(tokens[:SHARD_FSDP_DECODE]):
+        lg, caches = prog.decode(torch.as_tensor(tok)[:, None].cuda(),
+                                 caches, SHARD_PROMPT + i)
+        got.append(lg.float().cpu())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = counts.snapshot()
+    per = (fused_per_pass(cfg, prefill=True)
+           + fused_per_pass(cfg, prefill=False) * SHARD_FSDP_DECODE)
+    out = {"bank_bytes": bank_bytes(prog.bank),
+           "bank_bytes_without_fsdp": dense_bytes,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "build_s": build_s, "prefill_s": prefill_s,
+           "decode_s": decode_s, "fused_launches": launches[
+               "photonic_mvm_fused"], "fused_gemv_launches": launches[
+               "photonic_mvm_fused_gemv"], "fused_expected": per,
+           "flash_launches": launches["flash_attention"],
+           "logits_bit_equal": all(torch.equal(a, b)
+                                   for a, b in zip(got, want))}
+    if not (out["logits_bit_equal"] and len(got) == len(want)
+            and out["fused_launches"] == per and not out["flash_launches"]
+            and out["bank_bytes"] < dense_bytes):
+        raise AssertionError(f"rank {mesh.rank}: the FSDP build {out}")
+    return out
 
 
 def taught_dots(prog, whole, records):
@@ -1602,6 +1688,14 @@ def sharded_rank(mesh, job):
     if len(records) != per_prefill + per_decode:
         raise AssertionError(f"rank {mesh.rank}: {len(records)} taught "
                              f"dots, {per_prefill + per_decode} expected")
+    if job.get("fsdp"):
+        dense_bytes = bank_bytes(prog.bank)
+        del prog, whole, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["fsdp"] = fsdp_serving(mesh, cfg, prompts, job["tokens"],
+                                   steps[:SHARD_FSDP_DECODE + 1],
+                                   dense_bytes)
     out.update({"launches": launches, "fused_expected": want,
                 "fused_per_prefill": per_prefill,
                 "fused_per_decode": per_decode, "taught_dots": taught,
@@ -1620,7 +1714,9 @@ def sharded_phase(torch, gpu):
     single-device kernel on the same input (``sharded_rank``).  The 2x1
     (data-parallel) logits must equal the unsharded Program's bit for bit
     and its drain of 4 requests the unsharded scheduler's tokens at the
-    same capacity.  The 1x2 and 2x2 readings are printed beside the
+    same capacity; its ranks then build the model again with ``cfg.fsdp``
+    (``fsdp_serving``), whose prefill and 4 decode steps must give the
+    same logits bit for bit from half the bank bytes a rank.  The 1x2 and 2x2 readings are printed beside the
     unsharded Program's own distance between its two attention routes
     (flash, and the einsum a mesh runs): at full width with random
     weights, one float rounding moved anywhere carries the logits that far
@@ -1698,6 +1794,7 @@ def sharded_phase(torch, gpu):
                "split_tol": SHARD_SPLIT_TOL}
         if shape == "2x1":
             job["drain"] = drain
+            job["fsdp"] = True
         ranks = mesh_lib.init_ranks(sharded_rank, shape, device="cuda",
                                     args=(job,))
         rels = [rel_l2(got, want) for got, want in
@@ -2610,8 +2707,20 @@ MLA_TAUGHT_TOL = 1e-2       # small bf16 MLA card logits vs the CPU program
 MLA_INPUT_TOL = 2.0 ** -8   # its MVM inputs vs the card's (bf16 noise)
 MLA_MODEL_TOL = 0.07        # untaught, reported: the gap A8 flips of bf16
                             # noise carry to (PERF.md §6)
-MLA_FUSED_PER_PASS = (5155, 5182)   # deepseek-v2-lite-16b R&B: decode,
-                                    # prefill pass or chunk
+MLA_RB = (4, 2)             # serve_mla's cut in depth: the dense ``pre``
+                            # layer and 4 x 2 R&B groups (the published
+                            # plan is 13 x 2; the script's 1200 s limit)
+MLA_FUSED_PER_PASS = (1591, 1600)   # that model: decode, prefill pass or
+                                    # chunk
+
+
+def mla_config():
+    """deepseek-v2-lite-16b at its published width, cut in depth to the
+    dense ``pre`` layer and ``MLA_RB`` R&B groups x reuses."""
+    from repro_torch.configs import get_arch, rb
+    g, t = MLA_RB
+    base = get_arch("deepseek-v2-lite-16b")
+    return rb(dataclasses.replace(base, num_layers=1 + g * t), g, t)
 
 
 def fused_per_pass(cfg, prefill: bool) -> int:
@@ -2674,19 +2783,18 @@ def flash_per_prefill(cfg, rows: int, min_seq: int = 512) -> tuple:
 
 
 def serve_mla(torch, gpu):
-    """deepseek-v2-lite-16b with its R&B plan (13 x 2), unmodified (64
-    routed experts top-6, 2 shared, one dense ``pre`` layer, MLA with
-    kv_lora 512), at full width and depth, photonic, bf16, seeded random
+    """deepseek-v2-lite-16b R&B (64 routed experts top-6, 2 shared, one
+    dense ``pre`` layer, MLA with kv_lora 512) at full width, cut in depth
+    to ``MLA_RB`` (4 x 2, ``mla_config``), photonic, bf16, seeded random
     weights: ``Program.generate`` and a ``ContinuousScheduler`` with
     chunked prefill (its decode graph against an eager cell).  Fused-MVM
     launches are held to the config's count per pass, flash to one launch
     per layer of every pass of 512 rows or more, all on the tensor-core
     variant."""
     from repro_torch import api
-    from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tfm
 
-    cfg = get_arch("deepseek-v2-lite-16b", reuse=True)
+    cfg = mla_config()
     per_decode = fused_per_pass(cfg, prefill=False)
     per_prefill = fused_per_pass(cfg, prefill=True)
     if (per_decode, per_prefill) != MLA_FUSED_PER_PASS:
@@ -3412,7 +3520,239 @@ def train_phase(torch, gpu):
                                  f"calls against their plain versions "
                                  f"{worst}, CE {float(ce_p)} against "
                                  f"{float(ce_x)} on xla")
-        return launches
+        return {"launches": launches, "losses": losses}
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+# -------------------------------------------------------------------------
+# phase 3m2: training on a mesh of ranks, with and without FSDP (slice 16)
+# -------------------------------------------------------------------------
+TRAIN_MESH = "2x1"
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_TOL = 1e-3       # DP step 0 vs the train phase's step 0; the
+                            # mesh eval's CE vs the unsharded einsum route
+
+
+def state_digest(tree) -> dict:
+    """sha256 of each leaf's bytes, by path (a bit-for-bit fingerprint
+    that crosses processes without moving the arrays)."""
+    import hashlib
+    from repro_torch.train import checkpoint
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in checkpoint._flatten(tree).items()}
+
+
+def train_mesh_rank(mesh, job):
+    """One rank of ``train_mesh``: ``launch.train.run(..., mesh=mesh)`` on
+    granite-moe-1b-a400m R&B at full width, the train phase's setup, for
+    ``TRAIN_MESH_STEPS`` steps from seed 0, first data-parallel, then with
+    ``cfg.fsdp`` (each in its own checkpoint directory, deterministic
+    algorithms on).  Per run: the losses, grad norms, step walls, peak and
+    the bytes of the rank's params plus Adam state.  Then the two runs'
+    gathered params and moments compared bit for bit, the FSDP state's
+    digest, and the held-out eval through ``Program.loss`` of the FSDP
+    build on this mesh on photonic: fused launches counted, each held to
+    its plain version (``checked_kernels``)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels import counts
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import partition
+    from repro_torch.train import trainer
+
+    base = get_arch(TRAIN_ARCH, reuse=True)
+    out = {"rank": mesh.rank, "coords": mesh.coords,
+           "transport": mesh.describe()}
+    gathered = {}
+    for fsdp in (False, True):
+        cfg = dataclasses.replace(base, fsdp=fsdp)
+        tcfg = TrainConfig(lr=1e-3, total_steps=TRAIN_STEPS, warmup_steps=1,
+                           microbatch=2, checkpoint_every=0,
+                           checkpoint_dir=job["dirs"][fsdp])
+        record = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with deterministic(torch):
+            params, opt, losses = launch.run(
+                cfg, tcfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                steps=TRAIN_MESH_STEPS, mesh=mesh, log_every=1,
+                record=record)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        held = tree_leaves({"p": params, "m": opt.m, "v": opt.v})
+        specs = trainer.param_specs(cfg, mesh)
+        gathered[fsdp] = (
+            partition.gather_tree(params, specs, mesh),
+            partition.gather_tree(opt.m, specs, mesh),
+            partition.gather_tree(opt.v, specs, mesh), int(opt.step))
+        out["fsdp" if fsdp else "dp"] = {
+            "losses": losses,
+            "grad_norms": [float(r["grad_norm"]) for r in record],
+            "lrs": [float(r["lr"]) for r in record],
+            "step_walls_s": [r["s"] for r in record], "run_s": run_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_adam_bytes": sum(t.numel() * t.element_size()
+                                     for t in held),
+            "leaves_cut": sum(1 for x in _spec_list(specs) if x)}
+        del params, opt, held
+    a, b = gathered[False], gathered[True]
+    out["fsdp_bit_equal_to_dp"] = (
+        out["dp"]["losses"] == out["fsdp"]["losses"]
+        and out["dp"]["grad_norms"] == out["fsdp"]["grad_norms"]
+        and a[3] == b[3] and all(
+            torch.equal(x, y) for x, y in zip(
+                tree_leaves(dict(zip("pmv", a[:3]))),
+                tree_leaves(dict(zip("pmv", b[:3]))))))
+    out["digest"] = state_digest(
+        (b[0], {"m": b[1], "v": b[2], "step": np.int32(b[3])}))
+    del gathered, a
+
+    # the held-out eval on this mesh, photonic, through the FSDP build
+    cfg = dataclasses.replace(base, fsdp=True)
+    prog = api.Program.build(cfg, b[0], execution="photonic", mesh=mesh)
+    del b
+    held = SyntheticPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=1)).device_batch(10_000)
+    worst = {}
+    counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), checked_kernels(worst):
+        ce, aux = prog.loss(held)
+    torch.cuda.synchronize()
+    launches = counts.snapshot()
+    out["eval"] = {"ce": float(ce), "aux": float(aux),
+                   "wall_s": time.perf_counter() - t0,
+                   "fused_launches": launches["photonic_mvm_fused"],
+                   "fused_gemv_launches": launches["photonic_mvm_fused_gemv"],
+                   "flash_launches": launches["flash_attention"],
+                   "calls_vs_plain": {k: {"calls": c, "max_rel_l2": e}
+                                      for k, (c, e) in worst.items()}}
+    return out
+
+
+def _spec_list(specs) -> list:
+    """The spec tuples of a spec tree (sorted keys)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_list(specs[k])]
+    return [specs]
+
+
+def train_mesh_phase(torch, gpu, train):
+    """granite-moe-1b-a400m R&B at full published width on a 2x1 mesh of
+    ranks sharing the card over gloo, the train phase's setup (bf16 over
+    float32 masters, xla, the copy task, 8 x 1024 in 2 microbatches,
+    remat), ``TRAIN_MESH_STEPS`` steps data-parallel and again with
+    ``cfg.fsdp`` from the same seed (``train_mesh_rank``).  Gates: the FSDP
+    run's losses, grad norms, final params and moments bit-equal to the DP
+    run's; the DP step-0 loss within ``TRAIN_MESH_TOL`` of the train
+    phase's unsharded step 0 (same weights and batch); the FSDP run's
+    step-3 checkpoint restored in this process on one device bit-equal to
+    the ranks' gathered state (per-leaf sha256); the mesh's photonic
+    held-out CE within ``TRAIN_MESH_TOL`` of the unsharded Program's with
+    flash off (the einsum route a mesh runs; the flash route's gap
+    printed), every fused launch of the pass held to its plain version
+    and counted at ``TRAIN_FUSED_PER_PASS`` a rank.  ``train``: the train
+    phase's result (its losses)."""
+    import tempfile
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH, reuse=True), fsdp=True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix="train_mesh_",
+                                    dir=ROOT / "build"))
+    try:
+        job = {"dirs": {False: str(scratch / "dp"),
+                        True: str(scratch / "fsdp")}}
+        t0 = time.perf_counter()
+        ranks = mesh_lib.init_ranks(train_mesh_rank, TRAIN_MESH,
+                                    device="cuda", args=(job,))
+        ranks_s = time.perf_counter() - t0
+        shutil.rmtree(scratch / "dp")
+
+        # the FSDP checkpoint on one device, in this process
+        t0 = time.perf_counter()
+        params = tfm.init_model(cfg, seed=7)
+        (params, opt), extra = checkpoint.restore(
+            str(scratch / "fsdp"), TRAIN_MESH_STEPS,
+            (params, adamw.init(params)))
+        restore_s = time.perf_counter() - t0
+        digest = state_digest((params, {"m": opt.m, "v": opt.v,
+                                        "step": np.int32(int(opt.step))}))
+        del opt
+        held = SyntheticPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH, seed=1)).device_batch(10_000)
+        prog = api.Program.build(cfg, params, execution="photonic")
+        del params
+        ces = {}
+        for route in ("einsum", "flash"):
+            prog.backend = dataclasses.replace(prog.backend,
+                                               flash=route == "flash")
+            ces[route] = float(prog.loss(held)[0])
+        del prog
+        r0 = ranks[0]
+        step0 = train["losses"][0]
+        ce_mesh = r0["eval"]["ce"]
+        out = {"phase": "train_mesh", "gpu": gpu, "arch": cfg.name,
+               "mesh": TRAIN_MESH, "transport": r0["transport"],
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatch": 2,
+               "steps": TRAIN_MESH_STEPS, "deterministic": True,
+               "ranks_s": ranks_s, "restore_s": restore_s,
+               "restore_extra": extra,
+               "unsharded_step0_loss": step0,
+               "dp_step0_rel": abs(r0["dp"]["losses"][0] - step0) / step0,
+               "unsharded_losses": train["losses"][:TRAIN_MESH_STEPS],
+               "fsdp_bit_equal_to_dp": [r["fsdp_bit_equal_to_dp"]
+                                        for r in ranks],
+               "checkpoint_bit_equal": [r["digest"] == digest
+                                        for r in ranks],
+               "eval_ce_unsharded_einsum": ces["einsum"],
+               "eval_ce_unsharded_flash": ces["flash"],
+               "eval_ce_mesh_vs_einsum_rel": abs(ce_mesh - ces["einsum"])
+               / ces["einsum"],
+               "eval_ce_mesh_vs_flash_rel": abs(ce_mesh - ces["flash"])
+               / ces["flash"],
+               "eval_fused_per_pass": TRAIN_FUSED_PER_PASS}
+        for r in ranks:
+            r.pop("digest")
+            emit({"phase": "train_mesh_rank", "gpu": gpu, **r})
+        emit(out)
+        bad = []
+        if not all(out["fsdp_bit_equal_to_dp"]):
+            bad.append("the FSDP run differs from the DP run")
+        if not out["dp_step0_rel"] <= TRAIN_MESH_TOL:
+            bad.append(f"DP step 0 {r0['dp']['losses'][0]} vs unsharded "
+                       f"{step0}")
+        if not all(out["checkpoint_bit_equal"]):
+            bad.append("the restored checkpoint differs from the ranks'")
+        if not out["eval_ce_mesh_vs_einsum_rel"] <= TRAIN_MESH_TOL:
+            bad.append(f"mesh CE {ce_mesh} vs unsharded {ces['einsum']}")
+        for r in ranks:
+            ev = r["eval"]
+            calls = ev["calls_vs_plain"].get("photonic_mvm_fused", {})
+            if not (ev["fused_launches"] == TRAIN_FUSED_PER_PASS
+                    and calls.get("calls") == TRAIN_FUSED_PER_PASS
+                    and calls.get("max_rel_l2", 1.0) <= MVM_TOL
+                    and ev["flash_launches"] == 0):
+                bad.append(f"rank {r['rank']} eval launches {ev}")
+            if not all(np.isfinite(r["dp"]["losses"] + r["fsdp"]["losses"]
+                                   + [ev["ce"]])):
+                bad.append(f"rank {r['rank']}: a loss is not finite")
+        if bad:
+            raise AssertionError(f"train_mesh: {bad}")
+        return out
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -3697,7 +4037,8 @@ def main() -> int:
     timed("serve_audio", serve_memory, torch, smi, "whisper-medium",
           AUDIO_FUSED_PER_PASS, 12)
     timed("small_memory_checks", small_memory_checks, torch)
-    timed("train", train_phase, torch, smi)
+    train = timed("train", train_phase, torch, smi)
+    timed("train_mesh", train_mesh_phase, torch, smi, train)
     timed("paper", paper_phase, torch, smi)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
 

@@ -36,9 +36,16 @@ them (``rows_sharded``), else on all of them; its logits, or sampled
 tokens, are all-gathered over "data", so every rank returns the whole
 batch's; its caches hold the rank's rows.  The dots run sharded over
 "model" (``core/backend.py``); the rank holds its piece of each bank.
+With ``cfg.fsdp`` the rank's pieces are also cut over the data axes on
+their "embed" dim (the reference's ``bank_shardings(..., fsdp=True)``): a
+dot all-gathers its bank's fields over them at each use, and each step
+gathers the float leaves so cut (embedding, norms, router; every leaf on
+xla) and lets them go when it returns.  ``loss`` runs each data rank's rows
+(the train cell's ``_mesh_act_pspec``), sums CE's numerator and denominator
+over the data axes and returns the unsharded CE and aux on every rank.
 Decode steps run eagerly (``graphs.MESH_RULE``).  A 1x1 mesh is the
-unsharded path.  Left for later slices: ``cfg.fsdp`` on a mesh and the
-train cell on a mesh (``Program.loss``), which raise.
+unsharded path.  Not ported: sequence- or hidden-sharded residuals (a rank
+holds whole rows), KV heads over "model".
 
 The Program keeps the reference's ledger on the default metrics registry:
 ``program.builds``, a ``program.bank.<k>`` gauge per ``bank_stats()`` key
@@ -69,7 +76,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.sharding import collectives as coll
 from repro_torch.sharding import partition
-from repro_torch.train.trainer import cross_entropy
+from repro_torch.train.trainer import ce_terms
 
 NEG_INF = -1e30
 
@@ -343,6 +350,10 @@ class Program:
                                     repr=False, compare=False)
     # the whole bank's accounting (a mesh rank holds pieces of it)
     _stats: Any = dataclasses.field(default=None, repr=False, compare=False)
+    # cfg.fsdp on an active mesh: the data-axes spec of each fp leaf's
+    # piece (None: nothing to gather before a step)
+    _fp_specs: Any = dataclasses.field(default=None, repr=False,
+                                       compare=False)
 
     @classmethod
     def build(cls, cfg: ModelConfig, params, *, execution=None,
@@ -359,7 +370,9 @@ class Program:
         specs, the rank keeps its piece of every bank, and the dots run
         sharded (``core/backend.py``).  ``None`` and a 1x1 mesh are the
         unsharded path.  Rules that do not divide a concrete dim are
-        replicated, not an error: surfaced here as a one-line warning."""
+        replicated, not an error: surfaced here as a one-line warning.
+        ``cfg.fsdp`` on an active mesh also cuts each bank's "embed" dim
+        over the data axes (module docstring)."""
         bk = backend_lib.resolve(execution if execution is not None else cfg)
         if mesh is not None and bk.mesh is not None and bk.mesh != mesh:
             raise ValueError(
@@ -374,10 +387,6 @@ class Program:
                     f"a {dict(mesh.shape)} mesh runs as {mesh.size} ranks: "
                     f"start them with launch.mesh.init_ranks and build the "
                     f"Program on each rank's mesh")
-            if cfg.fsdp:
-                raise NotImplementedError(
-                    "cfg.fsdp on a mesh (weights' embed axis over the data "
-                    "axes) is left for a later slice")
             if device is None:
                 device = mesh.device
         dev = resolve_device(device)
@@ -389,12 +398,18 @@ class Program:
         del moved
         stats = prepared_lib.prepared_stats(bank)
         dropped = 0
+        fp_specs = None
         if mesh is not None:
             report = partition.PartitionReport(dropped=[])
             specs = partition.model_specs(bank)
             partition.bank_shardings(bank, specs, mesh, cfg.fsdp, report)
             if bk.mesh_active:
-                bank = partition.place_bank(bank, specs, mesh)
+                if cfg.fsdp:
+                    fp_specs = partition.bank_data_specs(bank, specs, mesh,
+                                                         True)
+                    if not any(prepared_lib.tree_leaves(fp_specs)):
+                        fp_specs = None
+                bank = partition.place_bank(bank, specs, mesh, cfg.fsdp)
             dropped = len(report.dropped)
             if report.dropped:
                 warnings.warn(partition.dropped_summary(report),
@@ -406,7 +421,8 @@ class Program:
         for k, v in stats.items():
             reg.gauge(f"program.bank.{k}").set(v)
         reg.gauge("program.partition.dropped_rules").set(dropped)
-        return cls(cfg=cfg, backend=bk, bank=bank, device=dev, _stats=stats)
+        return cls(cfg=cfg, backend=bk, bank=bank, device=dev, _stats=stats,
+                   _fp_specs=fp_specs)
 
     @property
     def mesh(self):
@@ -445,6 +461,16 @@ class Program:
         return max(errs, default=0.0)
 
     # --------------------------------------------------------- mesh rows
+    def _step_bank(self):
+        """The bank a step runs on: under ``cfg.fsdp`` on an active mesh
+        the fp leaves cut over the data axes gathered whole (every rank of
+        the mesh takes each step, so each takes part); else the bank."""
+        if self._fp_specs is None:
+            return self.bank
+        return partition.map_with_specs(
+            lambda leaf, spec: partition.gather_leaf(leaf, spec, self.mesh)
+            if spec else leaf, self.bank, self._fp_specs)
+
     def _rows(self, B: int):
         """(this rank's row slice or None, the step's backend) for a
         B-row step."""
@@ -472,8 +498,8 @@ class Program:
         batch = _as_batch(batch, self.device)
         B, S = batch["tokens"].shape
         sl, bk = self._rows(B)
-        logits, caches = _prefill(self.cfg, self.bank, _rows_of(batch, sl, B),
-                                  cache_len, bk)
+        logits, caches = _prefill(self.cfg, self._step_bank(),
+                                  _rows_of(batch, sl, B), cache_len, bk)
         if last is None:
             last = torch.full((B,), S - 1, dtype=torch.long)
         last = torch.as_tensor(last).to(self.device, torch.long)
@@ -487,19 +513,24 @@ class Program:
     def loss(self, batch):
         """Mean next-token cross-entropy of ``batch`` (eval; no gradients)
         through the prepared banks on the Program's backend.  Returns (ce,
-        aux) 0-d float32 tensors.  Not on an active mesh (the train cell on
-        a mesh is left for a later slice)."""
+        aux) 0-d float32 tensors.  On an active mesh every rank passes the
+        whole batch; a batch whose rows divide over the data axes runs on
+        this rank's rows (``_mesh_act_pspec``), CE's numerator and
+        denominator summed over the data axes, and every rank returns the
+        unsharded CE and aux."""
         batch = _as_batch(batch, self.device)
-        if self.backend.mesh_active:
-            spec = _mesh_act_pspec(self.backend, batch["tokens"].shape[0])
-            raise NotImplementedError(
-                f"Program.loss on a mesh (the train cell, residual spec "
-                f"{spec}) is left for a later slice")
-        logits, _, aux = tfm.forward(self.bank, self.cfg, batch, mode="train",
-                                     execution=self.backend)
-        ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:],
-                           self.cfg.vocab_size)
-        return ce, aux
+        B = batch["tokens"].shape[0]
+        sl, bk = self._rows(B)
+        rows = _rows_of(batch, sl, B)
+        logits, _, aux = tfm.forward(self._step_bank(), self.cfg, rows,
+                                     mode="train", execution=bk)
+        num, den = ce_terms(logits[:, :-1], rows["tokens"][:, 1:],
+                            self.cfg.vocab_size)
+        if sl is not None:
+            d = partition.data_axes(self.mesh)
+            num = coll.psum(num, self.mesh, d)
+            den = coll.psum(den, self.mesh, d)
+        return num / torch.clamp(den, min=1.0), aux
 
     def _refuse_chunks(self, what: str) -> None:
         if not tfm.chunkable(self.cfg):
@@ -532,8 +563,9 @@ class Program:
         if sl is not None:
             tokens, last = tokens[sl], last[sl]
         logits, caches, _ = tfm.forward(
-            self.bank, self.cfg, {"tokens": tokens}, mode="prefill_chunk",
-            caches=caches, pos=int(q_offset), execution=bk)
+            self._step_bank(), self.cfg, {"tokens": tokens},
+            mode="prefill_chunk", caches=caches, pos=int(q_offset),
+            execution=bk)
         rows = torch.arange(tokens.shape[0], device=self.device)
         return _gather_rows(logits[rows, last], bk, sl), caches
 
@@ -573,7 +605,7 @@ class Program:
         """``decode_step_fn`` on the banks under ``backend``: logits
         (B, V); the caches are updated in place."""
         return decode_step_fn(self.cfg, execution=backend)(
-            self.bank, {"tokens": tokens}, caches, pos)[0]
+            self._step_bank(), {"tokens": tokens}, caches, pos)[0]
 
     def _decode_rows(self, tokens, caches, pos):
         """One eager decode step on an active mesh: this rank's rows of the

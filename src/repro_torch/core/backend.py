@@ -55,7 +55,10 @@ The xla backend runs its dots whole on the rank's rows (the reference
 leaves xla to GSPMD; no rule to follow).  A bank placed on a rank
 (``core/prepared.Placement``) holds its ``field_specs`` piece; a rule that
 reads a field in another layout gathers it over "model" once and keeps the
-piece it reads.
+piece it reads.  Under ``cfg.fsdp`` a field's "embed" dim is cut over the
+data axes as well: every dot all-gathers it over them at each use (the
+reference's ``shard_map`` in-spec reshard), keeps nothing, and then runs
+as above.
 
 Left out: the TPU tile plans (``bm/bk/bn``, ``adaptive``: the CUDA kernels
 pick their own tiles).
@@ -125,11 +128,19 @@ def partition_rule(tp: int, K: int, N: int, *, block_perm=None,
 def bank_field(prep, name: str, dim, mesh, cache: bool = True):
     """Field ``name`` of bank ``prep`` as a dot reads it on this rank:
     ``dim`` (-1 or -2) split over "model" into the rank's piece, or whole
-    (``dim=None``).  A piece the rank holds is returned as it is; any other
-    layout is gathered over "model" from the held pieces, cut, and kept in
-    the bank's placement cache (``cache=False``: not kept)."""
+    (``dim=None``).  A field cut over the data axes too (``cfg.fsdp``) is
+    first all-gathered over them, at each use and never kept (a kept copy
+    would undo what FSDP saves).  A piece the rank then holds is returned
+    as it is; any other layout is gathered over "model", cut, and kept in
+    the bank's placement cache (``cache=False``, or a field cut over the
+    data axes: not kept)."""
     held = getattr(prep, name)
     pl = prep.placement
+    ddim = pl.data_dim(name) if pl is not None else None
+    if ddim is not None:
+        held = coll.all_gather(held, mesh, _partition.data_axes(mesh),
+                               dim=ddim)
+        cache = False
     hdim = pl.model_dim(name) if pl is not None else None
     if hdim == dim:
         return held

@@ -182,7 +182,8 @@ class Placement:
     leading indices applied since (``bank[r]``), and a cache, shared by
     every slice of the bank, of the field pieces that a dot's partition
     rule reads in another layout than the held one (gathered over "model"
-    once, at their first use)."""
+    once, at their first use; a field also cut over the data axes, under
+    ``cfg.fsdp``, is gathered at each use and never cached)."""
 
     def __init__(self, specs, full_shape, index=(), cache=None):
         self.specs = specs
@@ -197,17 +198,25 @@ class Placement:
     def shape(self, ndim: int) -> tuple:
         return self.full_shape[len(self.full_shape) - ndim:]
 
-    def model_dim(self, field: str):
-        """The dim (negative, of the field as indexed) split over "model"
-        in the held piece, or None when the rank holds it whole."""
+    def _dim(self, field: str, model: bool):
         spec = getattr(self.specs, field)
         ndim = len(self.full_shape) if field in ("wq", "wq_t") else \
             len(self.full_shape) - 1
         entries = list(spec) + [None] * (ndim - len(spec))
         for d, e in enumerate(entries):
-            if e is not None:
+            if e is not None and (e == "model") == model:
                 return d - ndim
         return None
+
+    def model_dim(self, field: str):
+        """The dim (negative, of the field as indexed) split over "model"
+        in the held piece, or None when the rank holds it whole."""
+        return self._dim(field, True)
+
+    def data_dim(self, field: str):
+        """The dim split over the data axes in the held piece (``cfg.fsdp``:
+        the weight's "embed" dim), or None."""
+        return self._dim(field, False)
 
     def key(self, field: str, dim):
         """Cache key of ``field`` cut along ``dim`` at the leading indices

@@ -87,14 +87,15 @@ class Mesh:
 
     @property
     def rank(self) -> int:
-        """This rank's index: row-major over the mesh coordinates."""
-        return int(np.ravel_multi_index(self.coords, self.sizes))
+        """This rank's index: row-major over the mesh coordinates (0 on a
+        mesh of one position, bound or not)."""
+        return self.index(self.axis_names)
 
     def index(self, axes) -> int:
         """This rank's position along ``axes`` (one name or a tuple of
-        names, row-major in that order)."""
+        names, row-major in that order; 0 along axes of size 1)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        if not axes:
+        if self.axis_size(axes) == 1:
             return 0
         pos = [self.coords[self.axis_names.index(a)] for a in axes]
         return int(np.ravel_multi_index(pos, [self.shape[a] for a in axes]))

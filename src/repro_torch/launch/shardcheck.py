@@ -261,10 +261,6 @@ def _refusals(mesh, cfg, params, execution) -> dict:
         "scheduler_conflicting_mesh": raised(
             lambda: ContinuousScheduler(prog, capacity=4, max_len=16,
                                         mesh=other)),
-        "loss_on_mesh": raised(lambda: prog.loss(
-            {"tokens": torch.zeros((4, 4), dtype=torch.long)})),
-        "fsdp_on_mesh": raised(lambda: Program.build(
-            small_cfg(fsdp=True), params, mesh=mesh)),
         "unbound_mesh": raised(lambda: Program.build(
             cfg, params, device=mesh.device,
             mesh=mesh_lib.parse_mesh("x".join(map(str, mesh.sizes))))),

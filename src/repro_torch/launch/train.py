@@ -10,9 +10,19 @@
 A step's wall is taken after ``float(loss)``, the step's one host sync, so
 it holds the step's device time (the reference, dispatching
 asynchronously, reads its clock before that sync).  Training runs on the
-xla backend on one device: a mesh in training (the batch over "data",
-the gradients all-reduced over the ranks) is left for a later slice
-(``train/trainer.py``).
+xla backend.
+
+``run(..., mesh=)`` with a bound mesh (``launch.mesh.init_ranks`` starts
+one rank per position and each calls ``run``) trains on the ranks, as the
+reference's ``run(mesh=)`` does: every rank builds the same seeded weights
+and keeps its pieces of them (``trainer.param_specs``: its ``cfg.fsdp``
+pieces, else whole), each data rank steps on its rows of every global batch
+(``trainer.make_train_step(..., act_pspec=partition.act_pspec(mesh),
+mesh=mesh)``), and checkpoints hold the logical layout, so a run resumes on
+any mesh or on none.  Every rank keeps its own trap, straggler watch and
+``record``; the ranks agree after each step whether a signal arrived, so
+all of them checkpoint and stop at the same step.  Rank 0 prints the step
+lines.  The reference's CLI has no mesh for training, nor has this one.
 
 On the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -31,40 +41,60 @@ import tempfile
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_arch, rb, smoke_variant
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import partition
 from repro_torch.train import checkpoint, trainer
 
 
 def run(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
-        task: str = "copy", log_every: int = 10, resume: bool = True,
-        device=None, record=None):
+        mesh=None, task: str = "copy", log_every: int = 10,
+        resume: bool = True, device=None, record=None):
     """Train ``cfg`` from seeded weights (or the latest checkpoint in
     ``tcfg.checkpoint_dir``) up to step ``steps``.  ``record``, a list,
     receives one dict per step: its wall ``s``, ``loss`` and the 0-d
     tensors ``grad_norm`` and ``lr`` (read them after the run; reading
-    them here would add host syncs).  Returns (params, opt_state,
-    losses)."""
+    them here would add host syncs).  ``mesh``: the rank's bound mesh
+    (module docstring; ``None`` is the 1x1 mesh); ``device`` defaults to
+    the rank's.  Returns (params, opt_state, losses): on a mesh the
+    rank's pieces (``partition.gather_tree`` with ``trainer.param_specs``
+    gathers them)."""
+    mesh = mesh_lib.single_device_mesh() if mesh is None else mesh
+    if mesh.size > 1 and not mesh.bound:
+        raise ValueError(f"a {dict(mesh.shape)} mesh trains as {mesh.size} "
+                         f"ranks: start them with launch.mesh.init_ranks")
+    device = mesh.device if device is None else device
+    speaks = mesh.rank == 0
     dev = resolve_device(device)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                       global_batch=batch, task=task, seed=tcfg.seed)
     pipe = SyntheticPipeline(dcfg)
-    params = tfm.init_model(cfg, seed=tcfg.seed, device=dev)
+    pspecs = trainer.param_specs(cfg, mesh)
+    params = partition.local_tree(
+        tfm.init_model(cfg, seed=tcfg.seed, device=dev), pspecs, mesh)
+    specs = trainer.state_specs(pspecs)
     opt_state = adamw.init(params)
     start_step = 0
     if resume:
         last = checkpoint.latest_step(tcfg.checkpoint_dir)
         if last is not None:
             (params, opt_state), extra = checkpoint.restore(
-                tcfg.checkpoint_dir, last, (params, opt_state))
+                tcfg.checkpoint_dir, last, (params, opt_state), mesh=mesh,
+                specs=specs)
             start_step = extra.get("next_step", last)
-            print(f"[train] resumed from step {start_step}")
-    step_fn = trainer.make_train_step(cfg, tcfg, remat=True)
+            if speaks:
+                print(f"[train] resumed from step {start_step}")
+    step_fn = trainer.make_train_step(
+        cfg, tcfg, act_pspec=partition.act_pspec(mesh), remat=True,
+        mesh=mesh)
 
     # ---- preemption trap: flush a checkpoint on SIGTERM/SIGINT ----
     state = {"step": start_step, "stop": False}
@@ -74,6 +104,13 @@ def run(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
 
     old = {s: signal.signal(s, _trap)
            for s in (signal.SIGTERM, signal.SIGINT)}
+
+    def stop_now() -> bool:
+        """A signal reached this rank, or (on a mesh) any rank."""
+        if mesh.size == 1:
+            return state["stop"]
+        flag = torch.tensor(float(state["stop"]), device=dev)
+        return bool(coll.pmax(flag, mesh, mesh.axis_names) > 0)
 
     times = []
     losses = []
@@ -94,9 +131,11 @@ def run(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
             if len(times) > 8:
                 mu, sd = np.mean(times[-50:]), np.std(times[-50:])
                 if dt > mu + 4 * sd + 1e-3:
+                    who = f" on rank {mesh.coords}" if mesh.size > 1 \
+                        else ""
                     print(f"[straggler] step {step} took {dt:.3f}s "
-                          f"(mean {mu:.3f}s) — flagged")
-            if step % log_every == 0 or step == steps - 1:
+                          f"(mean {mu:.3f}s){who} — flagged")
+            if speaks and (step % log_every == 0 or step == steps - 1):
                 print(f"step {step:5d} loss {losses[-1]:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"lr {float(metrics['lr']):.2e} {dt:.2f}s",
@@ -105,15 +144,18 @@ def run(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
                     tcfg.checkpoint_every == 0:
                 checkpoint.save(tcfg.checkpoint_dir, step + 1,
                                 (params, opt_state),
-                                extra={"next_step": step + 1})
-            if state["stop"]:
-                print("[train] preemption signal — checkpoint + exit")
+                                extra={"next_step": step + 1}, mesh=mesh,
+                                specs=specs)
+            if stop_now():
+                if speaks:
+                    print("[train] preemption signal — checkpoint + exit")
                 break
     finally:
         for s, h in old.items():
             signal.signal(s, h)
     checkpoint.save(tcfg.checkpoint_dir, state["step"], (params, opt_state),
-                    extra={"next_step": state["step"]})
+                    extra={"next_step": state["step"]}, mesh=mesh,
+                    specs=specs)
     return params, opt_state, losses
 
 

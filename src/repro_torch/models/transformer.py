@@ -156,7 +156,10 @@ def _moe_ffn(p, cfg: ModelConfig, hn, transpose, backend):
     so on a mesh rank holding its data shard's rows it runs on the whole
     batch, gathered over the data axes, and keeps its own rows of the
     result: the routing, the drops and the load-balance loss are the
-    unsharded program's."""
+    unsharded program's.  The gather is differentiable (its backward
+    reduce-scatters), so a train step's backward reaches every rank's rows;
+    the aux is then the same on every rank (``train/trainer.py`` counts it
+    once)."""
     bk = backend_lib.resolve(backend)
     if not (bk.mesh_active and bk.rows_sharded):
         return moe_lib.apply_moe(p, hn, cfg.moe, transpose=transpose,
@@ -164,7 +167,7 @@ def _moe_ffn(p, cfg: ModelConfig, hn, transpose, backend):
     from repro_torch.sharding import collectives as coll
     from repro_torch.sharding.partition import data_axes
     d_axes = data_axes(bk.mesh)
-    whole = coll.all_gather(hn, bk.mesh, d_axes, dim=0)
+    whole = coll.all_gather_grad(hn, bk.mesh, d_axes, dim=0)
     y, aux = moe_lib.apply_moe(p, whole, cfg.moe, transpose=transpose,
                                backend=bk.whole_rows())
     n = hn.shape[0]
@@ -335,7 +338,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     ``device`` defaults to CUDA (``device="cpu"`` for the CPU)."""
     check_ported(cfg)
     dev = resolve_device(device)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    # meta tensors draw nothing (abstract_params); a generator is on a
+    # real device
+    generator = torch.Generator(
+        device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
     params: dict[str, Any] = {
         "embed": init_embedding(cfg.padded_vocab, cfg.d_model, generator,
                                 dev),
@@ -356,6 +362,12 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         params["segments"][spec.name] = _init_group(cfg, spec, R, generator,
                                                     dev)
     return params
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as meta tensors: shapes and dtypes, no memory
+    (the reference's ``abstract_params``; the partition rules read it)."""
+    return init_model(cfg, device="meta")
 
 
 # =========================================================================

@@ -7,6 +7,12 @@ params stay float32; the forward casts them to ``cfg.compute_dtype``
 inside the graph, so the gradients reaching :func:`update` are float32.  The update runs without
 autograd and returns new tensors: the params, ``m`` and ``v`` passed in
 are left as they were.
+
+On a mesh (``train/trainer.py``) the update is elementwise on the rank's
+pieces, and :func:`global_norm` adds every rank's share of the squares
+over the data axes, so the clip scale and ``grad_norm`` are the unsharded
+ones, and the same bit for bit whether the rank holds ``cfg.fsdp`` pieces
+or whole leaves.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.sharing import tree_leaves, tree_map
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import partition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,19 +53,50 @@ def cosine_lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return tcfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
 
 
-def global_norm(tree) -> torch.Tensor:
-    total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
-    return torch.sqrt(total)
+def global_norm(tree, mesh=None, norm_specs=None,
+                pieces: bool = False) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares.
+
+    On a mesh, ``norm_specs`` gives each leaf's data-axes spec under the
+    FSDP rules (``trainer.param_specs(..., fsdp=True)``): a rank squares
+    its share of every leaf, the leaf itself where ``pieces`` (the tree
+    holds its FSDP pieces) or else its cut of the whole leaf, and a leaf no
+    rule cuts on data rank 0 only (counted once, not once a rank); the
+    sums are added over the data axes."""
+    if mesh is None or partition.dp_size(mesh) == 1:
+        total = 0
+        for x in tree_leaves(tree):
+            total = total + torch.sum(torch.square(x.to(torch.float32)))
+        return torch.sqrt(total)
+    d = partition.data_axes(mesh)
+    first = mesh.index(d) == 0
+    shares = []
+
+    def share(x, spec):
+        if partition.cuts(spec):
+            if not pieces:
+                x = partition.local_slice(x, spec, mesh).contiguous()
+        elif not first:
+            return
+        shares.append(torch.sum(torch.square(x.to(torch.float32))))
+
+    partition.map_with_specs(share, tree, norm_specs)
+    total = torch.zeros((), dtype=torch.float32,
+                        device=tree_leaves(tree)[0].device)
+    for x in shares:
+        total = total + x
+    return torch.sqrt(coll.psum(total, mesh, d))
 
 
 @torch.no_grad()
-def update(params, grads, state: OptState, tcfg: TrainConfig):
-    """One AdamW step.  Returns (new_params, new_state, metrics)."""
+def update(params, grads, state: OptState, tcfg: TrainConfig, *, mesh=None,
+           norm_specs=None, pieces: bool = False):
+    """One AdamW step.  Returns (new_params, new_state, metrics).  On a
+    mesh, ``grads`` are the rank's (summed over the data axes) and the
+    norm is :func:`global_norm`'s over the ranks."""
     step = state.step + 1
     lr = cosine_lr(tcfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, norm_specs, pieces)
     scale = torch.clamp(tcfg.grad_clip / (gnorm + 1e-9), max=1.0)
     b1, b2 = tcfg.beta1, tcfg.beta2
     c1 = 1 - torch.pow(torch.full((), b1, device=step.device), step)

@@ -9,6 +9,14 @@ mesh (``Mesh.staged``): an op the transport cannot run on this rank's
 tensors goes through host memory, and only that op.  Gloo's list forms of
 ``all_gather`` and ``reduce_scatter`` are used throughout; its
 single-tensor forms abort a process on CUDA tensors.
+
+Two of them are differentiable (``torch.autograd.Function``s), for the
+train step on a mesh: :func:`all_gather_grad` (backward: a reduce-scatter
+on the gathered dim, so each rank receives the gradient of its own block
+summed over the ranks) and :func:`reduce_scatter_grad` (backward: an
+all-gather).  Every rank of the group must reach each of them, forward and
+backward, in the same order; a train step's graph is the same on every
+rank, so its backward is too.
 """
 from __future__ import annotations
 
@@ -66,20 +74,73 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
     return torch.cat(out, dim=dim).to(x.device)
 
 
-def psum_scatter(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def psum_scatter(x: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
     """Sum over the ranks along ``axes``, each rank keeping its own block
-    of the last dim (``jax.lax.psum_scatter(..., tiled=True)`` over the
-    last dim)."""
+    of ``dim`` (``jax.lax.psum_scatter(..., tiled=True)``; the last dim by
+    default)."""
     axes = _axes(axes)
     n = mesh.axis_size(axes)
     if n == 1:
         return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce-scatter of dim {dim} ({x.shape[dim]}) "
+                         f"over {n} ranks")
     dist = _dist()
     src = _host(x, mesh, "reduce_scatter")
-    parts = [p.contiguous() for p in src.chunk(n, dim=-1)]
+    parts = [p.contiguous() for p in src.chunk(n, dim=dim)]
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, group=mesh.group(axes))
     return out.to(x.device)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(x, mesh, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_scatter(g.contiguous(), ctx.mesh, ctx.axes,
+                            dim=ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return psum_scatter(x, mesh, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, ctx.axes,
+                          dim=ctx.dim), None, None, None
+
+
+def all_gather_grad(x: torch.Tensor, mesh, axes, dim: int = -1):
+    """:func:`all_gather` on ``dim`` whose backward reduce-scatters the
+    gradient on ``dim``: rank i receives the sum over the ranks of the
+    gradient of block i (FSDP's "all-gather on use, reduce-scatter on
+    grads"; the MoE FFN's rows gathered over "data")."""
+    axes = _axes(axes)
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _AllGather.apply(x, mesh, axes, dim)
+
+
+def reduce_scatter_grad(x: torch.Tensor, mesh, axes, dim: int = -1):
+    """:func:`psum_scatter` on ``dim`` whose backward all-gathers the
+    gradient on ``dim``."""
+    axes = _axes(axes)
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axes, dim)
+
+
+def barrier(mesh) -> None:
+    """Wait for every rank of ``mesh`` (no-op on one position)."""
+    if mesh.size > 1:
+        _dist().barrier(group=mesh.group(mesh.axis_names))
 
 
 def ppermute_ring(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -14,7 +14,7 @@ Parallelism styles the rules compose (the reference's DESIGN.md §3):
   TP    — "model" over heads / d_ff / vocab / experts / ssm inner dims
   DP    — batch over "data" (and "pod" in the 3-axis mesh)
   FSDP  — ``cfg.fsdp`` shards the weights' "embed" axis over the data axes
-          (rule tables only: the port refuses fsdp on a mesh)
+          ("all-gather on use, reduce-scatter on grads")
 
 A rule that does not divide a concrete dim is dropped (replicated) and
 recorded in a :class:`PartitionReport`.
@@ -22,7 +22,14 @@ recorded in a :class:`PartitionReport`.
 On top of the rules, the port's ranks need a rank's piece of a tensor:
 :func:`local_slice` cuts it from a spec, :func:`assemble` joins the ranks'
 pieces back, and :func:`place_bank` gives a rank its piece of every
-programmed bank (``core.prepared.PreparedTensor.field_specs``).
+programmed bank (``core.prepared.PreparedTensor.field_specs``; under
+``fsdp`` the matrices' and the float leaves' "embed" dims over the data
+axes too).  For training, :func:`data_specs` keeps the data-axes part of a
+``tree_pspecs`` tree (the xla backend runs its dots whole, so a rank holds
+every parameter whole over "model"), :func:`local_tree` cuts a rank's
+pieces of a parameter tree and :func:`gather_tree` all-gathers them back
+into the logical layout; :func:`scatter_leaf` reduce-scatters a whole
+gradient into the rank's piece.
 """
 from __future__ import annotations
 
@@ -101,13 +108,13 @@ def spec_for(axes: tuple, shape: tuple, mesh, rules: dict,
     return _trim(entries)
 
 
-def _map_with_specs(fn, params: Any, specs: Any, path=()) -> Any:
+def map_with_specs(fn, params: Any, specs: Any, path=()) -> Any:
     """Map ``fn(leaf, axes)`` over a nested-dict tree with the parallel spec
     tree (the same keys; spec leaves are tuples).  Keys in sorted order, as
     JAX flattens a dict, so a report lists drops in the reference's
     order."""
     if isinstance(params, dict):
-        return {k: _map_with_specs(fn, params[k], specs[k], path + (k,))
+        return {k: map_with_specs(fn, params[k], specs[k], path + (k,))
                 for k in sorted(params)}
     return fn(params, specs)
 
@@ -116,7 +123,7 @@ def param_shardings(param_shapes: Any, specs: Any, mesh, fsdp: bool,
                     report: PartitionReport | None = None) -> Any:
     """Spec tree matching ``param_shapes`` (anything with ``.shape``)."""
     rules = base_rules(mesh, fsdp)
-    return _map_with_specs(
+    return map_with_specs(
         lambda leaf, ax: spec_for(tuple(ax), tuple(leaf.shape), mesh, rules,
                                   report), param_shapes, specs)
 
@@ -149,12 +156,12 @@ def bank_shardings(bank: Any, specs: Any, mesh, fsdp: bool,
                                               tag=leaf.tag)
         return spec_for(ax, tuple(leaf.shape), mesh, rules, report)
 
-    return _map_with_specs(one, bank, specs)
+    return map_with_specs(one, bank, specs)
 
 
 def tree_pspecs(param_shapes: Any, specs: Any, mesh, fsdp: bool) -> Any:
     rules = base_rules(mesh, fsdp)
-    return _map_with_specs(
+    return map_with_specs(
         lambda leaf, ax: spec_for(tuple(ax), tuple(leaf.shape), mesh, rules),
         param_shapes, specs)
 
@@ -297,6 +304,11 @@ def _entry_axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def cuts(spec: tuple) -> bool:
+    """Whether ``spec`` splits any dim (else the tensor is whole)."""
+    return any(_entry_axes(e) for e in spec)
+
+
 def piece(mesh, entry) -> tuple:
     """(parts, index) of this rank's piece along a dim with spec ``entry``:
     the dim splits into ``parts`` blocks and the rank holds block
@@ -306,12 +318,13 @@ def piece(mesh, entry) -> tuple:
 
 
 def local_slice(t, spec: tuple, mesh):
-    """This rank's piece of ``t`` under ``spec`` (a view where possible)."""
+    """This rank's piece of ``t`` (a tensor or a numpy array) under
+    ``spec``: a view."""
     for dim, entry in enumerate(spec):
         parts, idx = piece(mesh, entry)
         if parts > 1:
             n = t.shape[dim] // parts
-            t = t.narrow(dim, idx * n, n)
+            t = t[(slice(None),) * dim + (slice(idx * n, (idx + 1) * n),)]
     return t
 
 
@@ -353,31 +366,117 @@ def assemble(pieces: dict, spec: tuple, mesh_shape: dict):
     return join([], 0)
 
 
-def matrix_spec(axes: tuple, shape: tuple, mesh) -> tuple:
+def matrix_spec(axes: tuple, shape: tuple, mesh, fsdp: bool = False) -> tuple:
     """The placement spec of a programmed bank on a rank: :func:`spec_for`
-    of its two matrix dims, its leading dims (the R stack, a MoE bank's
-    experts) whole.  Code indexes those by global id (``bank[r]``,
-    ``w_bank[e]``), so a rank keeps all of them and splits each matrix; a
-    dense leaf's spec equals :func:`spec_for` of the whole leaf, whose
-    leading "layers" axis never shards."""
+    of its two matrix dims (under ``fsdp`` the "embed" dim over the data
+    axes too), its leading dims (the R stack, a MoE bank's experts) whole.
+    Code indexes those by global id (``bank[r]``, ``w_bank[e]``), so a rank
+    keeps all of them and splits each matrix; a dense leaf's spec equals
+    :func:`spec_for` of the whole leaf, whose leading "layers" axis never
+    shards."""
     lead = len(shape) - 2
-    rules = base_rules(mesh, False)
+    rules = base_rules(mesh, fsdp)
     return _trim((None,) * lead + spec_for(tuple(axes[lead:]),
                                            tuple(shape[lead:]), mesh,
                                            rules))
 
 
-def place_bank(bank: Any, specs: Any, mesh) -> Any:
+def data_spec(spec: tuple, mesh) -> tuple:
+    """``spec`` with only its data-axes entries kept ("model" entries
+    whole)."""
+    d = set(data_axes(mesh))
+    return _trim(e if _entry_axes(e) and set(_entry_axes(e)) <= d else None
+                 for e in spec)
+
+
+def data_specs(specs: Any, mesh) -> Any:
+    """:func:`data_spec` of every leaf of a spec tree."""
+    if isinstance(specs, dict):
+        return {k: data_specs(v, mesh) for k, v in specs.items()}
+    return data_spec(specs, mesh)
+
+
+def fp_data_spec(axes: tuple, shape: tuple, mesh, fsdp: bool) -> tuple:
+    """The data-axes spec of a bank's float leaf on a rank: ``()`` (whole)
+    without ``fsdp``; with it, the data-axes part of the reference's
+    ``bank_shardings(..., fsdp=True)`` spec (its "embed" dim, where the data
+    axes divide it).  Every rank runs such a leaf whole, so "model" entries
+    are dropped."""
+    if not fsdp:
+        return ()
+    return data_spec(spec_for(tuple(axes), tuple(shape), mesh,
+                              base_rules(mesh, True)), mesh)
+
+
+def place_bank(bank: Any, specs: Any, mesh, fsdp: bool = False) -> Any:
     """A rank's bank: every ``PreparedTensor`` leaf cut to this rank's
     piece of each field (``PreparedTensor.local``, under
-    ``field_specs(matrix_spec(...))``); fp leaves stay whole (the
-    embedding gather, norms, biases and the router run on every rank)."""
+    ``field_specs(matrix_spec(...))``); every fp leaf (the embedding
+    gather, norms, biases and the router run on every rank) to its
+    :func:`fp_data_spec` piece, whole without ``fsdp`` (under it gathered
+    whole at each step: ``api.Program``)."""
     from repro_torch.core.prepared import PreparedTensor
 
     def one(leaf, ax):
         if isinstance(leaf, PreparedTensor):
-            return leaf.local(matrix_spec(tuple(ax), leaf.shape, mesh),
+            return leaf.local(matrix_spec(tuple(ax), leaf.shape, mesh, fsdp),
                               mesh)
-        return leaf
+        spec = fp_data_spec(ax, leaf.shape, mesh, fsdp)
+        return local_slice(leaf, spec, mesh).clone() if cuts(spec) else leaf
 
-    return _map_with_specs(one, bank, specs)
+    return map_with_specs(one, bank, specs)
+
+
+def bank_data_specs(bank: Any, specs: Any, mesh, fsdp: bool) -> Any:
+    """The :func:`fp_data_spec` of each fp leaf of a whole bank (``None``
+    for a ``PreparedTensor``, whose dots gather it field by field)."""
+    from repro_torch.core.prepared import PreparedTensor
+
+    return map_with_specs(
+        lambda leaf, ax: None if isinstance(leaf, PreparedTensor)
+        else fp_data_spec(ax, leaf.shape, mesh, fsdp), bank, specs)
+
+
+# ----------------------------------------------------- parameter pieces
+def local_tree(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's piece of every leaf of ``tree`` under the parallel spec
+    tree ``specs`` (each cut leaf an owned contiguous copy, so the whole
+    can be freed; a leaf the mesh leaves whole is the leaf itself)."""
+    def one(t, spec):
+        p = local_slice(t, spec, mesh)
+        return p.clone() if p.shape != t.shape else t
+
+    return map_with_specs(one, tree, specs)
+
+
+def gather_leaf(t, spec: tuple, mesh):
+    """The whole tensor of this rank's piece ``t`` under ``spec``: an
+    all-gather over each cut dim's axes (all ranks of those axes take
+    part)."""
+    from repro_torch.sharding import collectives as coll
+
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if axes:
+            t = coll.all_gather(t, mesh, axes, dim=dim)
+    return t
+
+
+def scatter_leaf(t, spec: tuple, mesh):
+    """The inverse of :func:`gather_leaf` for a gradient: ``t``, a whole
+    tensor on every rank, summed over each cut dim's axes with this rank
+    keeping its piece (a reduce-scatter a cut dim, the last first)."""
+    from repro_torch.sharding import collectives as coll
+
+    for dim in reversed(range(len(spec))):
+        axes = _entry_axes(spec[dim])
+        if axes:
+            t = coll.psum_scatter(t, mesh, axes, dim=dim)
+    return t
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every leaf of a tree of this rank's pieces gathered whole
+    (:func:`gather_leaf`), in sorted-key order on every rank."""
+    return map_with_specs(lambda t, spec: gather_leaf(t, spec, mesh),
+                          tree, specs)

@@ -178,6 +178,45 @@ def test_sharding_slice_modules_are_checked_and_standalone(module):
     assert bad == []
 
 
+# the training-on-a-mesh slice's extended modules
+SLICE16_MODULES = ["sharding/collectives.py", "sharding/partition.py",
+                   "core/backend.py", "core/prepared.py",
+                   "models/transformer.py", "train/trainer.py",
+                   "train/checkpoint.py", "optim/adamw.py",
+                   "launch/train.py", "launch/shardcheck.py", "api.py"]
+
+
+@pytest.mark.parametrize("module", SLICE16_MODULES)
+def test_train_mesh_slice_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax",
+                                     "ml_dtypes")]
+    assert bad == []
+
+
+def test_mesh_training_defaults_to_cuda_and_refuses_unbound_meshes():
+    """``run(mesh=)`` on a rank takes the rank's device; without ranks a
+    mesh of several positions is refused, and the train step refuses an
+    ``act_pspec`` without a mesh."""
+    from repro_torch.configs import smoke_variant
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch
+    from repro_torch.train import trainer
+    cfg = smoke_variant("minitron-4b")
+    with pytest.raises(ValueError, match="init_ranks"):
+        launch.run(cfg, TrainConfig(), batch=2, seq=4, steps=1,
+                   mesh=mesh_lib.parse_mesh("2x1"), device="cpu")
+    with pytest.raises(ValueError, match="init_ranks"):
+        trainer.make_train_step(cfg, TrainConfig(),
+                                mesh=mesh_lib.parse_mesh("2x2"))
+    with pytest.raises(ValueError, match="act_pspec"):
+        trainer.make_train_step(cfg, TrainConfig(),
+                                act_pspec=("data", "model", None))
+
+
 def test_sharded_entry_points_default_to_cuda_and_raise_without_it():
     """Spawning ranks defaults to the card and raises without one, as
     the launchers do (``device="cpu"`` runs the plain paths)."""

@@ -321,13 +321,14 @@ def test_chip_smoke_fused_per_pass_counts_every_crossbar_dot(mode,
                                                             monkeypatch):
     """``chip_smoke.fused_per_pass`` equals the fused-MVM calls one forward
     pass of the photonic smoke model makes (counted on the plain path),
-    and gives deepseek-v2-lite-16b R&B the counts the MLA phase holds."""
-    from repro_torch.configs import get_arch
+    and gives the MLA phase's deepseek-v2-lite-16b R&B (``mla_config``)
+    the counts the phase holds."""
     from repro_torch.kernels import photonic_mvm as t_pm
     cs = _chip_smoke()
+    assert cs.mla_config().d_model == 2048
     assert cs.MLA_FUSED_PER_PASS == (
-        cs.fused_per_pass(get_arch(NAME, reuse=True), prefill=False),
-        cs.fused_per_pass(get_arch(NAME, reuse=True), prefill=True))
+        cs.fused_per_pass(cs.mla_config(), prefill=False),
+        cs.fused_per_pass(cs.mla_config(), prefill=True))
     _, tp = _programs("photonic")
     calls = []
     plain = t_pm.photonic_mvm_fused

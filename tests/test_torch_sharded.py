@@ -12,9 +12,10 @@ one spawn per mesh shape), with the reference's gates
   * 2x2 data-parallel ``ContinuousScheduler`` completions token-identical
     to unsharded solo ``generate`` (and to the unsharded scheduler);
   * the dropped-rule warning, and the refusals: conflicting meshes, noise
-    with a mesh, a mesh given to a scheduler whose Program has none, the
-    train cell and fsdp on a mesh, a mesh of several positions without
-    ranks.
+    with a mesh, a mesh given to a scheduler whose Program has none, a
+    mesh of several positions without ranks.  (``Program.loss`` and
+    ``cfg.fsdp`` on a mesh run since slice 16: ``tests/test_torch_fsdp.py``
+    and ``tests/test_torch_train_mesh.py``.)
 
 The reference's own sharded path raises under jax 0.9's explicit mesh
 axes (``repro/api.py`` ``_constrain_caches``), so the port is held to the
@@ -205,13 +206,11 @@ def test_dropped_rule_warning_on_every_rank():
 @pytest.mark.parametrize("what", [
     "conflicting_mesh", "noise_backend", "update_noise",
     "scheduler_mesh_without_program_mesh", "scheduler_conflicting_mesh",
-    "loss_on_mesh", "fsdp_on_mesh", "unbound_mesh"])
+    "unbound_mesh"])
 def test_mesh_refusals(what):
     _, rep = _photonic_2x2()
     want = {"noise_backend": "NotImplementedError",
-            "update_noise": "NotImplementedError",
-            "loss_on_mesh": "NotImplementedError",
-            "fsdp_on_mesh": "NotImplementedError"}.get(what, "ValueError")
+            "update_noise": "NotImplementedError"}.get(what, "ValueError")
     for r in rep["ranks"]:
         assert r["refusals"][what] == want
 
