@@ -157,11 +157,12 @@ the script exits non-zero without printing the final ``ok`` line):
    launcher, as ranks over ``torch.distributed`` sharing the card (gloo;
    every line names the transport): the small float32 model's
    ``launch/shardcheck.py`` gates on 2x2 ranks, then minitron-4b R&B at
-   full width on 1x2, 2x2 and 2x1 ranks (one 4 x 600 prefill, 8 decode
+   full width on 1x2 and 2x1 ranks (2x2 too until slice 17; one 4 x 600
+   prefill, 8 decode
    steps; every dot of a prefill and a decode step taught against the
    single-device kernel on the same input; the 2x1 logits bit-equal to
    the unsharded Program's and its drain token-identical to the unsharded
-   scheduler's; the 1x2 / 2x2 readings printed beside the unsharded
+   scheduler's; the 1x2 readings printed beside the unsharded
    Program's own flash-vs-einsum gap); every rank's fused launches held
    to ``fused_per_pass`` with each input on the card, one line per rank
    (launches, taught dots, bank piece shapes, peak memory, wall); then
@@ -177,6 +178,17 @@ the script exits non-zero without printing the final ``ok`` line):
    this process bit-equal to the ranks' state), then ``Program.loss`` of
    the FSDP build on the mesh on photonic (CE within 1e-3 of the
    unsharded einsum route, every fused launch checked and counted);
+3q. since slice 17 the dry-run (``dryrun_phase``), after ``train_mesh``:
+   no GPU work; ``repro_torch.launch.dryrun`` walks the earlier phases'
+   steps on meta tensors on the host and is held to what they measured in
+   this run: the planned fused-MVM calls of a minitron-4b R&B prefill pass
+   and decode pass, granite's resident calls a pass (480) and mamba2's
+   ``ssd_chunk`` calls a prefill pass (48) and fused calls a pass equal
+   the launches those phases counted, exactly; the dry-run's per-device
+   memory for ``train``'s cell within [0.75, 1.33] of that phase's
+   ``torch.cuda.max_memory_allocated``; the train step's MFU
+   (``model_flops`` / median step wall / 989 TFLOP/s) and the analytic
+   against the census FLOPs are reported;
 4. a ``{"kernels": [...]}`` summary and the ``{"ok": true, ...}`` line.
 
 Tolerances: the MVM kernels compute an exact int32 product while the plain
@@ -1154,8 +1166,16 @@ def serve(torch, gpu):
     mvm_launches = launches["photonic_mvm_fused"]
     flash_launches = launches["flash_attention"]
 
-    # outside the counted window: the logits of one 600-token prefill
-    logits, _ = prog.prefill({"tokens": prompts[:1]}, 616)
+    # outside the counted window: the logits of one 600-token prefill, and
+    # the launches of that prefill pass and of one decode step (the
+    # dryrun phase holds its planned calls to them)
+    reset_counts()
+    logits, caches = prog.prefill({"tokens": prompts[:1]}, 616)
+    per_prefill = kernel_counts()
+    reset_counts()
+    prog.decode(out[:1, 600:601], caches, 600)
+    per_pass = {"prefill": per_prefill, "decode": kernel_counts()}
+    del caches
     if not (logits.shape[-1] == cfg.padded_vocab
             and bool(torch.isfinite(logits).all())):
         raise AssertionError("non-finite prefill logits")
@@ -1180,12 +1200,13 @@ def serve(torch, gpu):
               "scheduler_decode_steps": drain["drain_decode_steps"],
               "scheduler_prefill_chunks": drain["drain_prefill_chunks"],
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "launches": launches, "drain": drain}
+              "launches": launches, "drain": drain,
+              "launches_per_pass": per_pass}
     result.update(small_model_check(torch))
     emit(result)
     emit(profile_generate(torch, prog, prompts[:1]))
     emit(decode_step_costs(torch, prog))
-    return launches
+    return launches, per_pass
 
 
 # -------------------------------------------------------------------------
@@ -1422,14 +1443,15 @@ def serve_launcher(torch, gpu):
 # phase 3s: sharded execution as ranks on the card (slice 15)
 # -------------------------------------------------------------------------
 # one prefill of 4 x 600 tokens per mesh: two rows per data shard on 2x1
-# and 2x2 (a rank left one row takes another float32 einsum path in the
+# (and on 2x2, run at full width until slice 17 cut it for the script's
+# time; a rank left one row takes another float32 einsum path in the
 # decode attention than two rows do: torch treats a size-1 batch dim
 # apart, so 2x1 at 2 rows drifts from the unsharded logits after the
 # first decode step, and at 4 rows it does not)
 SHARD_ROWS = 4
 SHARD_PROMPT = 600
 SHARD_DECODE = 8              # then 8 decode steps on the unsharded tokens
-SHARD_MESHES = ("1x2", "2x2", "2x1")
+SHARD_MESHES = ("1x2", "2x1")
 # the 2x1 drain's prompts stay under flash_min_seq, so the unsharded
 # scheduler prefills on the einsum path too (flash is off on a mesh)
 SHARD_DRAIN_LENS = (40, 200, 300, 450)
@@ -1707,16 +1729,17 @@ def sharded_rank(mesh, job):
 def sharded_phase(torch, gpu):
     """(a) The small float32 model's shardcheck gates as 2x2 ranks on the
     card (parity, collectives, DP serving, dropped rules, refusals, the R&B
-    and MoE variants).  (b) minitron-4b R&B at full width on 1x2, 2x2 and
-    2x1 ranks: one 4 x 600 prefill and 8 decode steps on the unsharded
-    run's tokens, each rank's fused launches held to ``fused_per_pass``,
+    and MoE variants).  (b) minitron-4b R&B at full width on 1x2 and 2x1
+    ranks (2x2 as well until slice 17): one 4 x 600 prefill and 8 decode
+    steps on the unsharded run's tokens, each rank's fused launches held to ``fused_per_pass``,
     and every dot of a prefill and a decode step taught against the
     single-device kernel on the same input (``sharded_rank``).  The 2x1
     (data-parallel) logits must equal the unsharded Program's bit for bit
     and its drain of 4 requests the unsharded scheduler's tokens at the
     same capacity; its ranks then build the model again with ``cfg.fsdp``
     (``fsdp_serving``), whose prefill and 4 decode steps must give the
-    same logits bit for bit from half the bank bytes a rank.  The 1x2 and 2x2 readings are printed beside the
+    same logits bit for bit from half the bank bytes a rank.  The 1x2
+    readings are printed beside the
     unsharded Program's own distance between its two attention routes
     (flash, and the einsum a mesh runs): at full width with random
     weights, one float rounding moved anywhere carries the logits that far
@@ -2389,7 +2412,7 @@ def serve_moe(torch, gpu):
           "launches": launches, "drain": drain})
     emit(profile_generate(torch, prog, prompts[:1]))
     emit(decode_step_costs(torch, prog))
-    return launches
+    return launches, passes
 
 
 def small_moe_check(torch):
@@ -2659,7 +2682,9 @@ def serve_ssm(torch, pm, gpu):
           "peak_mem_gb": peak_gb, "launches": launches, "drain": drain})
     emit(profile_generate(torch, prog, prompts[:1]))
     emit(decode_step_costs(torch, prog))
-    return launches
+    return launches, {"prefill_passes": prefills,
+                      "fused_per_prefill": per_prefill,
+                      "fused_per_decode": per_decode}
 
 
 def small_ssm_checks(torch):
@@ -3520,7 +3545,10 @@ def train_phase(torch, gpu):
                                  f"calls against their plain versions "
                                  f"{worst}, CE {float(ce_p)} against "
                                  f"{float(ce_x)} on xla")
-        return {"launches": launches, "losses": losses}
+        return {"launches": launches, "losses": losses,
+                "peak_mem_gb": peak_gb,
+                "step_wall_median_after_first_s": statistics.median(
+                    walls[1:])}
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -3755,6 +3783,126 @@ def train_mesh_phase(torch, gpu, train):
         return out
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+
+# -------------------------------------------------------------------------
+# phase 3q: the dry-run held to this run's measurements (slice 17)
+# -------------------------------------------------------------------------
+DRYRUN_MEM_RATIO = (0.75, 1.33)   # dry-run per-device GB / the card's peak
+H100_BF16_FLOPS = 989e12
+
+
+def planned_calls(cfg, kind: str, rows: int, seq: int) -> dict:
+    """The kernels' planned calls of one pass (``kind`` "prefill" of
+    ``rows`` x ``seq`` tokens, or "decode" of ``rows`` tokens over ``seq``
+    cached positions) of ``cfg``'s step on one rank of a 1x1 census mesh:
+    the dry-run's step walked on meta tensors, without its census."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import planned
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    run, _ = dryrun.rank_step(cfg, ShapeConfig(kind, seq, rows, kind),
+                              mesh_lib.census_mesh("1x1"))
+    before = planned.snapshot()
+    run()
+    return {k: v - before[k] for k, v in planned.snapshot().items()}
+
+
+def dryrun_phase(gpu, measured, train):
+    """``repro_torch.launch.dryrun`` on the host, held to this run's
+    measurements: the planned calls of one pass of the fused path's model
+    (minitron-4b R&B, a 600-token prefill and a decode step, as ``serve``
+    counted them outside its window), of the MoE path's (granite R&B with
+    blended experts: resident calls a pass against ``serve_moe``'s
+    launches over its passes) and of the SSM path's (mamba2 R&B:
+    ``ssd_chunk`` calls a prefill pass and fused calls a prefill and a
+    decode pass against ``serve_ssm``'s), exactly; then ``train``'s cell
+    (granite R&B, xla, 8 x 1024 in 2 microbatches, remat) walked with the
+    census: its ``per_device_total_gb`` within ``DRYRUN_MEM_RATIO`` of the
+    phase's ``max_memory_allocated``.  Reported: the train step's MFU
+    (``model_flops`` / median step wall / the bf16 peak) and the analytic
+    against the census FLOPs.  No kernel launches (the launch counters do
+    not move)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import counts
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    launches = counts.snapshot()
+    mini = dataclasses.replace(get_arch("minitron-4b", reuse=True),
+                               execution="photonic")
+    granite = get_arch("granite-moe-1b-a400m", reuse=True)
+    granite = dataclasses.replace(granite, execution="photonic",
+                                  moe=dataclasses.replace(
+                                      granite.moe, num_basic_experts=8))
+    mamba = dataclasses.replace(get_arch("mamba2-780m", reuse=True),
+                                execution="photonic")
+    mini_pre = planned_calls(mini, "prefill", 1, 600)
+    mini_dec = planned_calls(mini, "decode", 1, 616)
+    moe_dec = planned_calls(granite, "decode", 1, 616)
+    ssm_pre = planned_calls(mamba, "prefill", 1, 600)
+    ssm_dec = planned_calls(mamba, "decode", 1, 616)
+    fused = measured["fused"]
+    ssm = measured["ssm"]
+    calls = {
+        "minitron_fused_per_prefill": (mini_pre["photonic_mvm_fused"],
+                                       fused["prefill"]["photonic_mvm_fused"]),
+        "minitron_flash_per_prefill": (mini_pre["flash_attention"],
+                                       fused["prefill"]["flash_attention"]),
+        "minitron_fused_per_decode": (mini_dec["photonic_mvm_fused"],
+                                      fused["decode"]["photonic_mvm_fused"]),
+        "granite_resident_per_pass": (moe_dec["photonic_mvm_resident"],
+                                      measured["resident_per_pass"]),
+        "mamba2_ssd_per_prefill": (ssm_pre["ssd_chunk"],
+                                   ssm["ssd_per_prefill"]),
+        "mamba2_fused_per_prefill": (ssm_pre["photonic_mvm_fused"],
+                                     ssm["fused_per_prefill"]),
+        "mamba2_fused_per_decode": (ssm_dec["photonic_mvm_fused"],
+                                    ssm["fused_per_decode"]),
+    }
+    calls_s = time.perf_counter() - t0
+
+    cfg = get_arch(TRAIN_ARCH, reuse=True)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t1 = time.perf_counter()
+    cell = dryrun.walk(cfg, shape, "1x1", microbatch=2)
+    walk_s = time.perf_counter() - t1
+    gb = cell["memory"]["per_device_total_gb"]
+    ratio = gb / train["peak_mem_gb"]
+    wall = train["step_wall_median_after_first_s"]
+    flops = dryrun.model_flops(cfg, shape)
+    a = cell["analytic"]
+    analytic = a["matmul_flops"] + a["context_flops"] + a["overhead_flops"]
+    out = {"phase": "dryrun", "gpu": gpu,
+           "calls_planned_vs_measured": calls,
+           "train_cell": {"arch": cfg.name, "batch": TRAIN_BATCH,
+                          "seq": TRAIN_SEQ, "microbatch": 2,
+                          "memory": cell["memory"],
+                          "card_peak_mem_gb": train["peak_mem_gb"],
+                          "mem_ratio": ratio, "census_ops": cell["census_ops"],
+                          "census_flops": cell["census_flops"],
+                          "analytic_flops": analytic,
+                          "analytic_over_census_flops":
+                              analytic / cell["census_flops"],
+                          "model_flops": flops,
+                          "step_wall_median_s": wall,
+                          "mfu": flops / wall / H100_BF16_FLOPS,
+                          "roofline": cell["roofline"]},
+           "calls_walk_s": calls_s, "train_walk_s": walk_s,
+           "wall_s": time.perf_counter() - t0}
+    emit(out)
+    bad = [k for k, (p, m) in calls.items() if p != m]
+    if bad:
+        raise AssertionError(f"dry-run planned calls differ from the "
+                             f"measured launches: {bad} {calls}")
+    if not DRYRUN_MEM_RATIO[0] <= ratio <= DRYRUN_MEM_RATIO[1]:
+        raise AssertionError(f"dry-run memory {gb} GB against the card's "
+                             f"{train['peak_mem_gb']} GB: ratio {ratio}")
+    if counts.snapshot() != launches:
+        raise AssertionError("a kernel launched during the dry-run")
+    return out
 
 
 # -------------------------------------------------------------------------
@@ -4020,15 +4168,15 @@ def main() -> int:
     ssd_rows = timed("check_ssd", check_ssd, torch, timer, ssd)
     del timer
     # each path's launches are counted in its own window
-    fused_path = timed("serve", serve, torch, smi)
+    fused_path, fused_measured = timed("serve", serve, torch, smi)
     timed("serve_launcher", serve_launcher, torch, smi)
     timed("sharded", sharded_phase, torch, smi)
     torch.cuda.reset_peak_memory_stats()
     fault_path = timed("serve_noisy", serve_noisy, torch, smi)
     timed("small_model_fault_checks", small_model_fault_checks, torch)
-    moe_path = timed("serve_moe", serve_moe, torch, smi)
+    moe_path, moe_passes = timed("serve_moe", serve_moe, torch, smi)
     timed("small_moe_check", small_moe_check, torch)
-    ssm_path = timed("serve_ssm", serve_ssm, torch, pm, smi)
+    ssm_path, ssm_measured = timed("serve_ssm", serve_ssm, torch, pm, smi)
     timed("small_ssm_checks", small_ssm_checks, torch)
     timed("serve_mla", serve_mla, torch, smi)
     timed("small_mla_check", small_mla_check, torch)
@@ -4039,6 +4187,11 @@ def main() -> int:
     timed("small_memory_checks", small_memory_checks, torch)
     train = timed("train", train_phase, torch, smi)
     timed("train_mesh", train_mesh_phase, torch, smi, train)
+    timed("dryrun", dryrun_phase, smi, {
+        "fused": fused_measured,
+        "resident_per_pass": moe_path["photonic_mvm_resident"] / moe_passes,
+        "ssm": dict(ssm_measured, ssd_per_prefill=ssm_path["ssd_chunk"]
+                    / ssm_measured["prefill_passes"])}, train)
     timed("paper", paper_phase, torch, smi)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
 

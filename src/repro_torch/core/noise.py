@@ -255,7 +255,10 @@ _DAC_GENERATORS: dict = {}
 def _dac_normal(cfg: NoiseConfig, shape, tag, transpose: bool, device):
     """Standard normals for the DAC term: the device's generator reseeded
     from the (seed, bank, orientation, DAC) key, so every call of a bank
-    draws the same pattern."""
+    draws the same pattern.  On the meta device (the dry-run) there is
+    nothing to draw: the shape only."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device=device, dtype=torch.float32)
     gen = _DAC_GENERATORS.get(device)
     if gen is None:
         gen = _DAC_GENERATORS[device] = torch.Generator(device=device)

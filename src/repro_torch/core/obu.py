@@ -109,14 +109,32 @@ def optical_transpose(w: torch.Tensor) -> torch.Tensor:
     return w.transpose(-1, -2)
 
 
+# The product dtype of ``blend_dot`` (the reference's ``_ACCUM_FP32``):
+# float32 by default, so a bf16 model's xla and training GEMMs run in
+# float32; ``set_matmul_accum_fp32(False)`` multiplies in x's dtype (the
+# reference's switch for its TP collectives' width).
+_ACCUM_FP32 = True
+
+
+def set_matmul_accum_fp32(value: bool) -> None:
+    global _ACCUM_FP32
+    _ACCUM_FP32 = value
+
+
+def _pref(x: torch.Tensor) -> torch.dtype:
+    return (torch.float32 if (_ACCUM_FP32 or x.dtype == torch.float32)
+            else x.dtype)
+
+
 def blend_dot(x: torch.Tensor, w: torch.Tensor, *,
               transpose: bool) -> torch.Tensor:
-    """``x @ w`` or ``x @ w.T`` (w: (k, n), or (n, k) when transposed) with
-    float32 accumulation, cast back to x's dtype — the reference's
-    ``dot_general(preferred_element_type=f32)``."""
+    """``x @ w`` or ``x @ w.T`` (w: (k, n), or (n, k) when transposed) in
+    :func:`_pref`'s dtype (float32 by default), cast back to x's dtype —
+    the reference's ``dot_general(preferred_element_type=_pref(x))``."""
     if transpose:
         if w.shape[-1] != x.shape[-1]:
             raise ValueError(f"transpose blend needs square-compatible dims, "
                              f"got x{tuple(x.shape)} w{tuple(w.shape)}")
         w = w.transpose(-1, -2)
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    p = _pref(x)
+    return torch.matmul(x.to(p), w.to(p)).to(x.dtype)

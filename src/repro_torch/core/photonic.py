@@ -38,14 +38,15 @@ _QMAX: dict = {}
 
 
 def _divisor(amax: torch.Tensor, qmax: int):
-    """``qmax`` as the divisor of ``amax``: the Python number on the CPU, a
-    0-d tensor of ``amax``'s dtype on the card.  PyTorch's CUDA ``div``
+    """``qmax`` as the divisor of ``amax``: the Python number on the CPU and
+    on meta tensors (the dry-run: only the shape and dtype exist), a 0-d
+    tensor of ``amax``'s dtype on the card.  PyTorch's CUDA ``div``
     computes ``tensor / python_number`` as a multiply by the reciprocal,
     one ulp off the true division of the CPU and the reference on some
     scales; a device tensor divides truly.  One tensor per (device, dtype,
     qmax), kept only when made outside a CUDA graph capture, so a replayed
     step reads it and adds no kernel."""
-    if amax.device.type == "cpu":
+    if amax.device.type in ("cpu", "meta"):
         return qmax
     key = (amax.device, amax.dtype, qmax)
     d = _QMAX.get(key)

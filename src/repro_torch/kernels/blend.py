@@ -14,7 +14,8 @@ reference does.  ``bias=None`` skips the add (the reference adds zeros:
 the same values).  The block permutation lives on the device once per
 (permutation, device) — a host-to-device copy per call would make the host
 wait for the device.  The wrapper takes the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+tensors; for CUDA tensors it launches the kernel or raises; for meta
+tensors (the dry-run) it plans a call (``kernels/planned.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import planned as _planned
 from repro_torch.kernels.photonic_mvm import (_ACT_CODE, _DTYPE_CODE,
                                               apply_activation)
 
@@ -134,4 +136,23 @@ def blend_shuffle(x, bias, block_perm, *, block: int,
     if x.device.type == "cpu":
         return blend_shuffle_plain(x, bias, perm, block=block,
                                    activation=activation)
+    if x.device.type == "meta":
+        return _plan(x, bias, perm, int(block), activation)
     return _launch(x, bias, perm, int(block), activation)
+
+
+def _plan(x, bias, perm, block, activation):
+    """The planned call on meta tensors (``kernels/planned.py``): the
+    launch's checks and output, no launch; a bias add and an activation
+    per element."""
+    if x.ndim != 2:
+        raise ValueError(f"need x (M, C), got {tuple(x.shape)}")
+    M, C = x.shape
+    if C % block or sorted(perm) != list(range(C // block)):
+        raise ValueError(f"block_perm must permute the {C // block} blocks "
+                         f"of {block} channels")
+    if activation not in _ACT_CODE:
+        raise ValueError(f"unsupported blend activation {activation!r}")
+    out = torch.empty_like(x)
+    _planned.add("blend_shuffle", 2 * M * C, (x, bias), (out,))
+    return out

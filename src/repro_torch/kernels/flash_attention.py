@@ -14,7 +14,8 @@ on the tensor cores; past 256 a launch raises.
 
 Layout contract: q (BH_q, Sq, hd); k (BH_kv, L, hd); v (BH_kv, L, hd_v);
 returns (BH_q, Sq, hd_v) in q's dtype.  The wrapper takes the plain version
-only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+only for CPU tensors; for CUDA tensors it launches the kernel or raises;
+for meta tensors (the dry-run) it plans a call (``kernels/planned.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import planned as _planned
 from repro_torch.kernels import ref as _ref
 
 MAX_HEAD_DIM = 256                 # the kernels' largest hd / hd_v
@@ -113,4 +115,26 @@ def flash_attention(q, k, v, *, causal=True, q_offset=None, kv_len=None):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset, kv_len=kv_len)
+    if q.device.type == "meta":
+        return _plan(q, k, v, causal, q_offset, kv_len)
     return _launch(q, k, v, causal, q_offset, kv_len)
+
+
+def _plan(q, k, v, causal, q_offset, kv_len):
+    """The planned call on meta tensors (``kernels/planned.py``): the
+    launch's checks and output, no launch."""
+    BHq, Sq, hd = q.shape
+    BHkv, L, hdk = k.shape
+    hdv = v.shape[-1]
+    if hdk != hd or tuple(v.shape[:2]) != (BHkv, L) or BHq % BHkv:
+        raise ValueError(f"bad attention shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if not 0 <= kv_len <= L:
+        raise ValueError(f"kv_len {kv_len} outside [0, {L}]")
+    variant = flash_variant(q.dtype, hd, hdv)
+    out = torch.empty((BHq, Sq, hdv), dtype=q.dtype, device=q.device)
+    pairs = _planned.causal_pairs(Sq, L, q_offset, kv_len, causal)
+    _planned.add("flash_attention", 2 * BHq * pairs * (hd + hdv),
+                 (q, k, v), (out,), flash_attention_mma=variant == "mma",
+                 flash_attention_causal=causal)
+    return out

@@ -38,7 +38,8 @@ dtype equals the fused
 output.  Kernel and plain version differ only by the float32 rounding of
 the decomposition; ``chip_smoke.py`` holds them together within one bf16
 step (rel-L2 <= 2**-8).  The wrappers take the plain versions only for CPU
-tensors; for CUDA tensors they launch the kernel or raise.
+tensors; for CUDA tensors they launch the kernel or raise; for meta
+tensors (the dry-run) they plan a call (``kernels/planned.py``).
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import planned as _planned
 
 ACTIVATIONS = ("none", "relu", "silu")
 _ACT_CODE = {"none": 0, "relu": 1, "silu": 2}
@@ -427,11 +429,21 @@ def photonic_mvm_fused(x, wq, x_scale, w_scale, *, bias=None,
     indexed by OUTPUT position; block_perm: output block ``q`` carries
     computed block ``block_perm[q]`` (blocks of ``block`` channels).
     Returns (M, N) in x's dtype.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel; meta tensors plan a call
+    (``kernels/planned.py``)."""
     if x.device.type == "cpu":
         return photonic_mvm_fused_plain(
             x, wq, x_scale, w_scale, bias=bias, transpose=transpose,
             activation=activation, block_perm=block_perm, block=block)
+    if x.device.type == "meta":
+        M, K, N = _check_operands(x, wq, x_scale, w_scale, bias, transpose)
+        if activation not in _ACT_CODE:
+            raise ValueError(f"unsupported fused activation {activation!r}")
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+        _planned.add("photonic_mvm_fused", 2 * M * K * N,
+                     (x, wq, x_scale, w_scale, bias), (out,),
+                     photonic_mvm_fused_gemv=M <= GEMV_MAX_M)
+        return out
     return _launch(x, wq, x_scale.reshape(()), w_scale, bias, transpose,
                    activation, block_perm, block)
 
@@ -507,6 +519,14 @@ def _launch_split(xq, wq, x_scale, w_scale, transpose):
     return out
 
 
+def _plan_split(name, xq, wq, x_scale, w_scale, transpose):
+    """A split MVM's planned call on meta tensors: its float32 output."""
+    M, K, N = _check_split(xq, wq, x_scale.reshape(()), w_scale, transpose)
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    _planned.add(name, 2 * M * K * N, (xq, wq, x_scale, w_scale), (out,))
+    return out
+
+
 def photonic_mvm(xq, wq, x_scale, w_scale):
     """Split W8A8 MVM: xq int8 (M, K), wq int8 (K, N) per-column quantized,
     x_scale the float32 A8 scale, w_scale (N,) float32.  Returns float32
@@ -517,6 +537,8 @@ def photonic_mvm(xq, wq, x_scale, w_scale):
     global launches_mvm
     if xq.device.type == "cpu":
         return photonic_mvm_plain(xq, wq, x_scale, w_scale)
+    if xq.device.type == "meta":
+        return _plan_split("photonic_mvm", xq, wq, x_scale, w_scale, False)
     out = _launch_split(xq, wq, x_scale.reshape(()), w_scale, False)
     launches_mvm += 1
     return out
@@ -532,6 +554,8 @@ def photonic_mvm_t(xq, wq, x_scale, w_scale):
     global launches_mvm_t
     if xq.device.type == "cpu":
         return photonic_mvm_t_plain(xq, wq, x_scale, w_scale)
+    if xq.device.type == "meta":
+        return _plan_split("photonic_mvm_t", xq, wq, x_scale, w_scale, True)
     out = _launch_split(xq, wq, x_scale.reshape(()), w_scale, True)
     launches_mvm_t += 1
     return out
@@ -614,8 +638,13 @@ def photonic_mvm_resident(xq, wq, x_scale, w_scale, *, splits=None):
     x_scale[t], w_scale)`` (bit for bit on the card).  ``splits``
     overrides the plan's number of K ranges (``resident_launch_plan``),
     for measuring it; the result is the same.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel; meta tensors plan a call."""
     T, M, K, N = _check_resident(xq, wq, x_scale, w_scale)
     if xq.device.type == "cpu":
         return photonic_mvm_resident_plain(xq, wq, x_scale, w_scale)
+    if xq.device.type == "meta":
+        out = torch.empty((T, M, N), dtype=torch.float32, device=xq.device)
+        _planned.add("photonic_mvm_resident", 2 * T * M * K * N,
+                     (xq, wq, x_scale, w_scale), (out,))
+        return out
     return _launch_resident(xq, wq, x_scale, w_scale, T, M, K, N, splits)

@@ -20,7 +20,8 @@ stride-0 views over the head axis (the group broadcast of
 ``models/ssm.ssd_chunked``, nothing copied); then a block computes the
 scores C B^T once for the group of heads it serves (``ssd_launch_plan``).
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
-it launches the kernel or raises.
+it launches the kernel or raises; for meta tensors (the dry-run) it plans a
+call (``kernels/planned.py``).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import planned as _planned
 from repro_torch.kernels import ref as _ref
 
 MAX_L = 4096                 # the kernel's longest chunk (shared memory)
@@ -196,4 +198,14 @@ def ssd_chunk(x, dA, B, C):
     b, nc, L, H, P, N = _check(x, dA, B, C)
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dA, B, C)
+    if x.device.type == "meta":
+        y = torch.empty((b, nc, L, H, P), dtype=torch.float32,
+                        device=x.device)
+        st = torch.empty((b, nc, H, N, P), dtype=torch.float32,
+                         device=x.device)
+        # C B^T, the masked scores times x, and the chunk states
+        _planned.add("ssd_chunk",
+                     2 * b * nc * H * (L * L * N + L * L * P + L * N * P),
+                     (x, dA, B, C), (y, st))
+        return y, st
     return _launch(x, dA, B, C, b, nc, L, H, P, N)

@@ -18,6 +18,12 @@ coordinates and holding one process group per set of mesh axes.
     what each rank's function returned.  A rank that raises makes
     ``init_ranks`` raise.
 
+:func:`census_mesh` binds a mesh to one rank's coordinates with no
+process group: its transport is ``"census"`` and its device ``meta``.  The
+dry-run (``launch/dryrun.py``) walks one rank's step on it in the calling
+process; its collectives shape their results and move nothing
+(``sharding/collectives.py``).
+
 **The transport rule**, decided once in :func:`transport_for` when the
 ranks start and never switched at run time:
 
@@ -190,6 +196,18 @@ def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
     if have < n:
         raise RuntimeError(f"mesh {shape} needs {n} devices, have {have}")
     return make_mesh(shape, _axes_for(shape))
+
+
+def census_mesh(spec, rank: int = 0) -> Mesh:
+    """``spec`` (a :class:`Mesh`, a ``"DxM"`` / ``"PxDxM"`` string or an int
+    tuple) bound to rank ``rank``'s coordinates with the census transport
+    on the meta device: no process group, no memory (module docstring)."""
+    mesh = spec if isinstance(spec, Mesh) else parse_mesh(spec)
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} outside a mesh of {mesh.size}")
+    coords = tuple(int(c) for c in np.unravel_index(rank, mesh.sizes))
+    return Mesh(mesh.axis_names, mesh.sizes, coords=coords,
+                device=torch.device("meta"), transport="census")
 
 
 # =========================================================================

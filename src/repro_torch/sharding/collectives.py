@@ -10,6 +10,20 @@ tensors goes through host memory, and only that op.  Gloo's list forms of
 ``all_gather`` and ``reduce_scatter`` are used throughout; its
 single-tensor forms abort a process on CUDA tensors.
 
+On a **census** mesh (``launch.mesh.census_mesh``: one rank's coordinates,
+no process group, ``device="meta"``) each returns an empty meta tensor of
+its result's shape and moves nothing; the dry-run walks a rank's step that
+way (``launch/dryrun.py``).  A census mesh given a tensor that is not on
+the meta device raises.
+
+Every collective that runs (over more than one rank, on any transport)
+appends ``(kind, result bytes)`` to each active :func:`recording`, under
+the reference's kinds (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``collective-permute``) and the reference's measure: the bytes of the
+per-rank result (``launch/analysis.py``'s counterpart of
+``collective_bytes_trip_corrected``).  So a census walk and a real run of
+the same step can be held to each other.
+
 Two of them are differentiable (``torch.autograd.Function``s), for the
 train step on a mesh: :func:`all_gather_grad` (backward: a reduce-scatter
 on the gathered dim, so each rank receives the gradient of its own block
@@ -20,7 +34,49 @@ rank, so its backward is too.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+_RECORDINGS: list = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the collectives this process runs while the context is open:
+    yields a list that fills with ``(kind, result bytes)`` pairs."""
+    rec: list = []
+    _RECORDINGS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDINGS.remove(rec)
+
+
+def _record(kind: str, result: torch.Tensor) -> torch.Tensor:
+    if _RECORDINGS:
+        nbytes = result.numel() * result.element_size()
+        for rec in _RECORDINGS:
+            rec.append((kind, nbytes))
+    return result
+
+
+def _census(mesh, x: torch.Tensor) -> bool:
+    """Whether ``mesh`` is a census mesh (its collectives shape meta
+    results and move nothing); raises when it is given a tensor that is
+    not a meta tensor."""
+    if mesh.transport != "census":
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"a census mesh takes meta tensors, got one on "
+                         f"{x.device}")
+    return True
+
+
+def _resized(x: torch.Tensor, dim: int, factor: float) -> torch.Tensor:
+    shape = list(x.shape)
+    shape[dim] = int(shape[dim] * factor)
+    return torch.empty(shape, dtype=x.dtype, device=x.device)
 
 
 def _dist():
@@ -43,10 +99,12 @@ def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     axes = _axes(axes)
     if mesh.axis_size(axes) == 1:
         return x
+    if _census(mesh, x):
+        return _record("all-reduce", torch.empty_like(x))
     dist = _dist()
     y = _host(x, mesh, "all_reduce").clone()
     dist.all_reduce(y, group=mesh.group(axes))
-    return y.to(x.device)
+    return _record("all-reduce", y.to(x.device))
 
 
 def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -54,10 +112,12 @@ def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     axes = _axes(axes)
     if mesh.axis_size(axes) == 1:
         return x
+    if _census(mesh, x):
+        return _record("all-reduce", torch.empty_like(x))
     dist = _dist()
     y = _host(x, mesh, "all_reduce").clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.group(axes))
-    return y.to(x.device)
+    return _record("all-reduce", y.to(x.device))
 
 
 def all_gather(x: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
@@ -67,11 +127,13 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
     n = mesh.axis_size(axes)
     if n == 1:
         return x
+    if _census(mesh, x):
+        return _record("all-gather", _resized(x, dim, n))
     dist = _dist()
     src = _host(x, mesh, "all_gather").contiguous()
     out = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(out, src, group=mesh.group(axes))
-    return torch.cat(out, dim=dim).to(x.device)
+    return _record("all-gather", torch.cat(out, dim=dim).to(x.device))
 
 
 def psum_scatter(x: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
@@ -85,12 +147,14 @@ def psum_scatter(x: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
     if x.shape[dim] % n:
         raise ValueError(f"reduce-scatter of dim {dim} ({x.shape[dim]}) "
                          f"over {n} ranks")
+    if _census(mesh, x):
+        return _record("reduce-scatter", _resized(x, dim, 1 / n))
     dist = _dist()
     src = _host(x, mesh, "reduce_scatter")
     parts = [p.contiguous() for p in src.chunk(n, dim=dim)]
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, group=mesh.group(axes))
-    return out.to(x.device)
+    return _record("reduce-scatter", out.to(x.device))
 
 
 class _AllGather(torch.autograd.Function):
@@ -138,8 +202,9 @@ def reduce_scatter_grad(x: torch.Tensor, mesh, axes, dim: int = -1):
 
 
 def barrier(mesh) -> None:
-    """Wait for every rank of ``mesh`` (no-op on one position)."""
-    if mesh.size > 1:
+    """Wait for every rank of ``mesh`` (no-op on one position and on a
+    census mesh)."""
+    if mesh.size > 1 and mesh.transport != "census":
         _dist().barrier(group=mesh.group(mesh.axis_names))
 
 
@@ -149,6 +214,8 @@ def ppermute_ring(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     n = mesh.axis_size(axis)
     if n == 1:
         return x
+    if _census(mesh, x):
+        return _record("collective-permute", torch.empty_like(x))
     dist = _dist()
     group = mesh.group(axis)
     members = dist.get_process_group_ranks(group)
@@ -159,7 +226,7 @@ def ppermute_ring(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
            dist.P2POp(dist.irecv, recv, members[(me - 1) % n], group)]
     for w in dist.batch_isend_irecv(ops):
         w.wait()
-    return recv.to(x.device)
+    return _record("collective-permute", recv.to(x.device))
 
 
 def split_last(x: torch.Tensor, mesh, axes) -> torch.Tensor:

@@ -179,3 +179,28 @@ def run_rank(mesh, job):
                        checkpoint._flatten((params, opt)).items()},
             "state": checkpoint._flatten((params, opt), specs=specs,
                                          mesh=mesh)}
+
+
+def census_rank(mesh, job):
+    """Per cell of ``job`` ({name: (cfg, shape)}): the collectives a real
+    rank records running the dry-run's step (``dryrun.rank_step``) on
+    seeded weights and tokens, as ``(kind, result bytes)`` pairs."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import collectives as coll
+
+    torch.set_num_threads(1)
+    out = {}
+    for name, (cfg, shape) in job.items():
+        params = tfm.init_model(cfg, seed=0, device="cpu")
+        B = shape.global_batch
+        S = 1 if shape.kind == "decode" else shape.seq_len
+        g = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, S),
+                                         generator=g, dtype=torch.int32)}
+        run, _ = dryrun.rank_step(cfg, shape, mesh, params=params,
+                                  batch=batch)
+        with coll.recording() as rec:
+            run()
+        out[name] = rec
+    return out

@@ -196,6 +196,25 @@ def test_train_mesh_slice_modules_are_checked_and_standalone(module):
     assert bad == []
 
 
+# the dry-run slice's new modules and the modules it extended
+SLICE17_MODULES = ["launch/dryrun.py", "launch/analysis.py",
+                   "kernels/planned.py", "configs/__init__.py",
+                   "core/obu.py", "core/photonic.py", "core/noise.py",
+                   "launch/mesh.py", "sharding/collectives.py",
+                   "kernels/photonic_mvm.py", "kernels/flash_attention.py",
+                   "kernels/blend.py", "kernels/ssd.py"]
+
+
+@pytest.mark.parametrize("module", SLICE17_MODULES)
+def test_dryrun_slice_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert bad == []
+
+
+
 def test_mesh_training_defaults_to_cuda_and_refuses_unbound_meshes():
     """``run(mesh=)`` on a rank takes the rank's device; without ranks a
     mesh of several positions is refused, and the train step refuses an
