@@ -7,7 +7,7 @@ Phases (each prints one JSON object per line; any failed check raises and
 the script exits non-zero without printing the final ``ok`` line):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
-   all six CUDA sources compile from this checkout, in parallel;
+   all seven CUDA sources compile from this checkout, in parallel;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it, with its median time (CUDA events,
    L2 flushed before each launch), the plain version's time, a PyTorch
@@ -37,7 +37,14 @@ the script exits non-zero without printing the final ``ok`` line):
    carries weight; since slice 8 on the TF32 tensor cores in 3xTF32, with
    C B^T once per group of heads, at b * nc = 1, 2, 6 and 8 and a ragged
    chunk whose every tile is partial, bit for bit the same under another
-   grouping of heads, its SASS holding TF32 wgmma);
+   grouping of heads, its SASS holding TF32 wgmma); since slice 18 the
+   decode attention (``check_decode_attention``: no Pallas counterpart,
+   the repair of the einsum's batch dependence) at minitron-4b's, the vlm
+   self-attention's, whisper's decoder's and granite's serving shapes in
+   bf16 and minitron's in float32, each row bit-equal alone, beside one
+   other row and within the whole batch, each group of KV heads (tp 2 and
+   4) bit-equal to those heads of the whole call, and its partial form
+   joined over 2 and 4 pieces of the positions at the float gates;
 3. the fused serving path: minitron-4b with its R&B plan (8 physical
    blocks x 4 reuses) at full width, photonic, bf16, seeded random weights,
    through ``Program.generate`` and a ``ContinuousScheduler`` with chunked
@@ -169,7 +176,16 @@ the script exits non-zero without printing the final ``ok`` line):
    ``python -m repro_torch.launch.serve --mesh 1x2`` (its ``main``) serves
    4 requests; since slice 16 the 2x1 ranks also build the model with
    ``cfg.fsdp`` (``fsdp_serving``: prefill and 4 decode steps bit-equal
-   to the build without it, from half the bank bytes a rank);
+   to the build without it, from half the bank bytes a rank); since
+   slice 18 the caches follow ``cache_pspecs``: each 1x2 rank holds and
+   attends with its 4 of the 8 KV heads (half the K/V bytes), every decode
+   attention taught against the whole heads' call on the gathered inputs
+   (bit-equal), the prefill's recorded all-gather bytes reported (the
+   column dots' outputs stay local: the Megatron pairing), 32 decode-
+   attention launches a decode step a rank; the 2x1 ranks also run 2
+   rows (one a rank) bit-equal to the unsharded Program at 2 rows; and
+   shardcheck's sequence-split gate (``seq_cfg``: 3 KV heads, so the
+   positions split) on 1x2 on xla within 1e-5;
 3p. since slice 16 training on a mesh (``train_mesh_phase``), right after
    ``train``: granite-moe-1b-a400m R&B at full width on 2x1 ranks sharing
    the card, 3 steps data-parallel and 3 with ``cfg.fsdp`` through
@@ -183,8 +199,9 @@ the script exits non-zero without printing the final ``ok`` line):
    steps on meta tensors on the host and is held to what they measured in
    this run: the planned fused-MVM calls of a minitron-4b R&B prefill pass
    and decode pass, granite's resident calls a pass (480) and mamba2's
-   ``ssd_chunk`` calls a prefill pass (48) and fused calls a pass equal
-   the launches those phases counted, exactly; the dry-run's per-device
+   ``ssd_chunk`` calls a prefill pass (48) and fused calls a pass, and
+   since slice 18 minitron's decode-attention calls a decode pass (32),
+   equal the launches those phases counted, exactly; the dry-run's per-device
    memory for ``train``'s cell within [0.75, 1.33] of that phase's
    ``torch.cuda.max_memory_allocated``; the train step's MFU
    (``model_flops`` / median step wall / 989 TFLOP/s) and the analytic
@@ -208,6 +225,9 @@ for y and the states (at the slow decay, a kernel that dropped a key tile
 or a block of state rows would miss it: ``tests/test_torch_ssd.py``), and
 since slice 8, which runs its products in 3xTF32, rel-L2 <= 1e-4 for each
 (float32 level: one-pass TF32 reads ~4e-4, ``tests/test_torch_ssd.py``).
+The decode attention rounds its weights to bf16 before normalising them
+(the plain version after): rel-L2 <= 2**-8 in bf16, 1e-5 in float32 (sum
+order only), and bit for bit across batch sizes and head groups.
 Model-level checks use the repository's W8A8 bound, rel-L2 <= 0.055; the
 small dense model's card logits are also held to the CPU program with the
 kernels' integer arithmetic at rel-L2 <= 1e-5 (what is left is float32
@@ -826,7 +846,9 @@ KERNEL_GROUPS = (
     ("photonic_mvm_resident", ("::resident_mma_kernel",)),
     ("blend_shuffle", ("::blend_kernel", "::blend_vec_kernel")),
     ("flash_attention", ("::flash_kernel", "::flash_mma_kernel")),
-    ("ssd_chunk", ("::ssd_mma_kernel",)))
+    ("ssd_chunk", ("::ssd_mma_kernel",)),
+    ("decode_attention", ("::decode_chunk_kernel",
+                          "::decode_combine_kernel")))
 
 
 def kernel_group(name: str) -> str:
@@ -925,13 +947,15 @@ def profile_step(torch, step) -> list:
 def port_kernels(evs) -> dict:
     """CUDA kernels among profiled events, counted per port kernel
     (``KERNEL_GROUPS``); the fused MVM's mma regime also runs
-    ``quantize_kernel``, which is not a launch of its own."""
+    ``quantize_kernel`` and the decode attention its chunk pass before its
+    combine, neither a launch of its own."""
     from torch.autograd import DeviceType
     kernels = dict.fromkeys((g for g, _ in KERNEL_GROUPS), 0)
     for e in evs:
         group = kernel_group(e.key)
         if (e.device_type == DeviceType.CUDA and group in kernels
-                and "::quantize_kernel" not in e.key):
+                and "::quantize_kernel" not in e.key
+                and "::decode_chunk_kernel" not in e.key):
             kernels[group] += e.count
     return kernels
 
@@ -1189,6 +1213,9 @@ def serve(torch, gpu):
             and launches["flash_attention_mma"] == flash_launches):
         raise AssertionError(f"kernels not on the serving path (both fused "
                              f"regimes, the tensor-core flash): {launches}")
+    # generate: 15 decode steps; the drain's; one launch a layer each
+    check_decode_attention_launches(
+        cfg, launches, 15 + drain["drain_decode_steps"])
     gen_tokens = 2 * 16
     sched_tokens = 16 * len(lens)
     sched_s = drain["drain_graph_s"]
@@ -1444,11 +1471,12 @@ def serve_launcher(torch, gpu):
 # -------------------------------------------------------------------------
 # one prefill of 4 x 600 tokens per mesh: two rows per data shard on 2x1
 # (and on 2x2, run at full width until slice 17 cut it for the script's
-# time; a rank left one row takes another float32 einsum path in the
-# decode attention than two rows do: torch treats a size-1 batch dim
-# apart, so 2x1 at 2 rows drifts from the unsharded logits after the
-# first decode step, and at 4 rows it does not)
+# time); since slice 18 the 2x1 ranks also run the first 2 rows, one a
+# rank (before the batch-invariant decode attention, a rank left one row
+# took another float32 einsum path than two rows did, and drifted from
+# the unsharded logits after the first decode step)
 SHARD_ROWS = 4
+SHARD_TWO_ROWS = 2
 SHARD_PROMPT = 600
 SHARD_DECODE = 8              # then 8 decode steps on the unsharded tokens
 SHARD_MESHES = ("1x2", "2x1")
@@ -1541,18 +1569,24 @@ def taught_dots(prog, whole, records):
     the rank's sharded dot, the single-device kernel runs on the same input
     rows at the same A8 scale (the step's max over the data axes) against
     the whole bank ``whole`` (tag -> PreparedTensor), and ``records`` gets
-    (rule, rel-L2, bit-equal).  Returns the backend to restore."""
+    (rule, rel-L2, bit-equal).  A paired dot's block input (``local_in``)
+    is gathered for the single-device call, and a ``local_out`` result is
+    held to the rank's block of it.  Returns the backend to restore."""
     from repro_torch.core import backend as backend_lib
     from repro_torch.core.photonic import a8_scale_from_amax
     from repro_torch.kernels import ops
+    from repro_torch.sharding import collectives as coll
 
     class Taught(type(prog.backend)):
         def _photonic_matmul_sharded(self, x, prep, pair, *, transpose, bias,
-                                     block_perm, block, activation, tp_hint):
+                                     block_perm, block, activation, tp_hint,
+                                     local_in=False, local_out=False):
             y = super()._photonic_matmul_sharded(
                 x, prep, pair, transpose=transpose, bias=bias,
                 block_perm=block_perm, block=block, activation=activation,
-                tp_hint=tp_hint)
+                tp_hint=tp_hint, local_in=local_in, local_out=local_out)
+            if local_in:
+                x = coll.all_gather(x, self.mesh, "model", dim=-1)
             if prep is None:                  # quantized in the step
                 wq, ws = pair
             else:
@@ -1566,6 +1600,8 @@ def taught_dots(prog, whole, records):
                 x, wq, ws, x_scale=xs, transpose=transpose, bias=bias,
                 block_perm=block_perm, block=block,
                 activation=activation or "none")
+            if local_out:
+                y1 = backend_lib._piece(y1, -1, self.mesh)
             rule = backend_lib.partition_rule(
                 self.mesh.axis_size("model"), x.shape[-1],
                 wq.shape[0] if transpose else wq.shape[1],
@@ -1580,6 +1616,110 @@ def taught_dots(prog, whole, records):
     return base
 
 
+@contextlib.contextmanager
+def taught_decode_attention(mesh, records):
+    """Each decode attention on a rank's own KV heads checked against the
+    unsharded call: its inputs all-gathered over "model" on their head
+    dim, the kernel run on every head, and ``records`` gets whether the
+    rank's heads of that call equal the rank's own call bit for bit."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.sharding import collectives as coll
+
+    import torch
+    own = da.decode_attention
+
+    def taught(q, ck, cv, k_new, v_new, pos):
+        out = own(q, ck, cv, k_new, v_new, pos)
+        whole = own(*(coll.all_gather(t.contiguous(), mesh, "model", dim=2)
+                      for t in (q, ck, cv, k_new, v_new)), pos)
+        B, _, H, hd = q.shape
+        i = mesh.index("model")
+        mine = whole.reshape(B, 1, -1, hd)[:, :, i * H:(i + 1) * H]
+        records.append(bool(torch.equal(mine.reshape(out.shape), out)))
+        return out
+
+    da.decode_attention = taught
+    try:
+        yield
+    finally:
+        da.decode_attention = own
+
+
+def kv_bytes(caches) -> tuple:
+    """(bytes of a rank's self-attention K/V pieces, bytes of the whole
+    caches they are cut from: ``partition.piece_of``)."""
+    from repro_torch import api
+    from repro_torch.sharding import partition
+    held = whole = 0
+    for name, leaf in api._cache_leaves(caches):
+        if name in ("k", "v"):
+            held += leaf.numel() * leaf.element_size()
+            shape = partition.piece_of(leaf)[1]
+            whole += int(np.prod(shape)) * leaf.element_size()
+    return held, whole
+
+
+@contextlib.contextmanager
+def row_trace(records):
+    """Record, per call of each op a decode step runs row by row (the
+    embedding, the norms, RoPE, each fused MVM, the decode attention), a
+    digest of each row of its output: ``records`` gets (op, [sha1 of row
+    0, row 1, ...]).  Two runs of the same steps on other batch sizes line
+    up call by call, and the first call whose row digests differ names the
+    op whose output depends on the batch."""
+    import hashlib
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+
+    targets = [(tfm, "embed"), (tfm, "apply_norm"), (attention, "apply_rope"),
+               (ops, "photonic_matmul_fused"), (da, "decode_attention")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def traced(name, fn):
+        def call(*args, **kw):
+            y = fn(*args, **kw)
+            rows = y.detach().float().cpu().numpy()
+            records.append((name, [hashlib.sha1(r.tobytes()).hexdigest()
+                                   for r in rows]))
+            return y
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, traced(name, fn))
+    try:
+        yield records
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def first_row_difference(got, want, row: int):
+    """The first traced call (index, op) whose digest of ``got``'s only row
+    differs from ``want``'s row ``row``, or None."""
+    for i, ((op, g), (_, w)) in enumerate(zip(got, want)):
+        if g[0] != w[row]:
+            return {"call": i, "op": op}
+    return None
+
+
+def two_row_run(prog, prompts, tokens):
+    """The prefill of ``prompts`` (2 rows: one a rank on 2x1) and a decode
+    step per row of ``tokens``: the logits of every step on the CPU, and
+    the decode steps' ``row_trace``."""
+    import torch
+    logits, caches = prog.prefill({"tokens": torch.as_tensor(prompts)
+                                   .cuda()}, SHARD_PROMPT + SHARD_DECODE)
+    out = [logits.float().cpu()]
+    with row_trace([]) as trace:
+        for i, tok in enumerate(tokens):
+            lg, caches = prog.decode(torch.as_tensor(tok)[:, None].cuda(),
+                                     caches, SHARD_PROMPT + i)
+            out.append(lg.float().cpu())
+    return out, trace
+
+
 def sharded_rank(mesh, job):
     """One rank of the full-width sharded runs (``launch.mesh.init_ranks``
     starts it, ranks sharing the card over gloo): minitron-4b R&B built on
@@ -1589,9 +1729,15 @@ def sharded_rank(mesh, job):
     ``job["drain"]`` a ``ContinuousScheduler`` drain.  The counted window
     holds exactly those steps: every fused-MVM input on the card, and the
     rank's fused launches equal to ``fused_per_pass`` per pass
-    (reduce_scatter: one kernel a dot), no flash.  Then, outside it, the
-    prefill and one decode step again with each dot taught
-    (``taught_dots``) against the whole bank.  Returns the logits and
+    (reduce_scatter: one kernel a dot), no flash, ``attention_per_decode``
+    decode-attention launches a decode step; the prefill's collectives
+    are recorded (bytes by kind) and its K/V caches must be half the
+    unsharded ones' bytes (the rank's KV heads on 1x2, its rows on 2x1).
+    Then, outside it, the prefill and one decode step again with each dot
+    taught (``taught_dots``) against the whole bank and, on 1x2, each
+    decode attention against the whole heads' call
+    (``taught_decode_attention``); with ``job["two_rows"]`` (prompts,
+    tokens) the 2-row run (``two_row_run``).  Returns the logits and
     completions, the launch counts and the rank's report."""
     import torch
     import torch.distributed as dist
@@ -1603,6 +1749,7 @@ def sharded_rank(mesh, job):
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.batcher import Request
     from repro_torch.serve.scheduler import ContinuousScheduler
+    from repro_torch.sharding import collectives as coll
 
     t_rank = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1642,10 +1789,15 @@ def sharded_rank(mesh, job):
     counts.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches = prog.prefill({"tokens": prompts},
-                                  SHARD_PROMPT + SHARD_DECODE)
+    with coll.recording() as moved:
+        logits, caches = prog.prefill({"tokens": prompts},
+                                      SHARD_PROMPT + SHARD_DECODE)
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_collective_bytes"] = {
+        kind: sum(n for k, n in moved if k == kind)
+        for kind in sorted({k for k, _ in moved})}
+    out["kv_bytes"], out["kv_bytes_unsharded"] = kv_bytes(caches)
     if counts.snapshot()["photonic_mvm_fused"] != per_prefill:
         raise AssertionError(f"rank {mesh.rank}: prefill fused launches "
                              f"{counts.snapshot()} != {per_prefill}")
@@ -1683,15 +1835,34 @@ def sharded_rank(mesh, job):
             "flash_attention"] != 0:
         raise AssertionError(f"rank {mesh.rank}: launches {launches}, "
                              f"fused expected {want}, flash 0 on a mesh")
+    decode_steps = len(job["tokens"]) + out.get("drain_decode_steps", 0)
+    check_decode_attention_launches(cfg, launches, decode_steps)
+    tp = mesh.axis_size("model")
+    if 2 * out["kv_bytes"] != out["kv_bytes_unsharded"]:
+        raise AssertionError(f"rank {mesh.rank}: K/V {out['kv_bytes']} B of "
+                             f"{out['kv_bytes_unsharded']} (half a rank)")
 
     # outside the counted window: each dot of a prefill and a decode step
-    # against the single-device kernel on the same input
-    records = []
+    # against the single-device kernel on the same input, and (KV heads
+    # over "model") each decode attention against every head's call
+    records, attn = [], []
     base = taught_dots(prog, whole, records)
     _, caches = prog.prefill({"tokens": prompts}, SHARD_PROMPT + 1)
-    prog.decode(torch.as_tensor(job["tokens"][0])[:, None].cuda(), caches,
-                SHARD_PROMPT)
+    with taught_decode_attention(mesh, attn) if tp > 1 \
+            else contextlib.nullcontext():
+        prog.decode(torch.as_tensor(job["tokens"][0])[:, None].cuda(),
+                    caches, SHARD_PROMPT)
     prog.backend = base
+    out["decode_attention_taught"] = {"calls": len(attn),
+                                      "bit_equal": sum(attn)}
+    if tp > 1 and not (len(attn) == attention_per_decode(cfg)
+                       and all(attn)):
+        raise AssertionError(f"rank {mesh.rank}: decode attention on its "
+                             f"heads {out['decode_attention_taught']} "
+                             f"(every call bit-equal to the whole heads')")
+    if "two_rows" in job:
+        out["two_rows_logits"], out["two_rows_trace"] = two_row_run(
+            prog, *job["two_rows"])
     taught = {}
     for rule, rel, same in records:
         t = taught.setdefault(rule, {"calls": 0, "bit_equal": 0,
@@ -1726,16 +1897,26 @@ def sharded_rank(mesh, job):
     return out
 
 
+def seq_readings(rep) -> dict:
+    """Worst rel-L2 over ranks and steps of shardcheck's sequence-split
+    gate, per case."""
+    return {str(case): max(rel_l2(a, b) for r in rep["ranks"]
+                           for a, b in zip(r["seq"][case]["logits"], want))
+            for case, want in rep["unsharded_seq"].items()}
+
+
 def sharded_phase(torch, gpu):
     """(a) The small float32 model's shardcheck gates as 2x2 ranks on the
     card (parity, collectives, DP serving, dropped rules, refusals, the R&B
-    and MoE variants).  (b) minitron-4b R&B at full width on 1x2 and 2x1
-    ranks (2x2 as well until slice 17): one 4 x 600 prefill and 8 decode
-    steps on the unsharded run's tokens, each rank's fused launches held to ``fused_per_pass``,
-    and every dot of a prefill and a decode step taught against the
-    single-device kernel on the same input (``sharded_rank``).  The 2x1
-    (data-parallel) logits must equal the unsharded Program's bit for bit
-    and its drain of 4 requests the unsharded scheduler's tokens at the
+    and MoE variants, the sequence-split caches), then its sequence-split
+    gate on 1x2 on xla (within 1e-5).  (b) minitron-4b R&B at full width
+    on 1x2 and 2x1 ranks (2x2 as well until slice 17): one 4 x 600 prefill
+    and 8 decode steps on the unsharded run's tokens, each rank's fused
+    launches held to ``fused_per_pass``, and every dot of a prefill and a
+    decode step taught against the single-device kernel on the same input
+    (``sharded_rank``).  The 2x1 (data-parallel) logits must equal the
+    unsharded Program's bit for bit, at 4 rows and at 2 (one a rank), and
+    its drain of 4 requests the unsharded scheduler's tokens at the
     same capacity; its ranks then build the model again with ``cfg.fsdp``
     (``fsdp_serving``), whose prefill and 4 decode steps must give the
     same logits bit for bit from half the bank bytes a rank.  The 1x2
@@ -1756,7 +1937,7 @@ def sharded_phase(torch, gpu):
 
     t0 = time.perf_counter()
     fails, rep = sc.run("2x2", "photonic", serve=True, collectives=True,
-                        dropped=True, refusals=True, variants=True,
+                        dropped=True, refusals=True, variants=True, seq=True,
                         device="cuda")
     if fails:
         raise AssertionError(f"shardcheck on the card: {fails}")
@@ -1770,7 +1951,20 @@ def sharded_phase(torch, gpu):
               k: [rel_l2(v[0], rep["unsharded_variants"][k][0]),
                   rel_l2(v[1], rep["unsharded_variants"][k][1])]
               for k, v in r0["variants"].items()},
+          "seq_rel_l2": seq_readings(rep),
           "wall_s": time.perf_counter() - t0})
+    # the sequence branch on xla, float32: within 1e-5 (shardcheck's gate)
+    t1 = time.perf_counter()
+    fails, rep = sc.run("1x2", "xla", seq=True, device="cuda")
+    if fails:
+        raise AssertionError(f"shardcheck --seq on the card: {fails}")
+    emit({"phase": "sharded_seq", "gpu": gpu, "mesh": "1x2",
+          "execution": "xla", "arch": sc.seq_cfg().name,
+          "kv_heads": sc.seq_cfg().num_kv_heads,
+          "k_shapes": {str(c): rep["ranks"][0]["seq"][c]["k_shape"]
+                       for c in sc.SEQ_CASES},
+          "seq_rel_l2": seq_readings(rep), "gate": sc.SEQ_TOL,
+          "wall_s": time.perf_counter() - t1})
 
     cfg = get_arch("minitron-4b", reuse=True)
     rng = np.random.default_rng(15)
@@ -1803,6 +1997,19 @@ def sharded_phase(torch, gpu):
     prog.backend = flash_on
     ref, tokens = runs["einsum"]
     route_gap = [rel_l2(a, b) for a, b in zip(runs["flash"][0], ref)]
+    # the 2-row case on the einsum route (one row a 2x1 rank): its greedy
+    # tokens, then its logits and row trace on those tokens
+    prog.backend = dataclasses.replace(flash_on, flash=False)
+    two = prompts[:SHARD_TWO_ROWS]
+    logits, caches = prog.prefill({"tokens": two},
+                                  SHARD_PROMPT + SHARD_DECODE)
+    tokens2 = [torch.argmax(logits.float().cpu(), dim=-1).numpy()]
+    for i in range(SHARD_DECODE - 1):
+        lg, caches = prog.decode(torch.as_tensor(tokens2[-1])[:, None]
+                                 .cuda(), caches, SHARD_PROMPT + i)
+        tokens2.append(torch.argmax(lg.float().cpu(), dim=-1).numpy())
+    ref2, trace2 = two_row_run(prog, two, tokens2)
+    prog.backend = flash_on
     sched = ContinuousScheduler(prog, capacity=4, max_len=512)
     for rid, prompt, max_new in drain:
         sched.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
@@ -1818,6 +2025,7 @@ def sharded_phase(torch, gpu):
         if shape == "2x1":
             job["drain"] = drain
             job["fsdp"] = True
+            job["two_rows"] = (two, tokens2)
         ranks = mesh_lib.init_ranks(sharded_rank, shape, device="cuda",
                                     args=(job,))
         rels = [rel_l2(got, want) for got, want in
@@ -1830,9 +2038,25 @@ def sharded_phase(torch, gpu):
                            "decode_rel_l2": rels[1:],
                            "bit_equal_to_unsharded": exact,
                            "ranks_equal": same}
+        if shape == "2x1":
+            # each rank holds one of the 2 rows: its logits gathered, its
+            # trace its own row's
+            two_rels = [[rel_l2(a, b) for a, b in
+                         zip(r["two_rows_logits"], ref2)] for r in ranks]
+            readings[shape]["two_rows"] = {
+                "rel_l2": two_rels,
+                "bit_equal_to_unsharded": all(
+                    all(torch.equal(a, b) for a, b in
+                        zip(r["two_rows_logits"], ref2)) for r in ranks),
+                "traced_calls": len(trace2),
+                "first_difference": [first_row_difference(
+                    r["two_rows_trace"], trace2, i)
+                    for i, r in enumerate(ranks)]}
         drains = [r.pop("tokens", None) for r in ranks]
         for r in ranks:
             r.pop("logits")
+            r.pop("two_rows_logits", None)
+            r.pop("two_rows_trace", None)
             emit({"phase": "sharded_rank", "gpu": gpu, "mesh": shape, **r})
         emit({"phase": "sharded_reading", "gpu": gpu, "mesh": shape,
               **readings[shape]})
@@ -1845,6 +2069,13 @@ def sharded_phase(torch, gpu):
             if not exact:
                 raise AssertionError(f"2x1 logits not bit-equal to the "
                                      f"unsharded Program: {rels}")
+            two_rows = readings[shape]["two_rows"]
+            if not two_rows["bit_equal_to_unsharded"]:
+                # ``first_difference`` names the first op whose output rows
+                # moved with the batch
+                raise AssertionError(f"2x1 at {SHARD_TWO_ROWS} rows (one a "
+                                     f"rank) not bit-equal to the unsharded "
+                                     f"Program: {two_rows}")
             for r, got in zip(ranks, drains):
                 if got != want_tokens:
                     bad = sorted(k for k in want_tokens
@@ -2060,6 +2291,30 @@ def kernel_counts() -> dict:
     decode graph adds its captured launches)."""
     from repro_torch.kernels import counts
     return counts.snapshot()
+
+
+def attention_per_decode(cfg) -> int:
+    """Decode-attention launches of one decode pass of ``cfg``: one per
+    self-attention layer application of the decoder (MLA decodes in its
+    latent space, an SSM layer has no attention, cross-attention reads its
+    memory with the einsum)."""
+    from repro_torch.models import transformer as tfm
+    if cfg.mla is not None:
+        return 0
+    return sum(spec.num_groups * sum(k in ("attn", "attn_cross")
+                                     for k in spec.mixer_kinds)
+               for spec in tfm.build_segments(cfg)
+               if spec.stream != "encoder")
+
+
+def check_decode_attention_launches(cfg, launches, decode_steps) -> None:
+    """The window's decode-attention launches: ``attention_per_decode`` a
+    decode step, on the card (the wrapper counts launches only)."""
+    want = attention_per_decode(cfg) * decode_steps
+    if launches["decode_attention"] != want:
+        raise AssertionError(f"decode_attention launches "
+                             f"{launches['decode_attention']} != {want} "
+                             f"({decode_steps} decode steps of {cfg.name})")
 
 
 def reset_counts() -> None:
@@ -2388,6 +2643,8 @@ def serve_moe(torch, gpu):
                              f"{passes} forward passes")
     if launches["photonic_mvm_fused"] <= 0 or launches["flash_attention"] <= 0:
         raise AssertionError(f"kernels not on the MoE path: {launches}")
+    check_decode_attention_launches(cfg, launches,
+                                    7 + drain["drain_decode_steps"])
     logits, _ = prog.prefill({"tokens": prompts[:1]}, 608)
     if not (logits.shape[-1] == cfg.padded_vocab
             and bool(torch.isfinite(logits).all())):
@@ -2601,6 +2858,143 @@ def check_ssd(torch, timer, ssd):
 
 
 # -------------------------------------------------------------------------
+# phase 2, slice 18: decode attention
+# -------------------------------------------------------------------------
+DECODE_ATTN_TOL = 2.0 ** -8      # bf16: the probabilities round to bf16 at
+                                 # another point than the plain version's
+DECODE_ATTN_F32_TOL = 1e-5       # float32: summation order only
+DECODE_ATTN_POS = (40, 300, 1300, 2047)   # per-slot positions of the B=4
+                                          # serving calls
+
+
+def decode_attention_cases():
+    """(label, B, L, H, KV, hd, dtype): the decode attention of the serving
+    paths at the scheduler's capacity (4 slots, a 2048-position cache,
+    positions ``DECODE_ATTN_POS``): minitron-4b (24 heads over 8 KV heads,
+    hd 128), llama-3.2-vision-11b's self-attention (32 over 8), whisper-
+    medium's decoder (16 over 16, hd 64) and granite-moe-1b-a400m (16 over
+    8, hd 64), in bf16; minitron's shape in float32."""
+    return [("minitron-4b B=4 L=2048 H=24 KV=8 hd=128", 4, 2048, 24, 8, 128,
+             "bfloat16"),
+            ("vlm self B=4 L=2048 H=32 KV=8 hd=128", 4, 2048, 32, 8, 128,
+             "bfloat16"),
+            ("whisper decoder B=4 L=2048 H=16 KV=16 hd=64", 4, 2048, 16, 16,
+             64, "bfloat16"),
+            ("granite B=4 L=2048 H=16 KV=8 hd=64", 4, 2048, 16, 8, 64,
+             "bfloat16"),
+            ("minitron-4b float32 B=4 L=2048 H=24 KV=8 hd=128", 4, 2048, 24,
+             8, 128, "float32")]
+
+
+def decode_attention_inputs(torch, gen, B, L, H, KV, hd, dt):
+    """Seeded q, cache K / V, the new token's K / V and per-slot positions
+    on the card."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    pos = torch.tensor(DECODE_ATTN_POS[:B], dtype=torch.long, device="cuda")
+    return r(B, 1, H, hd), r(B, L, KV, hd), r(B, L, KV, hd), \
+        r(B, 1, KV, hd), r(B, 1, KV, hd), pos
+
+
+def check_decode_attention(torch, timer, da):
+    """Each case against the plain version (rel-L2 <= 2**-8 in bf16, 1e-5
+    in float32); batch invariance (each row of the B=4 call bit-equal to
+    the row called alone and within B=2); head invariance (KV heads
+    [j KV/tp, (j+1) KV/tp) with their query heads, called alone, bit-equal
+    to those heads of the whole call, tp 2 and 4); the partial form over 2
+    and 4 position pieces, joined (``join_partials``), at the float gates
+    against the plain version; median time, the plain version's, SDPA's
+    (``enable_gqa``, a bool mask over the L + 1 keys: the cache rows seen
+    and the new token) and the bound of the bytes and operations this
+    call's positions need."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = []
+    for label, B, L, H, KV, hd, dtype in decode_attention_cases():
+        dt = getattr(torch, dtype)
+        tol = DECODE_ATTN_TOL if dt == torch.bfloat16 else DECODE_ATTN_F32_TOL
+        q, ck, cv, kn, vn, pos = decode_attention_inputs(torch, gen, B, L, H,
+                                                         KV, hd, dt)
+        args = (q, ck, cv, kn, vn, pos)
+        want = da.decode_attention_plain(*args)
+        got = da.decode_attention(*args)
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        max_abs = float((got.float() - want.float()).abs().max())
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"decode_attention {label}: rel-L2 {err} "
+                                 f"> {tol}")
+        # batch invariance: a row alone, and beside one other row
+        G = H // KV
+        batch_ok = all(
+            torch.equal(da.decode_attention(*(t[i:i + 1] for t in args)),
+                        got[i:i + 1]) for i in range(B))
+        batch_ok &= all(
+            torch.equal(da.decode_attention(*(t[[i, (i + 1) % B]]
+                                              for t in args)),
+                        got[[i, (i + 1) % B]]) for i in range(B))
+        heads_ok = {}
+        for tp in (2, 4):
+            kv_n = KV // tp
+            same = True
+            for j in range(tp):
+                ks, qs_ = slice(j * kv_n, (j + 1) * kv_n), \
+                    slice(j * kv_n * G, (j + 1) * kv_n * G)
+                part = da.decode_attention(
+                    q[:, :, qs_].contiguous(), ck[:, :, ks].contiguous(),
+                    cv[:, :, ks].contiguous(), kn[:, :, ks].contiguous(),
+                    vn[:, :, ks].contiguous(), pos)
+                same &= torch.equal(
+                    part, got[..., qs_.start * hd:qs_.stop * hd])
+            heads_ok[tp] = bool(same)
+        pieces = {}
+        for n in (2, 4):
+            w = L // n
+            parts = [da.decode_attention_partial(
+                q, ck[:, j * w:(j + 1) * w], cv[:, j * w:(j + 1) * w], kn,
+                vn, pos, offset=j * w, with_new=j == 0) for j in range(n)]
+            pieces[n] = rel_l2(da.join_partials(parts, dt), want)
+        if not (batch_ok and all(heads_ok.values())
+                and max(pieces.values()) <= tol):
+            raise AssertionError(f"decode_attention {label}: batch "
+                                 f"invariant {batch_ok}, head invariant "
+                                 f"{heads_ok}, pieces rel-L2 {pieces} "
+                                 f"(gate {tol})")
+        ms = timer.ms(lambda: da.decode_attention(*args), 20)
+        plain_ms = timer.ms(lambda: da.decode_attention_plain(*args), 5)
+        # SDPA on the same keys: the cache and the new token, (B, KV, L+1,
+        # hd), the rows past each slot's position masked
+        k4 = torch.cat([ck, kn], dim=1).transpose(1, 2).contiguous()
+        v4 = torch.cat([cv, vn], dim=1).transpose(1, 2).contiguous()
+        q4 = q.transpose(1, 2).contiguous()
+        j = torch.arange(L + 1, device="cuda")
+        mask = ((j[None, :] < pos[:, None]) | (j[None, :] == L))[:, None,
+                                                                 None, :]
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True), 20)
+        seen = da.seen_rows(pos.cpu(), B, L)
+        ops, nbytes = da.work(B, H, KV, hd, seen, q.element_size())
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = ops / FP32_FLOPS * 1e3
+        row = {"case": label, "kernel": "decode_attention", "dtype": dtype,
+               "positions": list(DECODE_ATTN_POS[:B]),
+               "rel_l2": err, "max_abs_err": max_abs,
+               "batch_invariant": batch_ok,
+               "head_invariant": {str(k): v for k, v in heads_ok.items()},
+               "pieces_rel_l2": {str(k): v for k, v in pieces.items()},
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "F.scaled_dot_product_attention(enable_gqa=True)",
+               "library_backend": sdpa_backend(torch, q4, k4, v4, mask),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops,
+               "bytes_whole_cache": 2 * ck.numel() * ck.element_size()}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+# -------------------------------------------------------------------------
 # phase 3f: the SSM path
 # -------------------------------------------------------------------------
 def serve_ssm(torch, pm, gpu):
@@ -2660,7 +3054,7 @@ def serve_ssm(torch, pm, gpu):
         raise AssertionError(f"fused launches {launches} != {per_prefill} x "
                              f"{prefills} + {per_decode} x {decodes}")
     for name in ("photonic_mvm", "photonic_mvm_t", "photonic_mvm_resident",
-                 "blend_shuffle", "flash_attention"):
+                 "blend_shuffle", "flash_attention", "decode_attention"):
         if launches[name] != 0:
             raise AssertionError(f"{name} ran on the SSM path: {launches}")
     emit({"phase": "serve_ssm", "gpu": gpu, "arch": cfg.name,
@@ -2873,7 +3267,7 @@ def serve_mla(torch, gpu):
         raise AssertionError(f"flash launches {launches} != {cfg.num_layers}"
                              f" x {flash_passes}, all tensor-core")
     for name in ("photonic_mvm", "photonic_mvm_t", "photonic_mvm_resident",
-                 "blend_shuffle", "ssd_chunk"):
+                 "blend_shuffle", "ssd_chunk", "decode_attention"):
         if launches[name] != 0:
             raise AssertionError(f"{name} ran on the MLA path: {launches}")
     logits, _ = prog.prefill({"tokens": prompts[:1]}, 608)
@@ -3084,6 +3478,7 @@ def serve_memory(torch, gpu, name, per_pass, seed):
         if launches[kernel] != 0:
             raise AssertionError(f"{kernel} ran on the {name} path: "
                                  f"{launches}")
+    check_decode_attention_launches(cfg, launches, decodes)
     one = {k: v[:1] for k, v in extras.items()}
     logits, _ = prog.prefill(dict(tokens=prompts[:1], **one), 616)
     if not (logits.shape[-1] == cfg.padded_vocab
@@ -3861,6 +4256,8 @@ def dryrun_phase(gpu, measured, train):
                                      ssm["fused_per_prefill"]),
         "mamba2_fused_per_decode": (ssm_dec["photonic_mvm_fused"],
                                     ssm["fused_per_decode"]),
+        "minitron_decode_attention_per_decode": (
+            mini_dec["decode_attention"], fused["decode"]["decode_attention"]),
     }
     calls_s = time.perf_counter() - t0
 
@@ -4126,6 +4523,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import photonic
     from repro_torch.kernels import blend
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import photonic_mvm as pm
@@ -4166,6 +4564,8 @@ def main() -> int:
     resident_rows = timed("check_resident", check_resident, torch, timer, pm,
                           photonic)
     ssd_rows = timed("check_ssd", check_ssd, torch, timer, ssd)
+    da_rows = timed("check_decode_attention", check_decode_attention, torch,
+                    timer, da)
     del timer
     # each path's launches are counted in its own window
     fused_path, fused_measured = timed("serve", serve, torch, smi)
@@ -4225,7 +4625,12 @@ def main() -> int:
         summary("ssd_chunk", ssd_rows, ssm_path["ssd_chunk"],
                 "b=1 nc=8 L=256 H=48 P=64 N=128 stride-0 B/C",
                 "src/repro_torch/csrc/ssd_chunk.cu",
-                "src/repro/kernels/ssd.py:51")]})
+                "src/repro/kernels/ssd.py:51"),
+        summary("decode_attention", da_rows, fused_path["decode_attention"],
+                decode_attention_cases()[0][0],
+                "src/repro_torch/csrc/decode_attention.cu",
+                "src/repro/models/attention.py:202 (the einsum "
+                "_attend_decode; no Pallas kernel)")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -44,8 +44,12 @@ xla) and lets them go when it returns.  ``loss`` runs each data rank's rows
 (the train cell's ``_mesh_act_pspec``), sums CE's numerator and denominator
 over the data axes and returns the unsharded CE and aux on every rank.
 Decode steps run eagerly (``graphs.MESH_RULE``).  A 1x1 mesh is the
-unsharded path.  Not ported: sequence- or hidden-sharded residuals (a rank
-holds whole rows), KV heads over "model".
+unsharded path.  A rank's caches are its piece of the whole caches under
+``partition.cache_pspecs`` (made at that shape, ``tfm.init_caches(...,
+mesh=)``): KV heads over "model" where they divide, else the positions;
+each serving step carries that layout (``Backend.kv``), so attention runs
+on the rank's own heads or positions (``models/attention.py``).  Not
+ported: sequence- or hidden-sharded residuals (a rank holds whole rows).
 
 The Program keeps the reference's ledger on the default metrics registry:
 ``program.builds``, a ``program.bank.<k>`` gauge per ``bank_stats()`` key
@@ -191,22 +195,73 @@ def _serve_act_pspec(backend, B: int):
     return partition.act_pspec(mesh, "replicated")
 
 
+def _cache_leaves(tree, name=None):
+    """(leaf name, tensor) of every leaf of a cache tree, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _cache_leaves(v, k)
+    elif tree is not None:
+        yield name, tree
+
+
+def _cache_geometry(caches):
+    """(whole batch, whole length) of a rank's placed caches, read from the
+    first self-attention K leaf's record (``partition.piece_of``; the
+    length None where the model has none), or None for caches made
+    whole."""
+    rows = None
+    for name, leaf in _cache_leaves(caches):
+        rec = partition.piece_of(leaf)
+        if rec is None:
+            continue
+        if name == "k":
+            return rec[1][2], rec[1][3]
+        rows = rows if rows is not None else rec[1][2]
+    return None if rows is None else (rows, None)
+
+
+def _with_kv(backend, cfg: ModelConfig, B: int, L):
+    """``backend`` carrying the layout of ``cfg``'s caches for a B-row step
+    over ``L`` positions (``partition.KVLayout``) on an active mesh; else
+    ``backend``."""
+    mesh = _backend_mesh(backend)
+    if mesh is None or L is None:
+        return backend
+    return dataclasses.replace(backend,
+                               kv=partition.kv_layout(cfg, mesh, B, L))
+
+
+def _kv_of(backend, cfg: ModelConfig, caches):
+    """:func:`_with_kv` for the layout recorded on a rank's caches."""
+    geo = _cache_geometry(caches)
+    return backend if geo is None else _with_kv(backend, cfg, *geo)
+
+
 def _constrain_caches(caches, cfg: ModelConfig, backend, B: int, L):
-    """The cache placement of a B-row step: ``partition.cache_pspecs``'s
-    batch over the data axes, replicated over "model" (every rank keeps
-    whole KV heads).  A rank's caches hold its rows; raises when they
-    hold another count (``L``, the cache length, places nothing here: a
-    rank keeps every position).  No-op off-mesh and on a 1x1 mesh."""
-    if _backend_mesh(backend) is None:
+    """The cache placement of a B-row step over ``L`` positions (None: the
+    length recorded on the caches): a rank's caches must be its pieces
+    under ``partition.placed_cache_pspecs`` (``cache_pspecs``: batch over
+    the data axes, KV heads over "model" where they divide, else the
+    positions; MLA latents and SSM states keep only their batch entry).
+    Raises when a leaf holds other rows, heads or positions than its
+    piece.  No-op off-mesh and on a 1x1 mesh."""
+    mesh = _backend_mesh(backend)
+    if mesh is None:
         return caches
-    sl = _row_split(backend, B)
-    rows = B if sl is None else sl.stop - sl.start
-    leaf = caches
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    if leaf is not None and leaf.shape[2] != rows:
-        raise ValueError(f"caches of {leaf.shape[2]} rows on a rank whose "
-                         f"share of a {B}-row step is {rows} rows")
+    if L is None:
+        geo = _cache_geometry(caches)
+        L = geo[1] if geo is not None and geo[1] is not None else 1
+    want = tfm.init_caches(cfg, B, L, device="meta", mesh=mesh)
+    for (name, got), (_, ref) in zip(_cache_leaves(caches),
+                                     _cache_leaves(want)):
+        whole = name in ("k", "v", "ck", "cv")
+        if got.shape[2] != ref.shape[2] or (
+                whole and tuple(got.shape) != tuple(ref.shape)):
+            raise ValueError(
+                f"cache leaf {name!r} {tuple(got.shape)} on a rank whose "
+                f"piece of a {B}-row step over {L} positions is "
+                f"{tuple(ref.shape)} (rows, heads, positions: "
+                f"partition.cache_pspecs)")
     return caches
 
 
@@ -257,16 +312,22 @@ def _gather_rows(t, backend, sl):
 # =========================================================================
 # functional steps over raw params (what the engine shims call)
 # =========================================================================
-def _prefill(cfg: ModelConfig, params, batch, cache_len: int, execution):
-    """The prefill forward of ``batch`` (tokens plus any modality extras)
-    into fresh caches on the params' device: (logits (B, S, V), caches)."""
+def _prefill(cfg: ModelConfig, params, batch, cache_len: int, execution,
+             whole_batch: int):
+    """The prefill forward of ``batch`` (tokens plus any modality extras:
+    this rank's rows of a ``whole_batch``-row step) into fresh caches on
+    the params' device, on an active mesh the rank's pieces:
+    (logits (B, S, V), caches)."""
     batch = _as_batch(batch, _device_of(params))
     B, S = batch["tokens"].shape
-    caches = tfm.init_caches(cfg, B, cache_len,
-                             dtype=torch_dtype(cfg.compute_dtype),
-                             device=batch["tokens"].device)
-    logits, caches, _ = tfm.forward(params, cfg, batch, mode="prefill",
-                                    caches=caches, execution=execution)
+    bk = backend_lib.resolve(execution)
+    mesh = _backend_mesh(bk)
+    caches = tfm.init_caches(cfg, B if mesh is None else whole_batch,
+                             cache_len, dtype=torch_dtype(cfg.compute_dtype),
+                             device=batch["tokens"].device, mesh=mesh)
+    logits, caches, _ = tfm.forward(
+        params, cfg, batch, mode="prefill", caches=caches,
+        execution=_with_kv(bk, cfg, whole_batch, cache_len))
     if cfg.ssm is not None and S < cfg.ssm.conv_width - 1:
         caches = _short_conv(caches, S)
     return logits, caches
@@ -288,7 +349,7 @@ def prefill_step_fn(cfg: ModelConfig, cache_len: int, *, act_pspec=None,
         sl, bk = _step_rows(execution if execution is not None else cfg,
                             B, act_pspec)
         logits, caches = _prefill(cfg, params, _rows_of(batch, sl, B),
-                                  cache_len, bk)
+                                  cache_len, bk, B)
         return logits[:, -1, :], caches
     return fn
 
@@ -321,7 +382,7 @@ def decode_step_fn(cfg: ModelConfig, *, act_pspec=None, legacy_decode=False,
         logits, caches, _ = tfm.forward(params, cfg, {"tokens": tokens},
                                         mode="decode", caches=caches,
                                         pos=pos, legacy_decode=legacy_decode,
-                                        execution=bk)
+                                        execution=_kv_of(bk, cfg, caches))
         return logits[:, 0, :], caches
     return fn
 
@@ -499,7 +560,7 @@ class Program:
         B, S = batch["tokens"].shape
         sl, bk = self._rows(B)
         logits, caches = _prefill(self.cfg, self._step_bank(),
-                                  _rows_of(batch, sl, B), cache_len, bk)
+                                  _rows_of(batch, sl, B), cache_len, bk, B)
         if last is None:
             last = torch.full((B,), S - 1, dtype=torch.long)
         last = torch.as_tensor(last).to(self.device, torch.long)
@@ -540,11 +601,9 @@ class Program:
 
     def empty_caches(self, B: int, cache_len: int):
         """Zero capacity caches for the chunked-prefill entry points (on a
-        mesh rank, for its rows of a B-row step)."""
-        sl = _row_split(self.backend, B)
-        rows = B if sl is None else sl.stop - sl.start
-        return tfm.init_caches(self.cfg, rows, cache_len, dtype=self._dtype(),
-                               device=self.device)
+        mesh rank, its pieces of a B-row step's)."""
+        return tfm.init_caches(self.cfg, B, cache_len, dtype=self._dtype(),
+                               device=self.device, mesh=self.mesh)
 
     @torch.no_grad()
     def prefill_chunk(self, tokens, caches, q_offset: int, last=None):
@@ -565,7 +624,7 @@ class Program:
         logits, caches, _ = tfm.forward(
             self._step_bank(), self.cfg, {"tokens": tokens},
             mode="prefill_chunk", caches=caches, pos=int(q_offset),
-            execution=bk)
+            execution=_kv_of(bk, self.cfg, caches))
         rows = torch.arange(tokens.shape[0], device=self.device)
         return _gather_rows(logits[rows, last], bk, sl), caches
 

@@ -36,13 +36,28 @@ over "model".  Inside, each photonic dot takes the reference's rule from
 :func:`partition_rule` (the rules decide the float summation order):
 
   * ``column``: the rank's N/tp columns of the bank, the kernel's fused
-    epilogue, then an all-gather over "model";
+    epilogue, then an all-gather over "model" (none for a pair-first dot
+    asked for its ``local_out``: the Megatron pairing below);
   * ``scatter``: the rank's K/tp slice of x and of the bank, the kernel
     without epilogue, a reduce-scatter, ``_epilogue_unfused`` on the
     rank's slice, then an all-gather;
   * ``ring``: tp chunk kernels with ring hops, in the reference's order;
   * ``psum``: an all-reduce, then the whole epilogue;
   * ``replicated``: the whole weight.
+
+**The Megatron pairing** (the reference's lazy re-join of a column dot's
+output, consumed sharded by the pair-second dot): a pair-first dot called
+with ``local_out=True`` (``wq``/``wk``/``wv`` of a rank attending with its
+own heads; ``w_gate``/``w_up``, or the transposed reuse's swapped pair, and
+gelu's ``w_up`` when ``pairs`` holds) returns the rank's N/tp block of its
+output columns: under ``column`` the kernel's output as it is, under any
+other rule the whole output cut to the block.  The pair-second dot, called
+with ``local_in=True`` (``tp_hint="row"``), takes that block as its K/tp
+input without cutting x again, and all-reduces the block's abs-max over
+"model" for the A8 scale (max is exact).  Each dot's arithmetic is the
+unpaired one: a column block and ``g * u`` on blocks are bit-equal to
+the blocks of the gathered tensors.  The xla backend, whose dots run
+whole, cuts a ``local_out`` result and all-gathers a ``local_in`` input.
 
 The A8 scale is the unsharded one: the abs-max is all-reduced (MAX) over
 the data axes when rows are split, so the A8 grid is bitwise the single
@@ -208,6 +223,11 @@ class Backend:
                                       # row-parallel rejoin (TP_COLLECTIVES)
     rows_sharded: bool = False        # the step's rows are this rank's data
                                       # shard (set per step by the Program)
+    kv: Any = None                    # partition.KVLayout of a serving
+                                      # step's caches on an active mesh (set
+                                      # per step by the Program): where a
+                                      # rank's attention heads or positions
+                                      # lie
 
     def __post_init__(self):
         if self.execution not in EXECUTIONS:
@@ -242,6 +262,30 @@ class Backend:
         A 1x1 mesh takes the exact unsharded path."""
         return self.mesh is not None and self.mesh.size > 1
 
+    @property
+    def tp(self) -> int:
+        """"model" ranks of an active mesh (1 off-mesh)."""
+        return self.mesh.axis_size("model") if self.mesh_active else 1
+
+    def pairs(self, n: int) -> bool:
+        """Whether a pair-first photonic dot of ``n`` output channels keeps
+        its output local (the Megatron pairing): an active mesh whose
+        "model" axis divides ``n``."""
+        return self.is_photonic and self.tp > 1 and n % self.tp == 0
+
+    def _local_in(self, x, local_in: bool):
+        """``x`` whole: a ``local_in`` block all-gathered over "model"."""
+        if local_in and self.tp > 1:
+            return coll.all_gather(x, self.mesh, "model", dim=-1)
+        return x
+
+    def _local_out(self, y, local_out: bool):
+        """``y`` as the caller asked for it: the rank's block of its last
+        dim when ``local_out``."""
+        if local_out and self.tp > 1:
+            return _piece(y, -1, self.mesh).contiguous()
+        return y
+
     def whole_rows(self) -> "Backend":
         """This backend for rows gathered whole over the data axes."""
         if not self.rows_sharded:
@@ -272,20 +316,28 @@ class Backend:
 
     # ------------------------------------------------------------- matmuls
     def dot(self, x, w, *, transpose: bool = False, bias=None,
-            block_perm=None, block: int = 0, activation=None, tp_hint=None):
+            block_perm=None, block: int = 0, activation=None, tp_hint=None,
+            local_in: bool = False, local_out: bool = False):
         """``x @ w`` (w: (k, n)) or ``x @ w.T`` (w: (n, k)) plus an optional
         blend epilogue.  ``w`` may be a fp tensor or a PreparedTensor bank.
         ``tp_hint="row"`` marks a pair-second matmul for the sharded
-        dispatch (:func:`partition_rule`); it has no effect off-mesh."""
+        dispatch (:func:`partition_rule`); it has no effect off-mesh.
+        ``local_in`` / ``local_out``: x is, and the result should be, this
+        rank's block of the channels over "model" (the Megatron pairing,
+        module docstring); no effect unless "model" has several ranks."""
         if isinstance(w, PreparedTensor):
             return self.dot_prepared(x, w, transpose=transpose, bias=bias,
                                      block_perm=block_perm, block=block,
-                                     activation=activation, tp_hint=tp_hint)
+                                     activation=activation, tp_hint=tp_hint,
+                                     local_in=local_in, local_out=local_out)
         if not self.is_photonic:
-            y = obu.blend_dot(x, w, transpose=transpose)
-            return _epilogue_xla(y, bias, block_perm, block, activation)
+            y = obu.blend_dot(self._local_in(x, local_in), w,
+                              transpose=transpose)
+            return self._local_out(
+                _epilogue_xla(y, bias, block_perm, block, activation),
+                local_out)
         if transpose:
-            if w.shape[-1] != x.shape[-1]:
+            if w.shape[-1] != x.shape[-1] * (self.tp if local_in else 1):
                 raise ValueError(f"transpose blend needs square-compatible "
                                  f"dims, got x{tuple(x.shape)} "
                                  f"w{tuple(w.shape)}")
@@ -296,7 +348,7 @@ class Backend:
             return self._photonic_matmul_sharded(
                 x, None, (wq, wscale), transpose=transpose, bias=bias,
                 block_perm=block_perm, block=block, activation=activation,
-                tp_hint=tp_hint)
+                tp_hint=tp_hint, local_in=local_in, local_out=local_out)
         return self._photonic_matmul(x, wq, wscale, transpose=transpose,
                                      bias=bias, block_perm=block_perm,
                                      block=block, activation=activation,
@@ -304,11 +356,13 @@ class Backend:
 
     def dot_prepared(self, x, prep: PreparedTensor, *,
                      transpose: bool = False, bias=None, block_perm=None,
-                     block: int = 0, activation=None, tp_hint=None):
+                     block: int = 0, activation=None, tp_hint=None,
+                     local_in: bool = False, local_out: bool = False):
         """``dot`` against a programmed bank: the transposed orientation
         uses the per-row image (``wq_t``/``scale_t``)."""
         wname, sname = ("wq_t", "scale_t") if transpose else ("wq", "scale")
         if not self.is_photonic:
+            x = self._local_in(x, local_in)
             # xla pointed at a photonic bank: dequantize the W8 image
             wq, sc = self._whole(prep, wname), self._whole(prep, sname)
             if transpose:
@@ -318,15 +372,18 @@ class Backend:
                 w = (wq.to(torch.float32)
                      * (sc / 127.0)[..., None, :]).to(x.dtype)
             y = obu.blend_dot(x, w, transpose=transpose)
-            return _epilogue_xla(y, bias, block_perm, block, activation)
-        if transpose and prep.shape[-1] != x.shape[-1]:
+            return self._local_out(
+                _epilogue_xla(y, bias, block_perm, block, activation),
+                local_out)
+        K = x.shape[-1] * (self.tp if local_in else 1)
+        if transpose and prep.shape[-1] != K:
             raise ValueError(f"transpose blend needs square-compatible "
                              f"dims, got x{tuple(x.shape)} w{prep.shape}")
         if self.mesh_active:
             return self._photonic_matmul_sharded(
                 x, prep, None, transpose=transpose, bias=bias,
                 block_perm=block_perm, block=block, activation=activation,
-                tp_hint=tp_hint)
+                tp_hint=tp_hint, local_in=local_in, local_out=local_out)
         return self._photonic_matmul(x, getattr(prep, wname),
                                      getattr(prep, sname),
                                      transpose=transpose, bias=bias,
@@ -363,25 +420,30 @@ class Backend:
         return _epilogue_unfused(mm(x, wq, wscale), bias, block_perm, block,
                                  activation)
 
-    def _rows_amax(self, x):
+    def _rows_amax(self, x, local_in: bool = False):
         """|x|'s max over the step's rows: this rank's, all-reduced (MAX)
-        over the data axes when the rows are split.  Max is exact, so the
-        A8 grid is bitwise the single device's."""
+        over the data axes when the rows are split, and over "model" when
+        ``x`` is the rank's block of the channels (``local_in``).  Max is
+        exact, so the A8 grid is bitwise the single device's."""
         amax = x.abs().amax()
-        if self.rows_sharded:
-            amax = coll.pmax(amax, self.mesh,
-                             _partition.data_axes(self.mesh))
+        axes = _partition.data_axes(self.mesh) if self.rows_sharded else ()
+        if local_in:
+            axes = axes + ("model",)
+        if axes:
+            amax = coll.pmax(amax, self.mesh, axes)
         return amax
 
     def _photonic_matmul_sharded(self, x, prep, whole, *, transpose, bias,
-                                 block_perm, block, activation, tp_hint):
+                                 block_perm, block, activation, tp_hint,
+                                 local_in=False, local_out=False):
         """One photonic dot on this rank under :func:`partition_rule`
         (see the module docstring).  ``prep`` is a bank (possibly placed in
         pieces), or ``whole`` the (wq, wscale) of an in-step quantized
-        weight, whole on every rank."""
+        weight, whole on every rank.  ``local_in`` / ``local_out``: the
+        Megatron pairing (module docstring)."""
         mesh = self.mesh
         tp = mesh.axis_size("model")
-        K = x.shape[-1]
+        K = x.shape[-1] * (tp if local_in else 1)
         wname, sname = ("wq_t", "scale_t") if transpose else ("wq", "scale")
         if prep is not None:
             N = prep.shape[-2] if transpose else prep.shape[-1]
@@ -392,6 +454,10 @@ class Backend:
                               collective=self.tp_collective)
         col_dim = -2 if transpose else -1     # the weight's output dim
         red_dim = -1 if transpose else -2     # and its reduction dim
+        red = rule in ("scatter", "ring", "psum")
+        if local_in and not red:
+            # a rule that reads whole rows: the block joins first
+            x, local_in = coll.all_gather(x, mesh, "model", dim=-1), False
 
         def fetch(which, dim):
             if prep is not None:
@@ -400,9 +466,9 @@ class Backend:
             t = whole[0] if which == "w" else whole[1]
             return t if dim is None else _piece(t, dim, mesh).contiguous()
 
-        xs = a8_scale_from_amax(self._rows_amax(x))
-        red = rule in ("scatter", "ring", "psum")
-        xl = _piece(x, -1, mesh).contiguous() if red else x
+        xs = a8_scale_from_amax(self._rows_amax(x, local_in))
+        xl = _piece(x, -1, mesh).contiguous() if red and not local_in \
+            else x
         fused = self.fused
 
         def kernel(wl, sl, epilogue, bl=None):
@@ -429,13 +495,14 @@ class Backend:
 
         if rule == "column":
             y = kernel(fetch("w", col_dim), fetch("s", -1), True, my_bias())
-            return coll.all_gather(y, mesh, "model", dim=-1)
+            return y if local_out else coll.all_gather(y, mesh, "model",
+                                                       dim=-1)
         if rule == "scatter":
             y = kernel(fetch("w", red_dim), fetch("s", None), False)
             y = coll.psum_scatter(y, mesh, "model")
             y = _epilogue_unfused(y, my_bias(), None, 0, activation)
-            return coll.all_gather(y, mesh, "model", dim=-1)
-        if rule == "ring":
+            y = coll.all_gather(y, mesh, "model", dim=-1)
+        elif rule == "ring":
             wl, sl = fetch("w", red_dim), fetch("s", None)
             chunk = N // tp
             me = mesh.index("model")
@@ -454,13 +521,15 @@ class Backend:
                 acc = coll.ppermute_ring(acc, mesh, "model")
                 acc = acc + part((me + tp - 1 - s) % tp)
             y = _epilogue_unfused(acc, my_bias(), None, 0, activation)
-            return coll.all_gather(y, mesh, "model", dim=-1)
-        if rule == "psum":
+            y = coll.all_gather(y, mesh, "model", dim=-1)
+        elif rule == "psum":
             y = kernel(fetch("w", red_dim), fetch("s", None), False)
             y = coll.psum(y, mesh, "model")
-            return _epilogue_unfused(y, bias, block_perm, block, activation)
-        # replicated: the whole weight, the kernel's own epilogue
-        return kernel(fetch("w", None), fetch("s", None), True, bias)
+            y = _epilogue_unfused(y, bias, block_perm, block, activation)
+        else:
+            # replicated: the whole weight, the kernel's own epilogue
+            y = kernel(fetch("w", None), fetch("s", None), True, bias)
+        return self._local_out(y, local_out)
 
     def reuse_dot(self, x_stack, w):
         """T independent activation streams through ONE weight: x_stack

@@ -27,6 +27,7 @@ SOURCES = {
     "blend_shuffle": "blend_shuffle.cu",
     "flash_attention": "flash_attention.cu",
     "ssd_chunk": "ssd_chunk.cu",
+    "decode_attention": "decode_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

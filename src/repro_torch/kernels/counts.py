@@ -13,6 +13,7 @@ eagerly.
 from __future__ import annotations
 
 from repro_torch.kernels import blend as _blend
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import photonic_mvm as _pm
 from repro_torch.kernels import ssd as _ssd
@@ -29,6 +30,7 @@ COUNTERS = {
     "flash_attention_mma": (_fa, "launches_mma"),
     "flash_attention_causal": (_fa, "launches_causal"),
     "ssd_chunk": (_ssd, "launches"),
+    "decode_attention": (_da, "launches"),
 }
 
 

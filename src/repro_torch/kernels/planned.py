@@ -19,7 +19,7 @@ import torch
 NAMES = ("photonic_mvm_fused", "photonic_mvm_fused_gemv", "photonic_mvm",
          "photonic_mvm_t", "photonic_mvm_resident", "blend_shuffle",
          "flash_attention", "flash_attention_mma", "flash_attention_causal",
-         "ssd_chunk")
+         "ssd_chunk", "decode_attention")
 
 calls = dict.fromkeys(NAMES, 0)
 ops = dict.fromkeys(NAMES, 0.0)       # operations (multiply-add = 2)

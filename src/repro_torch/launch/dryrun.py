@@ -14,8 +14,10 @@ on a 512-rank mesh walks on a laptop's CPU.
   * "lowering" builds the rank's inputs: its parameters (``trainer.
     param_specs``: the data-axes pieces of ``partition.tree_pspecs`` under
     ``cfg.fsdp``, whole otherwise), Adam state, the global batch (every
-    rank passes it, as the Program's methods take it) and, for decode, the
-    caches of its rows.  ``--no-compile`` stops here (``"lowered"``);
+    rank passes it, as the Program's methods take it) and, for decode, its
+    pieces of the caches under ``partition.cache_pspecs`` (its rows, and
+    its KV heads or its block of the positions), as a prefill makes them
+    too.  ``--no-compile`` stops here (``"lowered"``);
   * "compiling" is the walk: aten ops, FLOPs, modelled HBM traffic, the
     peak of live bytes, every collective with its bytes, and each kernel's
     planned calls (``kernels/planned.py``; no launch counter moves).
@@ -202,11 +204,9 @@ def rank_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, params=None,
     if shape.kind == "prefill":
         fn = api.prefill_step_fn(cfg, S, act_pspec=apspec, execution=bk)
         return (lambda: fn(whole(), batch)), (params, batch)
-    sl = api._row_split(bk, B) if active else None
-    rows = B if sl is None else sl.stop - sl.start
-    caches = tfm.init_caches(cfg, rows, S,
+    caches = tfm.init_caches(cfg, B, S,
                              dtype=torch_dtype(cfg.compute_dtype),
-                             device=device)
+                             device=device, mesh=mesh if active else None)
     fn = api.decode_step_fn(cfg, act_pspec=apspec,
                             legacy_decode=legacy_decode, execution=bk)
     return (lambda: fn(whole(), batch, caches, S - 1)), (params, batch,

@@ -25,14 +25,25 @@ Program on the same weights, run in this process:
     BIT-identical to ``psum`` per dot and in whole-model prefill logits,
     ``ring`` within 1e-5 per dot and the W8A8 bound over the model, the
     post-scatter epilogue (bias, fused activation, blocked shuffle) within
-    1e-5 of the unsharded backend.
+    1e-5 of the unsharded backend;
+  * ``--seq`` — the sequence-split caches: :func:`seq_cfg` (3 KV heads,
+    which no "model" axis of 2 or 4 divides) prefills, decodes across the
+    ranks' blocks of positions and at per-row positions (``SEQ_CASES``);
+    its logits within 1e-5 of the unsharded program on xla (float32, the
+    kernel's partial form joined over the ranks) and within ``--tol`` on
+    photonic, each rank's caches holding its block of the positions
+    (``partition.cache_pspecs``).
+
+On every mesh the caches and attention follow ``cache_pspecs``: the small
+model's 2 KV heads go over "model" (a rank projects and attends with its
+own heads), the misdivided one's positions.
 
 The reference's zero-retrace gates have no counterpart (the port compiles
 no cells; its sharded decode steps run eagerly, ``graphs.MESH_RULE``).
 
 Usage (``--device cpu`` runs the plain kernel versions on gloo ranks):
   python -m repro_torch.launch.shardcheck --mesh 2x2 --execution photonic \\
-      --serve --collectives --device cpu
+      --serve --collectives --seq --device cpu
 """
 import argparse
 import dataclasses
@@ -51,6 +62,13 @@ from repro_torch.sharding import partition
 
 DOC = __doc__
 SEQ = (4, 8, 14)          # B, S, cache length of the parity gates
+# the sequence-split gate's (rows, cache length): 14 positions split over
+# "model"; one row leaves the data axes to the positions as well where 16
+# divides them all
+SEQ_CASES = ((4, 14), (1, 16))
+SEQ_PROMPT = 5            # then decode steps at positions 5, 6, 7 and one
+                          # at per-row positions 8, 7, 6, 5
+SEQ_TOL = 1e-5            # xla, float32
 
 
 def _rel_l2(a, b):
@@ -73,6 +91,14 @@ def drop_cfg():
                        d_ff=45, vocab_size=128, compute_dtype="float32")
 
 
+def seq_cfg():
+    """:func:`drop_cfg` at an even head dim (RoPE rotates pairs; drop_cfg's
+    5 only builds): its 3 KV heads divide no "model" axis of 2 or 4, so its
+    caches split over the positions (``partition.cache_pspecs``), and its
+    query channels (3 x 6) split mid-head."""
+    return dataclasses.replace(drop_cfg(), name="shard-seq", head_dim=6)
+
+
 def variant_cfgs() -> dict:
     """Models beside ``small_cfg`` whose sharded logits the gates hold to
     their unsharded ones: an R&B stack (2 basic groups x 4 reuses with
@@ -92,6 +118,26 @@ def variant_cfgs() -> dict:
         moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=32,
                       num_basic_experts=2, group_tokens=8))
     return {"rb": rb, "moe": moe}
+
+
+def seq_steps(prog, cfg, B: int, L: int) -> dict:
+    """The sequence-split gate's steps on ``prog`` (module docstring): a
+    prefill of ``SEQ_PROMPT`` tokens into an ``L``-position cache, decode
+    steps at positions ``SEQ_PROMPT``.. on the inputs' next tokens, then
+    one at per-row positions.  Returns the logits of every step and the
+    shape of the first layer's K cache."""
+    toks = small_inputs(cfg)[:B].to(prog.device)
+    S = toks.shape[1]
+    logits, caches = prog.prefill({"tokens": toks[:, :SEQ_PROMPT]}, L)
+    out = [logits]
+    for pos in range(SEQ_PROMPT, S):
+        lg, caches = prog.decode(toks[:, pos:pos + 1], caches, pos)
+        out.append(lg)
+    per_row = S - torch.arange(B, device=prog.device)
+    lg, caches = prog.decode(toks[:, -1:], caches, per_row)
+    out.append(lg)
+    k = next(iter(caches.values()))["l0"]["k"]
+    return {"logits": [_cpu(t) for t in out], "k_shape": tuple(k.shape)}
 
 
 def small_inputs(cfg, seed: int = 1):
@@ -181,6 +227,12 @@ def rank_checks(mesh, job: dict) -> dict:
                                           job["dot"])
     if job.get("dropped"):
         out["dropped"] = _dropped(mesh)
+    if job.get("seq"):
+        scfg, sparams = job["seq"]
+        sprog = Program.build(scfg, _params_on(sparams, dev),
+                              execution=execution, mesh=mesh)
+        out["seq"] = {case: seq_steps(sprog, scfg, *case)
+                      for case in SEQ_CASES}
     if job.get("refusals"):
         out["refusals"] = _refusals(mesh, cfg, params, execution)
     return out
@@ -273,7 +325,8 @@ def _refusals(mesh, cfg, params, execution) -> dict:
 def run(mesh_spec, execution: str = "photonic", tol: float = 0.055, *,
         serve: bool = False, collectives: bool = False,
         dropped: bool = False, refusals: bool = False, variants=False,
-        device=None, params=None, solo_gate: bool = False, threads=None):
+        seq: bool = False, device=None, params=None,
+        solo_gate: bool = False, threads=None):
     """Run the gates on one spawn of ``mesh_spec``'s ranks.  Returns (fails,
     report): the failed gates' messages and the per-rank outputs, with the
     unsharded references under ``"unsharded"``.  ``params`` default to
@@ -281,7 +334,8 @@ def run(mesh_spec, execution: str = "photonic", tol: float = 0.055, *,
     solo generate (for weights on which the unsharded scheduler meets it,
     as the reference's own do); ``variants`` also holds the
     :func:`variant_cfgs` models (seed-0 weights) to their unsharded
-    logits."""
+    logits; ``seq`` runs the sequence-split gate (:func:`seq_cfg`, seed-0
+    weights)."""
     dev = torch.device("cuda" if device is None else device)
     cfg = small_cfg()
     if params is None:
@@ -306,6 +360,9 @@ def run(mesh_spec, execution: str = "photonic", tol: float = 0.055, *,
         job["variants"] = {
             name: (vcfg, tfm.init_model(vcfg, seed=0, device="cpu"))
             for name, vcfg in variant_cfgs().items()}
+    if seq:
+        job["seq"] = (seq_cfg(), tfm.init_model(seq_cfg(), seed=0,
+                                                device="cpu"))
     if mesh.size == 1:
         ranks = [rank_checks(mesh_lib.Mesh(mesh.axis_names, mesh.sizes,
                                            coords=mesh.coords, device=dev),
@@ -363,6 +420,11 @@ def run(mesh_spec, execution: str = "photonic", tol: float = 0.055, *,
             print(f"[shardcheck] dropped-rule warning surfaced: {msgs[0]}")
     if collectives:
         fails += _gate_collectives(ranks, mesh, execution, tol, dev)
+    unsharded_seq = {}
+    if seq:
+        unsharded_seq, f = _gate_seq(job["seq"], ranks, mesh, execution,
+                                     tol, dev)
+        fails += f
     if refusals:
         bad = {k: v for r in ranks for k, v in r["refusals"].items()
                if v is None}
@@ -370,7 +432,38 @@ def run(mesh_spec, execution: str = "photonic", tol: float = 0.055, *,
             fails.append(f"mesh plumbing accepted what it must refuse: "
                          f"{sorted(bad)}")
     return fails, {"unsharded": (lr, dr), "ranks": ranks,
-                   "unsharded_variants": unsharded_variants}
+                   "unsharded_variants": unsharded_variants,
+                   "unsharded_seq": unsharded_seq}
+
+
+def _gate_seq(seq, ranks, mesh, execution, tol, dev):
+    """The sequence-split gate (module docstring): every rank's logits
+    against the unsharded program's on the same steps, and each rank's K
+    cache holding its block of the positions."""
+    scfg, sparams = seq
+    ref = Program.build(scfg, sparams, execution=execution, device=dev)
+    gate = SEQ_TOL if execution == "xla" else tol
+    fails, want = [], {}
+    for B, L in SEQ_CASES:
+        want[(B, L)] = seq_steps(ref, scfg, B, L)["logits"]
+        spec = partition.cache_pspecs(scfg, mesh, B, L)["main"]["l0"]["k"]
+        parts = mesh.axis_size(tuple(a for a in mesh.axis_names
+                                     if a in (spec[3] or ())))
+        worst = 0.0
+        for r in ranks:
+            got = r["seq"][(B, L)]
+            worst = max([worst] + [_rel_l2(a, b) for a, b in
+                                   zip(got["logits"], want[(B, L)])])
+            if got["k_shape"][3] * parts != L or parts < 2:
+                fails.append(f"seq B={B} L={L}: a rank's K cache "
+                             f"{got['k_shape']} for {parts} blocks of the "
+                             f"positions")
+        print(f"[shardcheck] {scfg.name} B={B} L={L} on {mesh.shape}: "
+              f"positions over {spec[3]}, worst rel-L2 {worst:.2e} "
+              f"(tol {gate})")
+        if worst > gate:
+            fails.append(f"seq B={B} L={L}: rel-L2 {worst:.2e} > {gate}")
+    return want, fails
 
 
 def _gate_serve(ref, requests, ranks, mesh, solo: bool) -> list:
@@ -480,12 +573,15 @@ def main(argv=None) -> int:
                     help="also gate the partition-report warning (1x4)")
     ap.add_argument("--collectives", action="store_true",
                     help="also gate reduce-scatter/ring vs psum")
+    ap.add_argument("--seq", action="store_true",
+                    help="also gate the sequence-split caches")
     ap.add_argument("--device", default=None,
                     help="cuda (default; ranks share the card when there "
                          "are more ranks than cards) or cpu")
     args = ap.parse_args(argv)
     fails, _ = run(args.mesh, args.execution, args.tol, serve=args.serve,
-                   collectives=args.collectives, device=args.device)
+                   collectives=args.collectives, seq=args.seq,
+                   device=args.device)
     if args.check_dropped:
         f2, _ = run("1x4", args.execution, args.tol, dropped=True,
                     device=args.device)

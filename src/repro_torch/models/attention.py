@@ -13,11 +13,31 @@ Decode takes ``pos`` as a scalar (aligned batch) or a (B,) tensor
 Prefill and chunked prefill write the new K/V (or latents) into the cache
 view they are given IN PLACE (the reference returns an updated copy);
 decode reads the cache and returns the one-token delta for the stack
-runner to write.  Decode attention is a masked einsum, as in the reference
-(no kernel); MLA decodes in the absorbed form, attending in the latent
-space.  Cross-attention has no RoPE and no mask: a prefill of 512 rows or
-more runs flash with ``causal=False`` over the M memory rows, a decode
-row the einsum.
+runner to write.  GQA decode attention runs the decode-attention kernel
+(``kernels/decode_attention.py``: the reference's masked einsum, with a
+reduction order fixed per row and head on the card); MLA decodes in the
+absorbed form, attending in the latent space.  Cross-attention has no
+RoPE and no mask: a prefill of 512 rows or more runs flash with
+``causal=False`` over the M memory rows, a decode row the einsum.
+
+**On a mesh** a serving step carries its caches' layout
+(``Backend.kv``, a ``partition.KVLayout`` of ``cache_pspecs``):
+
+  * KV heads over "model" (``heads``): ``wq``/``wk``/``wv`` leave the
+    rank's columns local (the Megatron pairing, ``core/backend.py``), so
+    a rank projects, caches and attends with its own KV heads and their
+    query heads, and ``wo`` takes its block of the attention output as its
+    K/tp input; cross-attention alike;
+  * else positions over ``seq_axes``: a rank holds its block of positions
+    and every head.  Prefill attends whole and writes its own positions; a
+    chunk attends against its cache gathered over those axes; decode runs
+    the kernel's partial form on the rank's positions (the new token
+    counted by the first rank of the axes), joins the pieces with one
+    ``pmax`` and one ``psum`` over exactly those axes, and writes the
+    token's K/V in place on the rank that holds its position.
+
+Training and ``Program.loss`` carry no layout and attend with whole heads.
+MLA and SSM caches keep the batch-over-data placement.
 """
 from __future__ import annotations
 
@@ -27,29 +47,77 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve as resolve_backend
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.models.layers import (apply_rope, cast, dense_init,
                                        rope_angles)
+from repro_torch.sharding import collectives as coll
 
 NEG_INF = -1e30
 
 
-def _maybe_t(x, w, transpose, backend=None, tp_hint=None):
+def _maybe_t(x, w, transpose, backend=None, tp_hint=None, local_in=False,
+             local_out=False):
     """OBU transpose where the matrix is square (wq, wo here); the identity
     path otherwise (wk, wv).  ``tp_hint`` passes through to
     ``Backend.dot``: the output projections mark themselves "row", so a
-    mesh runs them row-parallel (``core.backend.partition_rule``)."""
+    mesh runs them row-parallel (``core.backend.partition_rule``);
+    ``local_in`` / ``local_out`` too (the Megatron pairing)."""
     bk = resolve_backend(backend)
-    if transpose and w.shape[0] == w.shape[1]:
-        return bk.dot(x, w, transpose=True, tp_hint=tp_hint)
-    return bk.dot(x, w, transpose=False, tp_hint=tp_hint)
+    t = bool(transpose and w.shape[0] == w.shape[1])
+    return bk.dot(x, w, transpose=t, tp_hint=tp_hint, local_in=local_in,
+                  local_out=local_out)
 
 
-def _past_valid(pos, L, device):
-    """(B|1, L) bool mask of cache entries strictly before ``pos``."""
-    ar = torch.arange(L, device=device)
+def _heads_local(backend) -> bool:
+    """Whether the step's rank attends with its own KV heads (module
+    docstring)."""
+    kv = resolve_backend(backend).kv
+    return kv is not None and kv.heads
+
+
+def _seq_split(backend):
+    """The step's ``KVLayout`` when its positions split over some axes,
+    else None."""
+    kv = resolve_backend(backend).kv
+    return kv if kv is not None and kv.seq_axes else None
+
+
+def _write_positions(cache, k, v, start: int, backend):
+    """Write the K/V of positions [start, start + C) into the cache view:
+    all of them, or on a sequence-split cache those of this rank's
+    block."""
+    C = k.shape[1]
+    lo, n = 0, cache["k"].shape[1]
+    seq = _seq_split(backend)
+    if seq is not None:
+        lo, n = seq.window(resolve_backend(backend).mesh)
+    a, b = max(start, lo), min(start + C, lo + n)
+    if a < b:
+        cache["k"][:, a - lo:b - lo] = k[:, a - start:b - start].to(
+            cache["k"].dtype)
+        cache["v"][:, a - lo:b - lo] = v[:, a - start:b - start].to(
+            cache["v"].dtype)
+
+
+def _write_token(cache, k, v, pos, lo: int):
+    """Write a decode token's K/V (B, 1, KV, hd) at ``pos`` (an int or
+    (B,)) into a cache view that holds positions [lo, lo + L): rows whose
+    position lies elsewhere are left as they are."""
+    L = cache["k"].shape[1]
     if not isinstance(pos, torch.Tensor) or pos.ndim == 0:
-        return (ar < int(pos))[None, :]
-    return ar[None, :] < pos.to(device)[:, None]
+        p = int(pos) - lo
+        if 0 <= p < L:
+            cache["k"][:, p] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, p] = v[:, 0].to(cache["v"].dtype)
+        return
+    idx = pos.to(cache["k"].device).long() - lo
+    hit = ((idx >= 0) & (idx < L))[:, None, None]
+    idx = idx.clamp(0, L - 1)
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    for name, new in (("k", k), ("v", v)):
+        buf = cache[name]
+        buf[rows, idx] = torch.where(hit, new[:, 0].to(buf.dtype),
+                                     buf[rows, idx])
 
 
 def _decode_positions(pos, device):
@@ -108,15 +176,28 @@ def attend_seq_xla(q, k, v, *, causal: bool, q_offset=None):
 
 
 def _project_qkv(p, cfg, x, transpose, backend, S):
+    """q (B, S, H, hd), k and v (B, S, KV, hd): every head, or with
+    :func:`_heads_local` the rank's KV heads and their query heads."""
     B = x.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _maybe_t(x, cast(p["wq"], x.dtype), transpose,
-                 backend).reshape(B, S, H, hd)
-    k = _maybe_t(x, cast(p["wk"], x.dtype), transpose,
-                 backend).reshape(B, S, KV, hd)
-    v = _maybe_t(x, cast(p["wv"], x.dtype), transpose,
-                 backend).reshape(B, S, KV, hd)
+    local = _heads_local(backend)
+    if local:
+        tp = resolve_backend(backend).tp
+        H, KV = H // tp, KV // tp
+    q = _maybe_t(x, cast(p["wq"], x.dtype), transpose, backend,
+                 local_out=local).reshape(B, S, H, hd)
+    k = _maybe_t(x, cast(p["wk"], x.dtype), transpose, backend,
+                 local_out=local).reshape(B, S, KV, hd)
+    v = _maybe_t(x, cast(p["wv"], x.dtype), transpose, backend,
+                 local_out=local).reshape(B, S, KV, hd)
     return q, k, v
+
+
+def _out_proj(out, p, x, transpose, backend):
+    """``wo`` (row-parallel on a mesh) of the attention output: this rank's
+    heads' block of it under :func:`_heads_local`."""
+    return _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
+                    tp_hint="row", local_in=_heads_local(backend))
 
 
 def gqa_forward(p, cfg: ModelConfig, x, *, transpose=False, causal=True,
@@ -131,11 +212,9 @@ def gqa_forward(p, cfg: ModelConfig, x, *, transpose=False, causal=True,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = resolve_backend(backend).attention(q, k, v, causal=causal)
-    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
-                 tp_hint="row")
+    y = _out_proj(out, p, x, transpose, backend)
     if cache is not None:
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        _write_positions(cache, k, v, 0, backend)
         return y, cache
     return y, None
 
@@ -155,47 +234,47 @@ def gqa_prefill_chunk(p, cfg: ModelConfig, x, cache, q_offset, *,
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    cache["k"][:, off:off + C] = k.to(cache["k"].dtype)
-    cache["v"][:, off:off + C] = v.to(cache["v"].dtype)
+    _write_positions(cache, k, v, off, backend)
+    ck, cv = cache["k"], cache["v"]
+    seq = _seq_split(backend)
+    if seq is not None:
+        mesh = resolve_backend(backend).mesh
+        ck = coll.all_gather(ck, mesh, seq.seq_axes, dim=1)
+        cv = coll.all_gather(cv, mesh, seq.seq_axes, dim=1)
     out = resolve_backend(backend).attention(
-        q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), causal=True,
-        q_offset=off)
-    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
-                 tp_hint="row")
+        q, ck.to(x.dtype), cv.to(x.dtype), causal=True, q_offset=off)
+    y = _out_proj(out, p, x, transpose, backend)
     return y, cache
 
 
-def _attend_decode(q, ck, cv, k_new, v_new, pos):
-    """Decode attention against the past-only cache plus the current
-    token's K/V held separately (the cache is read-only here).
-
-    q: (B,1,H,hd)  ck/cv: (B,L,KV,hd)  k_new/v_new: (B,1,KV,hd)."""
-    B, S, H, hd = q.shape
-    KV = ck.shape[2]
-    G = H // KV
-    L = ck.shape[1]
-    qg = q.reshape(B, 1, KV, G, hd).float()
-    scale = 1.0 / torch.tensor(math.sqrt(hd), dtype=torch.float32)
-    s_c = torch.einsum("bskgh,blkh->bkgsl", qg, ck.float()) * scale
-    valid = _past_valid(pos, L, q.device)[:, None, None, None, :]
-    s_c = s_c.masked_fill(~valid, NEG_INF)
-    s_n = torch.einsum("bskgh,blkh->bkgsl", qg,
-                       k_new.to(q.dtype).float()) * scale
-    s = torch.cat([s_c, s_n], dim=-1)
-    att = torch.softmax(s, dim=-1)
-    out = (torch.einsum("bkgsl,blkh->bskgh",
-                        att[..., :L].to(cv.dtype).float(), cv.float())
-           + torch.einsum("bkgsl,blkh->bskgh",
-                          att[..., L:].to(q.dtype).float(),
-                          v_new.to(q.dtype).float()))
-    hd_v = cv.shape[-1]
-    return out.reshape(B, 1, H * hd_v).to(q.dtype)
+def _decode_seq(q, cache, k, v, pos, backend, seq):
+    """Decode attention on a sequence-split cache: the kernel's partial form
+    on this rank's block of positions (the new token counted by the first
+    rank of the split axes), joined with one ``pmax`` and one ``psum`` over
+    exactly those axes; the token's K/V written on the rank whose block
+    holds its position."""
+    mesh = resolve_backend(backend).mesh
+    axes = seq.seq_axes
+    lo, _ = seq.window(mesh)
+    B, _, H, hd = q.shape
+    m, l_sum, o = _da.decode_attention_partial(
+        q, cache["k"], cache["v"], k, v, pos, offset=lo,
+        with_new=mesh.index(axes) == 0)
+    M = coll.pmax(m, mesh, axes)
+    w = torch.exp(m - M)
+    both = coll.psum(torch.cat([o * w[..., None], (l_sum * w)[..., None]],
+                               dim=-1), mesh, axes)
+    out = both[..., :hd] / both[..., hd:]
+    _write_token(cache, k, v, pos, lo)
+    return out.reshape(B, 1, H * hd).to(q.dtype)
 
 
 def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
                backend=None):
     """Single-token decode: x (B,1,d); cache k/v (B,L,KV,hd) read-only;
-    pos scalar or (B,).  Returns the one-token cache delta."""
+    pos scalar or (B,).  Returns the one-token cache delta (None on a
+    sequence-split cache, where the rank holding the position writes the
+    token itself)."""
     B, S, d = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per row, got {S}")
@@ -204,10 +283,14 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
                            cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = _attend_decode(q, cache["k"], cache["v"], k, v, pos)
-    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
-                 tp_hint="row")
-    return y, {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+    seq = _seq_split(backend)
+    if seq is not None:
+        out = _decode_seq(q, cache, k, v, pos, backend, seq)
+        delta = None
+    else:
+        out = _da.decode_attention(q, cache["k"], cache["v"], k, v, pos)
+        delta = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+    return _out_proj(out, p, x, transpose, backend), delta
 
 
 def gqa_decode_legacy(p, cfg: ModelConfig, x, cache, pos, *,
@@ -219,6 +302,9 @@ def gqa_decode_legacy(p, cfg: ModelConfig, x, cache, pos, *,
     B, S, d = x.shape
     if isinstance(pos, torch.Tensor) and pos.ndim > 0:
         raise ValueError("legacy decode takes a scalar position")
+    if _seq_split(backend) is not None:
+        raise NotImplementedError("legacy decode writes the whole buffer; "
+                                  "a sequence-split cache holds a block")
     pos = int(pos)
     q, k, v = _project_qkv(p, cfg, x, transpose, backend, 1)
     cos, sin = rope_angles(_decode_positions(pos, x.device), cfg.head_dim,
@@ -230,9 +316,7 @@ def gqa_decode_legacy(p, cfg: ModelConfig, x, cache, pos, *,
     L = cache["k"].shape[1]
     mask = (torch.arange(L, device=x.device) <= pos)[None, :]
     out = _gqa_attend(q, cache["k"], cache["v"], mask)
-    y = _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
-                 tp_hint="row")
-    return y, cache
+    return _out_proj(out, p, x, transpose, backend), cache
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, length: int, dtype,
@@ -373,7 +457,7 @@ def mla_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
                                dtype=torch.float32)
     s_c = (_mm("bshr,blr->bhsl", q_lat, ckv)
            + _mm("bshr,blr->bhsl", qr, kr)) * scale
-    valid = _past_valid(pos, L, x.device)[:, None, None, :]
+    valid = _da.seen_mask(pos, L, x.device)[:, None, None, :]
     s_c = s_c.masked_fill(~valid, NEG_INF)
     s_n = (_mm("bshr,blr->bhsl", q_lat, ckv_new.to(dt))
            + _mm("bshr,blr->bhsl", qr, kr_new.to(dt))) * scale
@@ -413,21 +497,27 @@ def cross_attn_memory(p, cfg: ModelConfig, memory, backend=None):
     bk = resolve_backend(backend)
     B, M, _ = memory.shape
     KV, hd = cfg.num_kv_heads, cfg.head_dim
-    k = bk.dot(memory, cast(p["wk"], memory.dtype),
-               transpose=False).reshape(B, M, KV, hd)
-    v = bk.dot(memory, cast(p["wv"], memory.dtype),
-               transpose=False).reshape(B, M, KV, hd)
+    local = _heads_local(bk)
+    if local:
+        KV //= bk.tp
+    k = bk.dot(memory, cast(p["wk"], memory.dtype), transpose=False,
+               local_out=local).reshape(B, M, KV, hd)
+    v = bk.dot(memory, cast(p["wv"], memory.dtype), transpose=False,
+               local_out=local).reshape(B, M, KV, hd)
     return {"ck": k, "cv": v}
 
 
 def cross_attn_forward(p, cfg: ModelConfig, x, kv, *, transpose=False,
                        backend=None):
-    """x: (B, S, d); kv: precomputed {"ck", "cv"} (B, M, KV, hd)."""
+    """x: (B, S, d); kv: precomputed {"ck", "cv"} (B, M, KV, hd) (the
+    rank's KV heads under :func:`_heads_local`, with its query heads)."""
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q = _maybe_t(x, cast(p["wq"], x.dtype), transpose,
-                 backend).reshape(B, S, H, hd)
+    local = _heads_local(backend)
+    if local:
+        H //= resolve_backend(backend).tp
+    q = _maybe_t(x, cast(p["wq"], x.dtype), transpose, backend,
+                 local_out=local).reshape(B, S, H, hd)
     out = resolve_backend(backend).attention(q, kv["ck"], kv["cv"],
                                              causal=False)
-    return _maybe_t(out, cast(p["wo"], x.dtype), transpose, backend,
-                 tp_hint="row")
+    return _out_proj(out, p, x, transpose, backend)

@@ -115,24 +115,29 @@ def apply_mlp(p, x, act: str = "swiglu", transpose: bool = False,
     epilogue on the photonic backend; gelu stays a torch op after the MVM,
     as in the reference (fusing its tanh chain would re-round it)."""
     bk = resolve_backend(backend)
+    # the pair-second (ff -> d) projection carries tp_hint="row": on a mesh
+    # it runs row-parallel over the ff axis, and where ``bk.pairs`` holds
+    # it takes the pair-first dots' local ff block as it is (the Megatron
+    # pairing, core/backend.py)
+    pair = bk.pairs(p["w_up"].shape[-1])
     if act != "swiglu":
         wu, wd = p["w_up"], p["w_down"]
         if transpose:
-            return bk.dot(gelu(bk.dot(x, wd, transpose=True)), wu,
-                          transpose=True, tp_hint="row")
-        return bk.dot(gelu(bk.dot(x, wu, transpose=False)), wd,
-                      transpose=False, tp_hint="row")
-    # the pair-second (ff -> d) projection carries tp_hint="row": on a mesh
-    # it runs row-parallel over the ff axis
+            return bk.dot(gelu(bk.dot(x, wd, transpose=True,
+                                      local_out=pair)), wu,
+                          transpose=True, tp_hint="row", local_in=pair)
+        return bk.dot(gelu(bk.dot(x, wu, transpose=False, local_out=pair)),
+                      wd, transpose=False, tp_hint="row", local_in=pair)
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
     if transpose:
-        g = bk.dot(x, wd, transpose=True, activation="silu")  # (ff,d).T
-        u = bk.dot(x, wu, transpose=False)
+        g = bk.dot(x, wd, transpose=True, activation="silu",  # (ff,d).T
+                   local_out=pair)
+        u = bk.dot(x, wu, transpose=False, local_out=pair)
         return bk.dot(g * u, wg, transpose=True,               # (d,ff).T
-                      tp_hint="row")
-    g = bk.dot(x, wg, transpose=False, activation="silu")
-    u = bk.dot(x, wu, transpose=False)
-    return bk.dot(g * u, wd, transpose=False, tp_hint="row")
+                      tp_hint="row", local_in=pair)
+    g = bk.dot(x, wg, transpose=False, activation="silu", local_out=pair)
+    u = bk.dot(x, wu, transpose=False, local_out=pair)
+    return bk.dot(g * u, wd, transpose=False, tp_hint="row", local_in=pair)
 
 
 # ------------------------------------------------------------- embeddings

@@ -484,15 +484,21 @@ def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
 
 
 def init_caches(cfg: ModelConfig, batch: int, length: int,
-                dtype=torch.bfloat16, device=None) -> dict:
+                dtype=torch.bfloat16, device=None, mesh=None) -> dict:
     """Zero caches with leading [R, T] axes per layer of each decoder
     segment's group: attention [R, T, B, L, KV, hd] K/V (MLA: [R, T, B, L,
     kv_lora] latents and [R, T, B, L, rope_dim] rope keys), SSM [R, T, B,
     H, P, N] fp32 state and [R, T, B, W-1, conv_dim] conv tail (no length
     axis), cross-attention [R, T, B, M, KV, hd] memory K/V.  The encoder
-    segment keeps no cache."""
+    segment keeps no cache.
+
+    On an active ``mesh`` (a rank's), ``batch`` is the step's whole batch
+    and every leaf is made at this rank's piece of the whole cache under
+    ``partition.placed_cache_pspecs`` (never whole and then cut), marked
+    with its spec and whole shape (``partition.piece_of``)."""
     check_ported(cfg)
     dev = resolve_device(device)
+    placed = mesh is not None and mesh.size > 1
     caches = {}
     for spec in build_segments(cfg):
         if spec.stream == "encoder":
@@ -501,9 +507,21 @@ def init_caches(cfg: ModelConfig, batch: int, length: int,
         lead = (shared.num_physical, shared.reuse_times)
         caches[spec.name] = {
             f"l{i}": _mixer_cache(cfg, spec.mixer_kinds[i], batch, length,
-                                  dtype, dev, lead)
+                                  dtype, "meta" if placed else dev, lead)
             for i in range(spec.group_size)}
-    return caches
+    if not placed:
+        return caches
+    from repro_torch.sharding import partition
+
+    def piece(whole, spec):
+        if isinstance(whole, dict):
+            return {k: piece(v, spec[k]) for k, v in whole.items()}
+        t = torch.zeros(partition.local_shape(whole.shape, spec, mesh),
+                        dtype=whole.dtype, device=dev)
+        return partition.mark_piece(t, spec, whole.shape)
+
+    return piece(caches, partition.placed_cache_pspecs(cfg, mesh, batch,
+                                                       length))
 
 
 def has_ssm(cfg: ModelConfig) -> bool:

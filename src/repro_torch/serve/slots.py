@@ -7,14 +7,19 @@ Requests are left-aligned at position 0 of their slot and a per-slot
 position vector tracks each slot's fill.  Freeing a slot is bookkeeping
 only: stale cache contents beyond a slot's position are masked on read.
 
-**Data-parallel pools** (``mesh=`` with more than one data shard): the
-slot axis spans the mesh's ``dp`` data shards in contiguous blocks
-(capacity must divide).  Every rank keeps the bookkeeping of all slots,
-but its caches hold only its shard's block (``caches`` has capacity / dp
+**Pools on a mesh** (``mesh=`` of more than one position): the caches are
+this rank's pieces under ``partition.cache_pspecs`` (``tfm.init_caches(...,
+mesh=)``).  The slot axis spans the mesh's ``dp`` data shards in
+contiguous blocks (capacity must divide): every rank keeps the bookkeeping
+of all slots, but its caches hold only its shard's block (capacity / dp
 rows; ``lo`` is the block's first slot), which is what a decode step on
-the rank's rows reads.  ``allocate`` packs per-shard sub-batches: the slot
-comes from the least-loaded shard block (ties to the lowest shard), the
-lowest index within it.
+the rank's rows reads; KV heads or positions are cut over "model" as the
+spec says.  ``write_prefill`` is collective there (every rank calls it, as
+every rank runs the scheduler's loop): a prefill cache whose positions are
+cut (over other axes or lengths than the pool's) is gathered whole over
+its axes, then each rank writes its block.  ``allocate`` packs per-shard
+sub-batches: the slot comes from the least-loaded shard block (ties to the
+lowest shard), the lowest index within it.
 """
 from __future__ import annotations
 
@@ -42,17 +47,36 @@ class SlotState:
     padded_to: int = 0             # prefill compile-bucket length
 
 
-def _insert(pool, pre, slot: int) -> None:
+def _positions_whole(pre, mesh):
+    """Tree ``pre`` with every leaf whose positions (dim 3) are cut
+    gathered whole over the cut's axes (``partition.piece_of``)."""
+    if isinstance(pre, dict):
+        return {k: _positions_whole(v, mesh) for k, v in pre.items()}
+    rec = partition.piece_of(pre)
+    if rec is None or not partition.cuts(rec[0][3:4]):
+        return pre
+    return partition.gather_leaf(pre, (None,) * 3 + rec[0][3:4], mesh)
+
+
+def _insert(pool, pre, slot: int, mesh=None) -> None:
     """Write each prefill leaf's whole extent at (0, 0, slot, 0, 0, ...) of
     its pool leaf, as the reference's ``dynamic_update_slice``: K/V rows
-    0..Lp-1, an SSM state whole, a conv tail at its leading rows."""
+    0..Lp-1, an SSM state whole, a conv tail at its leading rows.  A pool
+    leaf holding a block of positions (``partition.piece_of``) takes the
+    prefill rows of that block."""
     if isinstance(pool, dict):
         for k in pool:
-            _insert(pool[k], pre[k], slot)
+            _insert(pool[k], pre[k], slot, mesh)
         return
     if pre.ndim != pool.ndim:
         raise ValueError(f"prefill leaf rank {pre.ndim} != pool rank "
                          f"{pool.ndim}")
+    rec = partition.piece_of(pool)
+    if rec is not None and partition.cuts(rec[0][3:4]):
+        _, i = partition.piece(mesh, rec[0][3])
+        n = pool.shape[3]
+        pre = pre.narrow(3, min(i * n, pre.shape[3]),
+                         max(0, min(n, pre.shape[3] - i * n)))
     if pre.shape[2] != 1 or any(a > b for a, b in zip(pre.shape, pool.shape)):
         raise ValueError(f"batch-1 prefill leaf {tuple(pre.shape)} does not "
                          f"fit pool leaf {tuple(pool.shape)}")
@@ -86,8 +110,8 @@ class SlotPool:
         if self.dp > 1:
             self.lo = mesh.index(partition.data_axes(mesh)) * self.rows
         dtype = torch_dtype(dtype or cfg.compute_dtype)
-        self.caches = tfm.init_caches(cfg, self.rows, max_len, dtype=dtype,
-                                      device=device)
+        self.caches = tfm.init_caches(cfg, capacity, max_len, dtype=dtype,
+                                      device=device, mesh=mesh)
         # next write position per slot; clamped to max_len - 1 so a full
         # slot's delta write lands in-bounds (and is masked on read)
         self.positions = np.zeros(capacity, np.int32)
@@ -145,14 +169,17 @@ class SlotPool:
                       ) -> None:
         """Copy a batch-1 prefilled cache tree ([R, T, 1, Lp, ...] leaves,
         or full-state leaves like SSM ``h`` with no length axis) into
-        position 0 of ``slot``."""
+        position 0 of ``slot`` (on a mesh every rank calls it: module
+        docstring)."""
         if self.slots[slot] is None:
             raise ValueError(f"slot {slot} is not active")
         if prompt_len > self.max_len:
             raise ValueError(
                 f"prompt_len {prompt_len} exceeds slot budget {self.max_len}")
+        if self.mesh is not None and self.mesh.size > 1:
+            prefill_caches = _positions_whole(prefill_caches, self.mesh)
         if self.lo <= slot < self.lo + self.rows:     # this rank's block
-            _insert(self.caches, prefill_caches, slot - self.lo)
+            _insert(self.caches, prefill_caches, slot - self.lo, self.mesh)
         self.positions[slot] = prompt_len
 
     def advance(self, slot: int) -> None:

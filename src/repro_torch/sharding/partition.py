@@ -29,7 +29,11 @@ axes too).  For training, :func:`data_specs` keeps the data-axes part of a
 every parameter whole over "model"), :func:`local_tree` cuts a rank's
 pieces of a parameter tree and :func:`gather_tree` all-gathers them back
 into the logical layout; :func:`scatter_leaf` reduce-scatters a whole
-gradient into the rank's piece.
+gradient into the rank's piece.  A rank's caches are its pieces under
+:func:`placed_cache_pspecs` (``cache_pspecs``, MLA latents and SSM states
+by their batch entry only), each made at :func:`local_shape` and marked
+with its spec and whole shape (:func:`mark_piece` / :func:`piece_of`);
+:func:`kv_layout` says where a step's attention heads or positions lie.
 """
 from __future__ import annotations
 
@@ -186,6 +190,27 @@ def act_pspec(mesh, mode: str = "seq") -> tuple:
     return (dd,)
 
 
+def _seq_axes(mesh, batch: int, L: int):
+    """The spec entry of a length-``L`` sequence dim that the batch rows do
+    not cut: the data axes and "model" when the batch leaves the data axes
+    idle and ``L`` divides them all, else "model" when it divides, else
+    whole (None)."""
+    d = data_axes(mesh)
+    model_n = mesh.shape["model"]
+    dp_n = dp_size(mesh)
+    if batch % dp_n != 0 and L % (dp_n * model_n) == 0:
+        return tuple(d) + ("model",)
+    if L % model_n == 0:
+        return "model"
+    return None
+
+
+def _heads_ok(cfg, mesh) -> bool:
+    """Whether "model" divides the KV heads (they go over it)."""
+    kv_heads = cfg.num_kv_heads
+    return kv_heads > 0 and kv_heads % mesh.shape["model"] == 0
+
+
 def cache_pspecs(cfg, mesh, batch: int, seq_len: int) -> Any:
     """Spec tree matching ``models.transformer.init_caches``: leading
     [R, T] never sharded; batch over the data axes when divisible (else the
@@ -197,19 +222,13 @@ def cache_pspecs(cfg, mesh, batch: int, seq_len: int) -> Any:
     d = data_axes(mesh)
     dd = d if len(d) > 1 else d[0]
     model_n = mesh.shape["model"]
-    dp_n = int(np.prod([mesh.shape[a] for a in d]))
-    batch_ok = batch % dp_n == 0
+    batch_ok = batch % dp_size(mesh) == 0
     bspec = dd if batch_ok else None
 
     def seq_axes(L):
-        if not batch_ok and L % (dp_n * model_n) == 0:
-            return tuple(d) + ("model",)
-        if L % model_n == 0:
-            return "model"
-        return None
+        return _seq_axes(mesh, batch, L)
 
-    kv_heads = cfg.num_kv_heads
-    heads_ok = kv_heads > 0 and kv_heads % model_n == 0
+    heads_ok = _heads_ok(cfg, mesh)
 
     def attn_spec():
         if heads_ok:
@@ -249,6 +268,85 @@ def cache_pspecs(cfg, mesh, batch: int, seq_len: int) -> Any:
 
 def replicated(mesh) -> tuple:
     return ()
+
+
+# ------------------------------------------------------------ cache pieces
+# the leaves the port places by ``cache_pspecs``: self-attention K/V and
+# cross-attention K/V.  MLA latents and SSM states keep the data-axes part
+# of their spec (a rank holds its rows, every position, head and channel).
+_PLACED_CACHE_LEAVES = ("k", "v", "ck", "cv")
+
+
+def placed_cache_pspecs(cfg, mesh, batch: int, seq_len: int) -> Any:
+    """The spec tree a rank's caches are cut by (:func:`cache_pspecs`, the
+    MLA and SSM leaves reduced to their data-axes entries)."""
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict)
+                else v if k in _PLACED_CACHE_LEAVES else data_spec(v, mesh)
+                for k, v in tree.items()}
+
+    return walk(cache_pspecs(cfg, mesh, batch, seq_len))
+
+
+def local_shape(shape, spec: tuple, mesh) -> tuple:
+    """The shape of this rank's piece of a ``shape`` tensor under
+    ``spec``; raises when a cut dim does not divide."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        parts = mesh.axis_size(_entry_axes(entry))
+        if out[dim] % parts:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide "
+                             f"over {entry!r} ({parts} parts)")
+        out[dim] //= parts
+    return tuple(out)
+
+
+def mark_piece(t, spec: tuple, whole_shape):
+    """Record on ``t`` (a cache leaf made at a rank's local shape) the spec
+    it was cut by and the whole tensor's shape (:func:`piece_of`): a step
+    given the caches reads where its rows, heads and positions lie.  A view
+    of ``t`` does not carry the record."""
+    t.repro_piece = (tuple(spec), tuple(int(n) for n in whole_shape))
+    return t
+
+
+def piece_of(t):
+    """(spec, whole shape) recorded on ``t`` by :func:`mark_piece`, or
+    None (a tensor made whole)."""
+    return getattr(t, "repro_piece", None)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVLayout:
+    """Where a serving step's attention caches put their KV heads and
+    positions on an active mesh (``cache_pspecs``):
+
+      * ``heads``: "model" (of more than one rank) divides the KV heads; a
+        rank holds its KV heads, projects their query heads and attends
+        with them;
+      * else ``seq_axes``: the axes the self-attention positions split over
+        (empty: whole on every rank); a rank holds its block of
+        ``length`` positions (:meth:`window`) and every head.
+    """
+    heads: bool
+    seq_axes: tuple
+    length: int
+
+    def window(self, mesh) -> tuple:
+        """(first position, positions) of this rank's block."""
+        parts = mesh.axis_size(self.seq_axes)
+        n = self.length // parts
+        return mesh.index(self.seq_axes) * n, n
+
+
+def kv_layout(cfg, mesh, batch: int, seq_len: int) -> KVLayout:
+    """The :class:`KVLayout` of ``cfg``'s caches for a ``batch``-row step
+    over ``seq_len`` positions on ``mesh``."""
+    tp = mesh.shape["model"]
+    heads = tp > 1 and _heads_ok(cfg, mesh)
+    seq = () if heads or tp == 1 else _entry_axes(
+        _seq_axes(mesh, batch, seq_len))
+    return KVLayout(heads, seq, int(seq_len))
 
 
 # ------------------------------------------------------- logical-axis specs

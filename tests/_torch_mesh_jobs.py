@@ -1,6 +1,7 @@
-"""What the gloo ranks of ``tests/test_torch_train_mesh.py`` and
-``tests/test_torch_fsdp.py`` run (``launch.mesh.init_ranks`` imports a
-rank's function in each child process).  This module imports the port
+"""What the gloo ranks of ``tests/test_torch_train_mesh.py``,
+``tests/test_torch_fsdp.py``, ``tests/test_torch_dryrun.py`` and
+``tests/test_torch_tp_attention.py`` run (``launch.mesh.init_ranks``
+imports a rank's function in each child process).  This module imports the port
 only, so a rank starts without JAX; the test files hold its results
 against the reference."""
 import dataclasses
@@ -203,4 +204,98 @@ def census_rank(mesh, job):
         with coll.recording() as rec:
             run()
         out[name] = rec
+    return out
+
+
+def tp_attention_rank(mesh, job):
+    """The tensor-parallel attention checks of
+    ``tests/test_torch_tp_attention.py`` on one rank: per Program of
+    ``job["programs"]`` ({name: (cfg, params, execution)}) the sequence-
+    split gate's steps (``shardcheck.seq_steps``) at each of
+    ``shardcheck.SEQ_CASES`` and the shapes of the caches a prefill makes;
+    the Megatron pairing's dots against the unpaired ones on
+    ``job["pairing"]``'s Program; ``job["drain"]`` ({name: requests}) drained
+    by a ``ContinuousScheduler``; and the collectives of ``job["cells"]``
+    (:func:`census_rank`)."""
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.core.sharing import tree_index
+    from repro_torch.launch import shardcheck as sc
+    from repro_torch.models import attention, layers
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    torch.set_num_threads(1)
+    out = {"programs": {}, "drain": {}}
+    progs = {}
+    for name, (cfg, params, execution) in job["programs"].items():
+        prog = api.Program.build(cfg, params, execution=execution, mesh=mesh)
+        progs[name] = prog
+        steps = {}
+        for B, L in sc.SEQ_CASES:
+            steps[(B, L)] = sc.seq_steps(prog, cfg, B, L)
+            _, caches = prog.prefill(
+                {"tokens": sc.small_inputs(cfg)[:B, :sc.SEQ_PROMPT]}, L)
+            steps[(B, L)]["shapes"] = {
+                (seg, layer, leaf): tuple(t.shape)
+                for seg, group in caches.items()
+                for layer, leaves in group.items()
+                for leaf, t in leaves.items()}
+        out["programs"][name] = steps
+    if job.get("pairing"):
+        prog = progs[job["pairing"]]
+        bk = prog.backend
+
+        class Unpaired(type(bk)):
+            def pairs(self, n):
+                return False
+
+        unpaired = Unpaired(**{f.name: getattr(bk, f.name)
+                               for f in dataclasses.fields(bk)})
+        g = torch.Generator().manual_seed(5)
+        d = prog.cfg.d_model
+        x = torch.randn((4, 3, d), generator=g)
+        p = tree_index(prog.bank["segments"]["main"], 0)["l0"]
+
+        def piece(t):
+            return backend_lib._piece(t, -1, mesh)
+
+        eq = {}
+        for leaf in ("wq", "wk", "wv"):
+            w = p["mixer"][leaf]
+            for transpose in (False, True):
+                if transpose and w.shape[0] != w.shape[1]:
+                    continue
+                whole = bk.dot(x, w, transpose=transpose)
+                local = bk.dot(x, w, transpose=transpose, local_out=True)
+                eq[(leaf, transpose)] = bool(torch.equal(local, piece(whole)))
+        raw = torch.randn((d, 2 * d), generator=g) / d ** 0.5
+        whole = bk.dot(x, raw, activation="silu")
+        eq[("in-step", False)] = bool(torch.equal(
+            bk.dot(x, raw, activation="silu", local_out=True), piece(whole)))
+        wo = p["mixer"]["wo"]
+        o = torch.randn((4, 3, wo.shape[0]), generator=g)
+        eq[("wo", False)] = bool(torch.equal(
+            bk.dot(piece(o), wo, tp_hint="row", local_in=True),
+            bk.dot(o, wo, tp_hint="row")))
+        for transpose in (False, True):
+            eq[("mlp", transpose)] = bool(torch.equal(
+                layers.apply_mlp(p["ffn"], x, transpose=transpose,
+                                 backend=bk),
+                layers.apply_mlp(p["ffn"], x, transpose=transpose,
+                                 backend=unpaired)))
+        heads = api._with_kv(bk, prog.cfg, 4, 14)
+        y_local, _ = attention.gqa_forward(p["mixer"], prog.cfg, x,
+                                           backend=heads)
+        y_whole, _ = attention.gqa_forward(p["mixer"], prog.cfg, x,
+                                           backend=bk)
+        out["pairing"] = {"bit_equal": eq, "heads": heads.kv.heads,
+                          "attention": (y_local, y_whole)}
+    for name, requests in job.get("drain", {}).items():
+        sched = ContinuousScheduler(progs[name], capacity=4, max_len=24)
+        for rid, prompt, max_new in requests:
+            sched.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+        out["drain"][name] = {c.rid: c.tokens.tolist()
+                              for c in sched.drain()}
+    if job.get("cells"):
+        out["census"] = census_rank(mesh, job["cells"])
     return out

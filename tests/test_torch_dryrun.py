@@ -82,7 +82,12 @@ def test_lower_cell_walks_full_width_cells(cell):
         # every rank's dots run sharded over "model": gathers at least
         assert r["collectives"]["counts"]["all-gather"] > 0
     else:
-        assert not any(calls.values())
+        # xla plans no MVM or flash; decode attention is a kernel on every
+        # backend (one call a self-attention layer of a decode step)
+        assert not any(v for k, v in calls.items() if k != "decode_attention")
+    if r["shape"].startswith(("decode", "long")) and r["arch"] != \
+            "mamba2-780m":
+        assert calls["decode_attention"] > 0
     if r["shape"] == "train_4k":
         assert r["mesh"] == {"pod": 2, "data": 16, "model": 16}
         assert r["microbatch"] == 1

@@ -214,6 +214,25 @@ def test_dryrun_slice_modules_are_checked_and_standalone(module):
     assert bad == []
 
 
+# the tensor-parallel attention slice's new module and the modules it
+# extended
+SLICE18_MODULES = ["kernels/decode_attention.py", "kernels/build.py",
+                   "kernels/counts.py", "kernels/planned.py",
+                   "models/attention.py", "models/layers.py",
+                   "models/transformer.py", "core/backend.py",
+                   "sharding/partition.py", "api.py", "serve/slots.py",
+                   "launch/dryrun.py", "launch/shardcheck.py"]
+
+
+@pytest.mark.parametrize("module", SLICE18_MODULES)
+def test_tp_attention_slice_modules_are_checked_and_standalone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert bad == []
+
+
 
 def test_mesh_training_defaults_to_cuda_and_refuses_unbound_meshes():
     """``run(mesh=)`` on a rank takes the rank's device; without ranks a

@@ -612,7 +612,8 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert lib.parent == tmp_path / "k"
     assert lib.name.startswith("flash_attention-") and lib.suffix == ".so"
     assert t_build.library_path("flash_attention") == lib
-    assert sorted(t_build.SOURCES) == ["blend_shuffle", "flash_attention",
+    assert sorted(t_build.SOURCES) == ["blend_shuffle", "decode_attention",
+                                       "flash_attention",
                                        "photonic_mvm_fused",
                                        "photonic_mvm_resident",
                                        "photonic_mvm_split", "ssd_chunk"]
