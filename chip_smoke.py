@@ -185,7 +185,11 @@ the script exits non-zero without printing the final ``ok`` line):
    attention launches a decode step a rank; the 2x1 ranks also run 2
    rows (one a rank) bit-equal to the unsharded Program at 2 rows; and
    shardcheck's sequence-split gate (``seq_cfg``: 3 KV heads, so the
-   positions split) on 1x2 on xla within 1e-5;
+   positions split) on 1x2 on xla within 1e-5; since slice 19
+   mamba2-780m R&B (8 decode steps) and deepseek-v2-lite-16b R&B (4) on
+   1x2 with SSM states and MLA latents cut by ``cache_pspecs``
+   (``tp_cache_runs``: the mamba2 logits bit-equal to the unsharded
+   Program's);
 3p. since slice 16 training on a mesh (``train_mesh_phase``), right after
    ``train``: granite-moe-1b-a400m R&B at full width on 2x1 ranks sharing
    the card, 3 steps data-parallel and 3 with ``cfg.fsdp`` through
@@ -1487,7 +1491,9 @@ SHARD_DRAIN_NEW = 8
 # a row-parallel dot rounds each rank's partial to bf16 before the sum:
 # against the single-device kernel on the same input, within that rounding
 SHARD_SPLIT_TOL = 2.0 ** -8
-SHARD_FSDP_DECODE = 4         # the 2x1 FSDP build: the prefill, 4 steps
+SHARD_FSDP_DECODE = 2         # the 2x1 FSDP build: the prefill, 2 steps
+                              # (4 until the SSM / MLA 1x2 runs joined the
+                              # phase: the script's 1200 s limit)
 
 
 def bank_bytes(bank) -> int:
@@ -1645,14 +1651,15 @@ def taught_decode_attention(mesh, records):
         da.decode_attention = own
 
 
-def kv_bytes(caches) -> tuple:
-    """(bytes of a rank's self-attention K/V pieces, bytes of the whole
-    caches they are cut from: ``partition.piece_of``)."""
+def kv_bytes(caches, names=("k", "v")) -> tuple:
+    """(bytes of a rank's pieces of the cache leaves ``names`` (default:
+    the self-attention K/V), bytes of the whole caches they are cut from:
+    ``partition.piece_of``)."""
     from repro_torch import api
     from repro_torch.sharding import partition
     held = whole = 0
     for name, leaf in api._cache_leaves(caches):
-        if name in ("k", "v"):
+        if name in names:
             held += leaf.numel() * leaf.element_size()
             shape = partition.piece_of(leaf)[1]
             whole += int(np.prod(shape)) * leaf.element_size()
@@ -1897,6 +1904,353 @@ def sharded_rank(mesh, job):
     return out
 
 
+# the SSM and MLA caches by ``cache_pspecs`` (slice 19): mamba2-780m R&B
+# and deepseek-v2-lite-16b R&B at full width on 1x2 ranks
+TP_CACHE_MESH = "1x2"
+TP_SSM_HEADS = 24             # a rank's share of mamba2's 48 SSM heads
+TP_MLA_TOL = 2.0 ** -8        # an MLA decode layer on the rank's latent
+                              # positions, taught, vs the unsharded layer
+TP_MLA_DECODE = 4             # the MLA run's decode steps (3.5 s each a
+                              # rank over gloo; the script's 1200 s limit),
+                              # in caches of SHARD_PROMPT + SHARD_DECODE
+
+
+@contextlib.contextmanager
+def layer_calls(module, name, seen=None, teach=None, out=None):
+    """``module.<name>``, a mixer called as ``fn(p, cfg, x, ...)``, wrapped
+    for the window: the i-th call's x replaced by ``teach[i]`` (taught),
+    ``seen`` given each call's x (on the CPU) and ``out`` its result."""
+    own = getattr(module, name)
+    n = [0]
+
+    def call(p, cfg, x, *args, **kw):
+        if teach is not None:
+            x = teach[n[0]].to(x.device)
+        n[0] += 1
+        if seen is not None:
+            seen.append(x.detach().cpu())
+        y = own(p, cfg, x, *args, **kw)
+        if out is not None:
+            out.append(y)
+        return y
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, own)
+
+
+def tp_cache_cfg(arch: str):
+    """The 1x2 run's model: mamba2-780m R&B (12 x 4), or deepseek-v2-lite
+    R&B at ``serve_mla``'s depth (``mla_config``), both at full width."""
+    from repro_torch.configs import get_arch
+    return get_arch("mamba2-780m", reuse=True) if arch == "ssm" \
+        else mla_config()
+
+
+def tp_cache_rank(mesh, job):
+    """One rank of a 1x2 run of ``job["arch"]`` ("ssm": mamba2-780m, "mla":
+    deepseek-v2-lite-16b; ``tp_cache_cfg``), each rank built in turn: the
+    4 x 600 prefill of ``job["prompts"]`` and a decode step on each of
+    ``job["tokens"]`` in the counted window (fused launches equal to
+    the unsharded Program's per pass, no flash; SSM: ``ssd_chunk`` once a
+    layer, each launch on the rank's ``TP_SSM_HEADS`` heads), the caches'
+    pieces half the whole caches' bytes.  Outside it, a prefill and a
+    decode step with every dot taught (``taught_dots``) and each mixer
+    taught the unsharded run's input (``job["taught"]``, a file): SSM, each
+    layer's ``h`` / ``conv`` after the prefill bit-equal to the unsharded
+    Program's heads / channels; MLA, each decode layer within
+    ``TP_MLA_TOL``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import prepared
+    from repro_torch.kernels import counts, ops
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding import partition
+
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ssm = job["arch"] == "ssm"
+    cfg = tp_cache_cfg(job["arch"])
+    t0 = time.perf_counter()
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            params = tfm.init_model(cfg, seed=0, device=mesh.device)
+            whole = {leaf.tag: leaf for leaf in prepared.tree_leaves(
+                prepared.prepare_params(params, cfg.compute_dtype, True))
+                if isinstance(leaf, prepared.PreparedTensor)}
+            prog = api.Program.build(cfg, params, execution="photonic",
+                                     mesh=mesh)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out = {"rank": mesh.rank, "coords": mesh.coords,
+           "transport": mesh.describe(),
+           "build_s": time.perf_counter() - t0}
+    per_prefill, per_decode = job["fused_per_pass"]
+    L = SHARD_PROMPT + SHARD_DECODE
+    prompts = torch.as_tensor(job["prompts"]).cuda()
+    heads = []
+    own_ssd = ops.ssd_chunk
+
+    def ssd_heads(x, dA, B, C):
+        heads.append(int(x.shape[3]))
+        return own_ssd(x, dA, B, C)
+
+    ops.ssd_chunk = ssd_heads
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with coll.recording() as moved:
+        logits, caches = prog.prefill({"tokens": prompts}, L)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_collective_bytes"] = {
+        kind: sum(n for k, n in moved if k == kind)
+        for kind in sorted({k for k, _ in moved})}
+    out["prefill_launches"] = counts.snapshot()
+    steps = [logits.float().cpu()]
+    t0 = time.perf_counter()
+    for i, tok in enumerate(job["tokens"]):
+        lg, caches = prog.decode(torch.as_tensor(tok)[:, None].cuda(),
+                                 caches, SHARD_PROMPT + i)
+        steps.append(lg.float().cpu())
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    launches = counts.snapshot()
+    ops.ssd_chunk = own_ssd
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["logits"] = steps
+    out["launches"] = launches
+    out["ssd_heads"] = sorted(set(heads))
+    want = per_prefill + per_decode * len(job["tokens"])
+    if launches["photonic_mvm_fused"] != want or launches[
+            "flash_attention"] or launches["decode_attention"]:
+        raise AssertionError(f"rank {mesh.rank} {cfg.name}: launches "
+                             f"{launches}, fused expected {want}, flash and "
+                             f"decode attention 0")
+    if launches["ssd_chunk"] != (cfg.num_layers if ssm else 0) or (
+            ssm and heads != [TP_SSM_HEADS] * cfg.num_layers):
+        raise AssertionError(f"rank {mesh.rank} {cfg.name}: ssd_chunk "
+                             f"{launches['ssd_chunk']} launches on "
+                             f"{sorted(set(heads))} heads")
+    out["cache_bytes"] = {}
+    for name in (("h", "conv") if ssm else ("ckv", "kr")):
+        held, whole_b = kv_bytes(caches, (name,))
+        out["cache_bytes"][name] = [held, whole_b]
+        if 2 * held != whole_b:
+            raise AssertionError(f"rank {mesh.rank} {cfg.name}: {name} "
+                                 f"{held} B of {whole_b} (half a rank)")
+    del caches, logits
+
+    tok0 = torch.as_tensor(job["tokens"][0])[:, None].cuda()
+    # outside the counted window: a prefill and a decode step with each
+    # mixer taught the unsharded input and each dot taught against the
+    # single-device kernel on its own input (``taught_dots``)
+    data = torch.load(job["taught"], map_location="cpu")
+    records = []
+    base = taught_dots(prog, whole, records)
+    if ssm:
+        with layer_calls(ssm_lib, "ssm_forward", teach=data["inputs"]):
+            _, caches = prog.prefill({"tokens": prompts}, L)
+        layers = {}
+        for (name, got), want in zip(api._cache_leaves(caches),
+                                     data["leaves"]):
+            want_t = partition.local_slice(want, partition.piece_of(got)[0],
+                                           mesh)
+            same = [bool(torch.equal(got[r, t].cpu(), want_t[r, t]))
+                    for r in range(got.shape[0])
+                    for t in range(got.shape[1])]
+            n = layers.setdefault(name, {"layers": 0, "bit_equal": 0})
+            n["layers"] += len(same)
+            n["bit_equal"] += sum(same)
+        prog.decode(tok0, caches, SHARD_PROMPT)
+        prog.backend = base
+        out["taught_layers"] = layers
+        if not all(v["bit_equal"] == v["layers"] == cfg.num_layers
+                   for v in layers.values()):
+            raise AssertionError(f"rank {mesh.rank}: taught h / conv "
+                                 f"pieces {layers} (every layer bit-equal "
+                                 f"to the unsharded heads / channels)")
+    else:
+        ys = []
+        with layer_calls(attn_lib, "mla_forward", teach=data["inputs"]):
+            _, caches = prog.prefill({"tokens": prompts}, L)
+        with layer_calls(attn_lib, "mla_decode",
+                         teach=data["decode_inputs"], out=ys):
+            prog.decode(tok0, caches, SHARD_PROMPT)
+        prog.backend = base
+        rels = [rel_l2(y[0].float().cpu(), w)
+                for y, w in zip(ys, data["decode_outputs"])]
+        out["taught_layers"] = {"calls": len(rels), "rel_l2": rels,
+                                "max_rel_l2": max(rels), "tol": TP_MLA_TOL}
+        if len(rels) != len(data["decode_outputs"]) or max(rels) > \
+                TP_MLA_TOL:
+            raise AssertionError(f"rank {mesh.rank}: taught MLA decode "
+                                 f"layers {out['taught_layers']}")
+    del data, caches
+    taught = {}
+    for rule, rel, same in records:
+        t = taught.setdefault(rule, {"calls": 0, "bit_equal": 0,
+                                     "max_rel_l2": 0.0})
+        t["calls"] += 1
+        t["bit_equal"] += same
+        t["max_rel_l2"] = max(t["max_rel_l2"], rel)
+    out["taught_dots"] = taught
+    for rule, t in taught.items():
+        ok = (t["bit_equal"] == t["calls"] if rule in ("column",
+                                                       "replicated")
+              else t["max_rel_l2"] <= job["split_tol"])
+        if not ok:
+            raise AssertionError(f"rank {mesh.rank}: taught {rule} dots "
+                                 f"{t} (column/replicated bit-equal, row "
+                                 f"rules within {job['split_tol']})")
+    if len(records) != per_prefill + per_decode:
+        raise AssertionError(f"rank {mesh.rank}: {len(records)} taught "
+                             f"dots, {per_prefill + per_decode} expected")
+    out["rank_wall_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def tp_cache_runs(torch, gpu) -> dict:
+    """The sharded phase's (a) mamba2-780m R&B and (b) deepseek-v2-lite-16b
+    R&B (``serve_mla``'s depth) at full width on 1x2 ranks
+    (``tp_cache_rank``), each against the unsharded Program on the card on
+    the same weights: its logits of a 4 x 600 prefill and ``SHARD_DECODE``
+    (SSM) or ``TP_MLA_DECODE`` (MLA) greedy decode steps (the einsum attention route a mesh runs), its fused
+    launches per pass, and, written to a file under ``build/`` for the
+    ranks, its mixer inputs (every SSM prefill layer; every MLA layer of
+    the prefill and of the first decode step, with the decode layers'
+    outputs) and its SSM caches after the prefill.  The ranks' logits must
+    be equal.  The SSM run's logits must equal the unsharded Program's bit
+    for bit at every step (its cut is exact and each of its dots runs the
+    unsharded rule, column where "model" divides the output); the MLA
+    run's are printed, not gated (its scatter ``wo`` and the decode join
+    round otherwise: Queue C 1).  The SSM run's ``ssd_chunk`` launches a
+    rank are held to the dry-run's planned calls for a 1x2 rank
+    (48 a prefill pass, each on 24 heads: its planned operations)."""
+    from repro_torch import api
+    from repro_torch.kernels import counts
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as tfm
+
+    scratch = ROOT / "build" / "chip_smoke_tp_caches"
+    scratch.mkdir(parents=True, exist_ok=True)
+    results = {}
+    try:
+        for arch in ("ssm", "mla"):
+            t0 = time.perf_counter()
+            ssm = arch == "ssm"
+            cfg = tp_cache_cfg(arch)
+            rng = np.random.default_rng(17 if ssm else 18)
+            prompts = rng.integers(0, cfg.vocab_size,
+                                   (SHARD_ROWS, SHARD_PROMPT))
+            params = tfm.init_model(cfg, seed=0)
+            prog = api.Program.build(cfg, params, execution="photonic")
+            del params
+            prog.backend = dataclasses.replace(prog.backend, flash=False)
+            mod, fn = (ssm_lib, "ssm_forward") if ssm else (attn_lib,
+                                                            "mla_forward")
+            seen, dec_in, dec_out = [], [], []
+            counts.reset()
+            with layer_calls(mod, fn, seen=seen):
+                logits, caches = prog.prefill(
+                    {"tokens": prompts}, SHARD_PROMPT + SHARD_DECODE)
+            per_prefill = counts.snapshot()["photonic_mvm_fused"]
+            # a copy: the decode steps below update the caches in place
+            leaves = ([v.to("cpu", copy=True) for _, v in
+                       api._cache_leaves(caches)] if ssm else None)
+            ref, tokens = [logits.float().cpu()], []
+            for i in range(SHARD_DECODE if ssm else TP_MLA_DECODE):
+                tok = torch.argmax(ref[-1], dim=-1).numpy()
+                tokens.append(tok)
+                counts.reset()
+                with (layer_calls(attn_lib, "mla_decode", seen=dec_in,
+                                  out=dec_out) if i == 0 and not ssm
+                      else contextlib.nullcontext()):
+                    lg, caches = prog.decode(
+                        torch.as_tensor(tok)[:, None].cuda(), caches,
+                        SHARD_PROMPT + i)
+                if i == 0:
+                    per_decode = counts.snapshot()["photonic_mvm_fused"]
+                ref.append(lg.float().cpu())
+            path = scratch / f"{arch}.pt"
+            torch.save({"inputs": seen, "leaves": leaves,
+                        "decode_inputs": dec_in,
+                        "decode_outputs": [y[0].float().cpu()
+                                           for y in dec_out]}, path)
+            del prog, caches, logits, lg, seen, leaves, dec_in, dec_out
+            gc.collect()
+            torch.cuda.empty_cache()
+            unsharded_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            job = {"arch": arch, "prompts": prompts, "tokens": tokens,
+                   "taught": str(path), "split_tol": SHARD_SPLIT_TOL,
+                   "fused_per_pass": (per_prefill, per_decode)}
+            ranks = mesh_lib.init_ranks(tp_cache_rank, TP_CACHE_MESH,
+                                        device="cuda", args=(job,))
+            path.unlink()
+            rels = [rel_l2(got, want) for got, want in
+                    zip(ranks[0]["logits"], ref)]
+            same = all(all(torch.equal(a, b) for a, b in
+                           zip(r["logits"], ranks[0]["logits"]))
+                       for r in ranks)
+            # the SSM cut is exact and every dot of its steps runs the
+            # single device's rule on the same input: gated bit-equal
+            bit_equal = all(torch.equal(a, b)
+                            for a, b in zip(ranks[0]["logits"], ref))
+            reading = {"prefill_rel_l2": rels[0], "decode_rel_l2": rels[1:],
+                       "ranks_equal": same, "bit_equal": bit_equal,
+                       "gated": ssm}
+            if ssm:
+                calls, planned_ops = planned_calls(
+                    cfg, "prefill", SHARD_ROWS, SHARD_PROMPT,
+                    mesh=TP_CACHE_MESH, with_ops=True)
+                s = cfg.ssm
+                nc = -(-SHARD_PROMPT // s.chunk)
+                one = 2 * SHARD_ROWS * nc * TP_SSM_HEADS * (
+                    s.chunk ** 2 * (s.d_state + s.head_dim)
+                    + s.chunk * s.d_state * s.head_dim)
+                reading["ssd_planned_calls"] = calls["ssd_chunk"]
+                reading["ssd_planned_ops"] = planned_ops["ssd_chunk"]
+                reading["ssd_planned_ops_at_24_heads"] = one * cfg.num_layers
+                if not (calls["ssd_chunk"] == ranks[0]["launches"][
+                        "ssd_chunk"] == cfg.num_layers and planned_ops[
+                        "ssd_chunk"] == one * cfg.num_layers):
+                    raise AssertionError(f"ssd_chunk: planned {calls}, "
+                                         f"{planned_ops['ssd_chunk']} ops, "
+                                         f"measured {ranks[0]['launches']}")
+            for r in ranks:
+                r.pop("logits")
+                emit({"phase": f"sharded_{arch}_rank", "gpu": gpu,
+                      "mesh": TP_CACHE_MESH, "arch": cfg.name, **r})
+            wall = {"unsharded_s": unsharded_s,
+                    "ranks_s": time.perf_counter() - t1,
+                    "wall_s": time.perf_counter() - t0}
+            emit({"phase": f"sharded_{arch}_reading", "gpu": gpu,
+                  "mesh": TP_CACHE_MESH, "arch": cfg.name,
+                  "fused_per_pass": [per_prefill, per_decode],
+                  **reading, **wall})
+            if not same or not all(np.isfinite(rels)) or (
+                    ssm and not bit_equal):
+                raise AssertionError(f"{cfg.name} on {TP_CACHE_MESH}: ranks "
+                                     f"equal {same}, rel-L2 {rels} (SSM: "
+                                     f"bit-equal to the unsharded logits)")
+            results[arch] = dict(reading, **wall)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return results
+
+
 def seq_readings(rep) -> dict:
     """Worst rel-L2 over ranks and steps of shardcheck's sequence-split
     gate, per case."""
@@ -1925,7 +2279,10 @@ def sharded_phase(torch, gpu):
     (flash, and the einsum a mesh runs): at full width with random
     weights, one float rounding moved anywhere carries the logits that far
     (per-tensor A8 scales couple every row), past the 0.055 bound, so
-    those readings are not gated end to end; the taught dots are.  Last,
+    those readings are not gated end to end; the taught dots are.  (c)
+    mamba2-780m R&B and deepseek-v2-lite-16b R&B on 1x2 with their SSM
+    states and MLA latents cut by ``cache_pspecs`` (``tp_cache_runs``: the
+    SSM logits gated bit-equal to the unsharded Program's).  Last,
     ``launch.serve``'s ``--mesh 1x2`` serves 4 requests."""
     from repro_torch import api
     from repro_torch.configs import get_arch
@@ -1966,6 +2323,7 @@ def sharded_phase(torch, gpu):
           "seq_rel_l2": seq_readings(rep), "gate": sc.SEQ_TOL,
           "wall_s": time.perf_counter() - t1})
 
+    t_minitron = time.perf_counter()
     cfg = get_arch("minitron-4b", reuse=True)
     rng = np.random.default_rng(15)
     V = cfg.vocab_size
@@ -2083,6 +2441,11 @@ def sharded_phase(torch, gpu):
                     raise AssertionError(f"2x1 rank {r['rank']}: drain "
                                          f"tokens differ from the unsharded "
                                          f"scheduler's (rids {bad})")
+    seconds = {"minitron_s": time.perf_counter() - t_minitron}
+    # the SSM states and MLA latents by cache_pspecs on 1x2 (slice 19)
+    t1 = time.perf_counter()
+    tp_caches = tp_cache_runs(torch, gpu)
+    seconds["ssm_mla_s"] = time.perf_counter() - t1
     # the launcher's --mesh, as a user runs it: it spawns its ranks, each
     # serves the trace, rank 0 reports and returns its completions
     from repro_torch.launch import serve as launch
@@ -2094,10 +2457,11 @@ def sharded_phase(torch, gpu):
             c.finish_reason == "length" and len(c.tokens) > c.prompt_len
             for c in got)):
         raise AssertionError(f"launcher --mesh 1x2: {got}")
+    seconds["launcher_s"] = time.perf_counter() - t1
     emit({"phase": "sharded_launcher", "gpu": gpu, "mesh": "1x2",
           "requests": len(got),
           "new_tokens": [len(c.tokens) - c.prompt_len for c in got],
-          "wall_s": time.perf_counter() - t1})
+          "wall_s": seconds["launcher_s"]})
     result = {"phase": "sharded", "gpu": gpu, "arch": cfg.name,
               "R": cfg.reuse.num_basic, "T": cfg.reuse.reuse_times,
               "d_model": cfg.d_model, "d_ff": cfg.d_ff,
@@ -2108,6 +2472,8 @@ def sharded_phase(torch, gpu):
               "drain_2x1_token_identical": True,
               "drain_requests": len(drain),
               "transport": ranks[0]["transport"],
+              "ssm_mla_1x2": tp_caches,
+              "sub_phase_s": seconds,
               "wall_s": time.perf_counter() - t0}
     emit(result)
     return result
@@ -2712,7 +3078,8 @@ def ssd_cases():
     256, 48 heads of 64, d_state 128) for one prompt of up to 256 tokens,
     one of 300 or 512 (nc 2), a batch of two prompts of 768 tokens and one
     2048-token prompt, each with B/C as the serving path passes them (a
-    stride-0 view over the heads: one group) and materialised; a
+    stride-0 view over the heads: one group) and materialised; a 1x2
+    rank's call in the sharded phase (4 rows of 600 tokens, 24 heads); a
     jamba-width chunk pair (128 heads of 64, d_state 16), where a tile
     sized for N 128 must still be right; and a ragged chunk whose every
     tile is partial (L 100, 6 heads, P 40, N 20), both ways.  Each at two
@@ -2729,6 +3096,9 @@ def ssd_cases():
                               + tail, b, nc, 256, 48, 64, 128, s0, decay))
         cases.append(("b=1 nc=2 L=256 H=128 P=64 N=16 stride-0 B/C" + tail,
                       1, 2, 256, 128, 64, 16, True, decay))
+        # a 1x2 rank's heads of the sharded phase's 4 x 600 prefill
+        cases.append(("b=4 nc=3 L=256 H=24 P=64 N=128 stride-0 B/C" + tail,
+                      4, 3, 256, 24, 64, 128, True, decay))
         for s0 in (True, False):
             cases.append((f"b=1 nc=1 L=100 H=6 P=40 N=20 "
                           f"{'stride-0' if s0 else 'materialised'} B/C"
@@ -2804,6 +3174,38 @@ def ssd_sass_tf32(ssd):
                for line in sass.splitlines())
 
 
+def check_ssd_rank_heads(torch, ssd):
+    """A 1x2 rank's ``ssd_chunk`` call on its 24 of mamba2's 48 heads (4
+    rows of 600 tokens: b=4, nc=3), as ``models/ssm.ssd_chunked`` passes
+    it (x and dA contiguous over the rank's heads, B/C a stride-0 view of
+    the one group), bit-equal to those heads of the 48-head call at both
+    decays: the kernel's result does not depend on the heads beside a
+    head, so the rank's piece of ``h`` is the unsharded one's."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, nc, H, tp = 4, 3, 48, 2
+    rows = []
+    for decay in ("mamba2", "slow"):
+        x, dA, Bh, Ch = ssd_inputs(torch, gen, b, nc, H, 128, True, decay)
+        y, st = ssd.ssd_chunk(x, dA, Bh, Ch)
+        n = H // tp
+        for i in range(tp):
+            hs = slice(i * n, (i + 1) * n)
+            yi, sti = ssd.ssd_chunk(x[:, :, :, hs].contiguous(),
+                                    dA[:, :, hs].contiguous(),
+                                    Bh[:, :, :, hs], Ch[:, :, :, hs])
+            plan = ssd.ssd_launch_plan(b, nc, 256, n, 64, 128, True)
+            same = bool(torch.equal(yi, y[:, :, :, hs])
+                        and torch.equal(sti, st[:, :, hs]))
+            rows.append({"decay": decay, "heads": [hs.start, hs.stop],
+                         "bit_equal": same,
+                         "heads_per_block": plan.heads_per_block,
+                         "blocks": plan.blocks})
+    emit({"phase": "ssd_rank_heads", "cases": rows})
+    if not all(r["bit_equal"] for r in rows):
+        raise AssertionError(f"ssd_chunk on a rank's heads differs from "
+                             f"those heads of the whole call: {rows}")
+
+
 def check_ssd(torch, timer, ssd):
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
@@ -2850,6 +3252,7 @@ def check_ssd(torch, timer, ssd):
         emit(row)
         rows.append(row)
         del args, y, st, want_y, want_st, y2, st2, y3, st3
+    check_ssd_rank_heads(torch, ssd)
     hgmma = ssd_sass_tf32(ssd)
     emit({"phase": "ssd_sass", "tf32_wgmma_instructions": hgmma})
     if not hgmma:
@@ -3777,8 +4180,8 @@ def train_phase(torch, gpu):
     """granite-moe-1b-a400m R&B (6 x 4) at full published width through
     ``repro_torch.launch.train.run``: bf16 compute over float32 masters,
     the copy task, batch 8 x 1024 tokens in 2 microbatches, remat per
-    reuse, AdamW.  A straight 6-step run, then a 3-step run
-    (``checkpoint_every=3``) resumed to step 6 in a scratch directory
+    reuse, AdamW.  A straight 6-step run, then a 3-step run (its final
+    checkpoint at step 3) resumed to step 6 in a scratch directory
     under ``build/`` (removed afterwards), all three deterministic: the
     resumed params and Adam state must equal the straight run's bit for
     bit.  Then one profiled step, and the held-out eval through
@@ -3835,7 +4238,9 @@ def train_phase(torch, gpu):
             ckpt_bytes = sum(f.stat().st_size for f in
                              (scratch / "straight").rglob("*.npz"))
             shutil.rmtree(scratch / "straight")
-            run("resumed", 3, 3)
+            # one save at step 3 (``checkpoint_every=3`` would write the
+            # same step twice: its periodic save and the final one)
+            run("resumed", 3, 0)
             rp, ro, rlosses = run("resumed", TRAIN_STEPS, 0)
         same = all(torch.equal(a, b) for a, b in zip(
             tree_leaves({"p": params, "m": opt.m, "v": opt.v}),
@@ -3952,7 +4357,7 @@ def train_phase(torch, gpu):
 # phase 3m2: training on a mesh of ranks, with and without FSDP (slice 16)
 # -------------------------------------------------------------------------
 TRAIN_MESH = "2x1"
-TRAIN_MESH_STEPS = 3
+TRAIN_MESH_STEPS = 2         # 2 steps, not 3: the script's 1200 s limit
 TRAIN_MESH_TOL = 1e-3       # DP step 0 vs the train phase's step 0; the
                             # mesh eval's CE vs the unsharded einsum route
 
@@ -4187,21 +4592,26 @@ DRYRUN_MEM_RATIO = (0.75, 1.33)   # dry-run per-device GB / the card's peak
 H100_BF16_FLOPS = 989e12
 
 
-def planned_calls(cfg, kind: str, rows: int, seq: int) -> dict:
+def planned_calls(cfg, kind: str, rows: int, seq: int, mesh: str = "1x1",
+                  with_ops: bool = False):
     """The kernels' planned calls of one pass (``kind`` "prefill" of
     ``rows`` x ``seq`` tokens, or "decode" of ``rows`` tokens over ``seq``
-    cached positions) of ``cfg``'s step on one rank of a 1x1 census mesh:
-    the dry-run's step walked on meta tensors, without its census."""
+    cached positions) of ``cfg``'s step on rank 0 of a ``mesh`` census
+    mesh: the dry-run's step walked on meta tensors, without its census.
+    ``with_ops``: also the planned operations per kernel."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import planned
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
 
     run, _ = dryrun.rank_step(cfg, ShapeConfig(kind, seq, rows, kind),
-                              mesh_lib.census_mesh("1x1"))
-    before = planned.snapshot()
+                              mesh_lib.census_mesh(mesh))
+    before, ops0 = planned.snapshot(), dict(planned.ops)
     run()
-    return {k: v - before[k] for k, v in planned.snapshot().items()}
+    calls = {k: v - before[k] for k, v in planned.snapshot().items()}
+    if not with_ops:
+        return calls
+    return calls, {k: v - ops0[k] for k, v in planned.ops.items()}
 
 
 def dryrun_phase(gpu, measured, train):

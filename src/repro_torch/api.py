@@ -47,8 +47,11 @@ Decode steps run eagerly (``graphs.MESH_RULE``).  A 1x1 mesh is the
 unsharded path.  A rank's caches are its piece of the whole caches under
 ``partition.cache_pspecs`` (made at that shape, ``tfm.init_caches(...,
 mesh=)``): KV heads over "model" where they divide, else the positions;
-each serving step carries that layout (``Backend.kv``), so attention runs
-on the rank's own heads or positions (``models/attention.py``).  Not
+MLA latents over the positions; SSM states over their heads and conv tails
+over their channels where "model" divides them.  Each serving step carries
+that layout (``Backend.kv``, ``Backend.ssm``), so attention runs on the
+rank's own heads or positions (``models/attention.py``) and an SSM layer
+on its own heads and channels (``models/ssm.py``).  Not
 ported: sequence- or hidden-sharded residuals (a rank holds whole rows).
 
 The Program keeps the reference's ledger on the default metrics registry:
@@ -206,15 +209,15 @@ def _cache_leaves(tree, name=None):
 
 def _cache_geometry(caches):
     """(whole batch, whole length) of a rank's placed caches, read from the
-    first self-attention K leaf's record (``partition.piece_of``; the
-    length None where the model has none), or None for caches made
-    whole."""
+    first leaf with positions (self-attention K, MLA latents) in its record
+    (``partition.piece_of``; the length None where the model has none, as
+    mamba2), or None for caches made whole."""
     rows = None
     for name, leaf in _cache_leaves(caches):
         rec = partition.piece_of(leaf)
         if rec is None:
             continue
-        if name == "k":
+        if name in ("k", "ckv"):
             return rec[1][2], rec[1][3]
         rows = rows if rows is not None else rec[1][2]
     return None if rows is None else (rows, None)
@@ -222,13 +225,18 @@ def _cache_geometry(caches):
 
 def _with_kv(backend, cfg: ModelConfig, B: int, L):
     """``backend`` carrying the layout of ``cfg``'s caches for a B-row step
-    over ``L`` positions (``partition.KVLayout``) on an active mesh; else
-    ``backend``."""
+    over ``L`` positions on an active mesh: ``kv`` (``partition.KVLayout``:
+    attention heads or positions, MLA latent positions; None without a
+    length) and ``ssm`` (``partition.SSMLayout``: SSM heads and conv
+    channels, for a model with SSM layers); else ``backend``."""
     mesh = _backend_mesh(backend)
-    if mesh is None or L is None:
+    if mesh is None:
         return backend
-    return dataclasses.replace(backend,
-                               kv=partition.kv_layout(cfg, mesh, B, L))
+    kv = None if L is None else partition.kv_layout(cfg, mesh, B, L)
+    ssm = None if cfg.ssm is None else partition.ssm_layout(cfg, mesh)
+    if kv is None and ssm is None:
+        return backend
+    return dataclasses.replace(backend, kv=kv, ssm=ssm)
 
 
 def _kv_of(backend, cfg: ModelConfig, caches):
@@ -239,12 +247,14 @@ def _kv_of(backend, cfg: ModelConfig, caches):
 
 def _constrain_caches(caches, cfg: ModelConfig, backend, B: int, L):
     """The cache placement of a B-row step over ``L`` positions (None: the
-    length recorded on the caches): a rank's caches must be its pieces
-    under ``partition.placed_cache_pspecs`` (``cache_pspecs``: batch over
-    the data axes, KV heads over "model" where they divide, else the
-    positions; MLA latents and SSM states keep only their batch entry).
-    Raises when a leaf holds other rows, heads or positions than its
-    piece.  No-op off-mesh and on a 1x1 mesh."""
+    length recorded on the caches): every leaf of a rank's caches must be
+    its piece under ``partition.cache_pspecs`` (batch over the data axes;
+    KV heads over "model" where they divide, else the positions; MLA
+    latents by their positions; SSM states by their heads and conv tails by
+    their channels where "model" divides them).  A conv tail may hold fewer
+    rows than W-1 (a prompt shorter than that).  Raises when a leaf holds
+    other rows, heads, channels or positions than its piece.  No-op
+    off-mesh and on a 1x1 mesh."""
     mesh = _backend_mesh(backend)
     if mesh is None:
         return caches
@@ -254,13 +264,15 @@ def _constrain_caches(caches, cfg: ModelConfig, backend, B: int, L):
     want = tfm.init_caches(cfg, B, L, device="meta", mesh=mesh)
     for (name, got), (_, ref) in zip(_cache_leaves(caches),
                                      _cache_leaves(want)):
-        whole = name in ("k", "v", "ck", "cv")
-        if got.shape[2] != ref.shape[2] or (
-                whole and tuple(got.shape) != tuple(ref.shape)):
+        g, r = tuple(got.shape), tuple(ref.shape)
+        if name == "conv" and len(g) == len(r) and g[3] <= r[3]:
+            g = g[:3] + g[4:]
+            r = r[:3] + r[4:]
+        if g != r:
             raise ValueError(
                 f"cache leaf {name!r} {tuple(got.shape)} on a rank whose "
                 f"piece of a {B}-row step over {L} positions is "
-                f"{tuple(ref.shape)} (rows, heads, positions: "
+                f"{tuple(ref.shape)} (rows, heads, channels, positions: "
                 f"partition.cache_pspecs)")
     return caches
 

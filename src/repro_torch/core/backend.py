@@ -228,6 +228,9 @@ class Backend:
                                       # per step by the Program): where a
                                       # rank's attention heads or positions
                                       # lie
+    ssm: Any = None                   # partition.SSMLayout of the same
+                                      # step: a rank's SSM heads and conv
+                                      # channels
 
     def __post_init__(self):
         if self.execution not in EXECUTIONS:

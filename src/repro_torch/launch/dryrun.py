@@ -16,8 +16,8 @@ on a 512-rank mesh walks on a laptop's CPU.
     ``cfg.fsdp``, whole otherwise), Adam state, the global batch (every
     rank passes it, as the Program's methods take it) and, for decode, its
     pieces of the caches under ``partition.cache_pspecs`` (its rows, and
-    its KV heads or its block of the positions), as a prefill makes them
-    too.  ``--no-compile`` stops here (``"lowered"``);
+    its KV heads or its block of the positions, its latent positions, its
+    SSM heads and conv channels), as a prefill makes them too.  ``--no-compile`` stops here (``"lowered"``);
   * "compiling" is the walk: aten ops, FLOPs, modelled HBM traffic, the
     peak of live bytes, every collective with its bytes, and each kernel's
     planned calls (``kernels/planned.py``; no launch counter moves).

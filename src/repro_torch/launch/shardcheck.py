@@ -103,10 +103,14 @@ def variant_cfgs() -> dict:
     """Models beside ``small_cfg`` whose sharded logits the gates hold to
     their unsharded ones: an R&B stack (2 basic groups x 4 reuses with
     shuffle and OBU-transpose transforms: square attention banks read
-    transposed, so a rank regathers their fields) and a MoE stack with
+    transposed, so a rank regathers their fields), a MoE stack with
     blended experts (the reuse-resident MVM; the expert FFN on the whole
-    batch)."""
-    from repro_torch.configs.base import MoEConfig
+    batch), a Mamba-2 stack whose 8 SSM heads and 80 conv channels divide
+    a "model" axis of 2 or 4 (a rank scans its heads and keeps its pieces
+    of ``h`` and ``conv``), a misdivided one (3 heads: ``h`` whole, its 64
+    conv channels cut) and an MLA stack (its latents over the positions:
+    ``partition.cache_pspecs``)."""
+    from repro_torch.configs.base import MLAConfig, MoEConfig, SSMConfig
     from repro_torch.core.prm import ReuseConfig
     rb = dataclasses.replace(
         small_cfg(), name="shard-rb", num_layers=8,
@@ -117,7 +121,19 @@ def variant_cfgs() -> dict:
         small_cfg(), name="shard-moe", family="moe",
         moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=32,
                       num_basic_experts=2, group_tokens=8))
-    return {"rb": rb, "moe": moe}
+    ssm = dataclasses.replace(
+        small_cfg(), name="shard-ssm", family="ssm", num_heads=0,
+        num_kv_heads=0, d_ff=0,
+        ssm=SSMConfig(d_state=8, head_dim=8, expand=2, chunk=8))
+    ssm_odd = dataclasses.replace(
+        ssm, name="shard-ssm-odd", d_model=24,
+        ssm=SSMConfig(d_state=8, head_dim=16, expand=2, chunk=8))
+    mla = dataclasses.replace(
+        small_cfg(), name="shard-mla", num_kv_heads=4,
+        mla=MLAConfig(kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=4,
+                      v_head_dim=8))
+    return {"rb": rb, "moe": moe, "ssm": ssm, "ssm_odd": ssm_odd,
+            "mla": mla}
 
 
 def seq_steps(prog, cfg, B: int, L: int) -> dict:

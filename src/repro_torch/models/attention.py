@@ -36,8 +36,16 @@ RoPE and no mask: a prefill of 512 rows or more runs flash with
     ``pmax`` and one ``psum`` over exactly those axes, and writes the
     token's K/V in place on the rank that holds its position.
 
+MLA latents always take the positions (``cache_pspecs``; ``Backend.kv``
+with no heads): prefill writes the rank's block of ``ckv`` / ``kr``, a
+chunk gathers the latent buffer over the split axes before its
+up-projection, and the absorbed decode scores the rank's positions, joins
+the softmax's max and sum with a ``pmax`` and a ``psum`` (so its weights
+round to bf16 as the reference's do), sums the context products with a
+second ``psum`` and writes the new latent on the rank whose block holds
+its position.
+
 Training and ``Program.loss`` carry no layout and attend with whole heads.
-MLA and SSM caches keep the batch-over-data placement.
 """
 from __future__ import annotations
 
@@ -82,41 +90,43 @@ def _seq_split(backend):
     return kv if kv is not None and kv.seq_axes else None
 
 
-def _write_positions(cache, k, v, start: int, backend):
+def _write_positions(cache, k, v, start: int, backend, names=("k", "v")):
     """Write the K/V of positions [start, start + C) into the cache view:
     all of them, or on a sequence-split cache those of this rank's
-    block."""
+    block.  ``names``: the leaves (MLA: ``ckv`` and ``kr``)."""
     C = k.shape[1]
-    lo, n = 0, cache["k"].shape[1]
+    lo, n = 0, cache[names[0]].shape[1]
     seq = _seq_split(backend)
     if seq is not None:
         lo, n = seq.window(resolve_backend(backend).mesh)
     a, b = max(start, lo), min(start + C, lo + n)
     if a < b:
-        cache["k"][:, a - lo:b - lo] = k[:, a - start:b - start].to(
-            cache["k"].dtype)
-        cache["v"][:, a - lo:b - lo] = v[:, a - start:b - start].to(
-            cache["v"].dtype)
+        for name, new in zip(names, (k, v)):
+            cache[name][:, a - lo:b - lo] = new[:, a - start:b - start].to(
+                cache[name].dtype)
 
 
-def _write_token(cache, k, v, pos, lo: int):
-    """Write a decode token's K/V (B, 1, KV, hd) at ``pos`` (an int or
-    (B,)) into a cache view that holds positions [lo, lo + L): rows whose
-    position lies elsewhere are left as they are."""
-    L = cache["k"].shape[1]
+
+def _write_token(cache, k, v, pos, lo: int, names=("k", "v")):
+    """Write a decode token's K/V (B, 1, ...) at ``pos`` (an int or (B,))
+    into a cache view that holds positions [lo, lo + L): rows whose
+    position lies elsewhere are left as they are.  ``names``: the leaves
+    (MLA: the latents ``ckv`` and ``kr``)."""
+    L = cache[names[0]].shape[1]
     if not isinstance(pos, torch.Tensor) or pos.ndim == 0:
         p = int(pos) - lo
         if 0 <= p < L:
-            cache["k"][:, p] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][:, p] = v[:, 0].to(cache["v"].dtype)
+            for name, new in zip(names, (k, v)):
+                cache[name][:, p] = new[:, 0].to(cache[name].dtype)
         return
-    idx = pos.to(cache["k"].device).long() - lo
-    hit = ((idx >= 0) & (idx < L))[:, None, None]
+    idx = pos.to(cache[names[0]].device).long() - lo
+    hit = (idx >= 0) & (idx < L)
     idx = idx.clamp(0, L - 1)
     rows = torch.arange(idx.shape[0], device=idx.device)
-    for name, new in (("k", k), ("v", v)):
+    for name, new in zip(names, (k, v)):
         buf = cache[name]
-        buf[rows, idx] = torch.where(hit, new[:, 0].to(buf.dtype),
+        h = hit.reshape((-1,) + (1,) * (buf.ndim - 2))
+        buf[rows, idx] = torch.where(h, new[:, 0].to(buf.dtype),
                                      buf[rows, idx])
 
 
@@ -400,8 +410,7 @@ def mla_forward(p, cfg: ModelConfig, x, *, transpose=False, causal=True,
     y = _mla_attend_latents(p, cfg, x, qn, qr, ckv, kr, causal, None,
                             backend)
     if cache is not None:
-        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
-        cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+        _write_positions(cache, ckv, kr, 0, backend, names=("ckv", "kr"))
         return y, cache
     return y, None
 
@@ -417,10 +426,16 @@ def mla_prefill_chunk(p, cfg: ModelConfig, x, cache, q_offset, *,
     off = int(q_offset)
     positions = off + torch.arange(C, device=x.device)
     qn, qr, ckv_new, kr_new = _mla_qkr(p, cfg, x, positions, backend)
-    cache["ckv"][:, off:off + C] = ckv_new.to(cache["ckv"].dtype)
-    cache["kr"][:, off:off + C] = kr_new.to(cache["kr"].dtype)
-    y = _mla_attend_latents(p, cfg, x, qn, qr, cache["ckv"].to(x.dtype),
-                            cache["kr"].to(x.dtype), True, off, backend)
+    _write_positions(cache, ckv_new, kr_new, off, backend,
+                     names=("ckv", "kr"))
+    ckv, kr = cache["ckv"], cache["kr"]
+    seq = _seq_split(backend)
+    if seq is not None:
+        mesh = resolve_backend(backend).mesh
+        ckv = coll.all_gather(ckv, mesh, seq.seq_axes, dim=1)
+        kr = coll.all_gather(kr, mesh, seq.seq_axes, dim=1)
+    y = _mla_attend_latents(p, cfg, x, qn, qr, ckv.to(x.dtype),
+                            kr.to(x.dtype), True, off, backend)
     return y, cache
 
 
@@ -439,7 +454,9 @@ def mla_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
     attended context only.  The cache is read-only; the one-token latent
     delta is returned.  bf16 rounds where the reference rounds: ``q_lat``
     and the two context products in ``x.dtype``, the scores in float32,
-    the weights cast to ``x.dtype`` before the context products."""
+    the weights cast to ``x.dtype`` before the context products.  On a
+    sequence-split cache (:func:`_mla_decode_seq`) the rank holding the
+    position writes the token itself and no delta is returned."""
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per row, got {S}")
@@ -455,21 +472,58 @@ def mla_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
     q_lat = _mm("bshn,rhn->bshr", qn, w_uk, dt)       # absorb W_uk into q
     scale = 1.0 / torch.tensor(math.sqrt(m.qk_nope_dim + m.qk_rope_dim),
                                dtype=torch.float32)
+    seq = _seq_split(backend)
+    lo = 0 if seq is None else seq.window(resolve_backend(backend).mesh)[0]
     s_c = (_mm("bshr,blr->bhsl", q_lat, ckv)
            + _mm("bshr,blr->bhsl", qr, kr)) * scale
-    valid = _da.seen_mask(pos, L, x.device)[:, None, None, :]
+    valid = _da.seen_mask(pos, L, x.device, lo)[:, None, None, :]
     s_c = s_c.masked_fill(~valid, NEG_INF)
     s_n = (_mm("bshr,blr->bhsl", q_lat, ckv_new.to(dt))
            + _mm("bshr,blr->bhsl", qr, kr_new.to(dt))) * scale
-    att = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1)
-    ctx_lat = (_mm("bhsl,blr->bshr", att[..., :L].to(dt), ckv, dt)
-               + _mm("bhsl,blr->bshr", att[..., L:].to(dt), ckv_new.to(dt),
-                     dt))
+    if seq is not None:
+        ctx_lat = _mla_decode_seq(s_c, s_n, ckv, ckv_new, dt, backend, seq)
+        _write_token(cache, ckv_new, kr_new, pos, lo, names=("ckv", "kr"))
+        delta = None
+    else:
+        att = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1)
+        ctx_lat = (_mm("bhsl,blr->bshr", att[..., :L].to(dt), ckv, dt)
+                   + _mm("bhsl,blr->bshr", att[..., L:].to(dt),
+                         ckv_new.to(dt), dt))
+        delta = {"ckv": ckv_new.to(ckv.dtype), "kr": kr_new.to(kr.dtype)}
     ctx = _mm("bshr,rhv->bshv", ctx_lat, w_uv, dt)
     y = resolve_backend(backend).dot(ctx.reshape(B, S, H * m.v_head_dim),
                                      cast(p["wo"], dt), transpose=False,
                                      tp_hint="row")
-    return y, {"ckv": ckv_new.to(ckv.dtype), "kr": kr_new.to(kr.dtype)}
+    return y, delta
+
+
+def _mla_decode_seq(s_c, s_n, ckv, ckv_new, dt, backend, seq):
+    """The latent context of an absorbed decode step on a sequence-split
+    cache, rounded where the reference rounds it: the rank scores its
+    block of positions (``s_c``, float32, the unseen masked) and the first
+    rank of the split axes counts the new token (``s_n``); a ``pmax`` over
+    exactly those axes gives every rank the global max M and a ``psum`` the
+    softmax's sum, so each rank holds the reference's weights of its
+    positions, cast to ``dt`` before the context product; the rank's
+    float32 product over its positions is summed by a second ``psum`` and
+    rounded to ``dt`` once, as the reference rounds its product over every
+    position.  The new token's product, which every rank holds, is the
+    reference's own.  Returns ctx_lat (B, 1, H, kv_lora) in ``dt``."""
+    mesh = resolve_backend(backend).mesh
+    axes = seq.seq_axes
+    first = mesh.index(axes) == 0
+    m_loc = s_c.amax(dim=-1, keepdim=True)
+    if first:
+        m_loc = torch.maximum(m_loc, s_n)
+    M = coll.pmax(m_loc, mesh, axes)
+    e_c = torch.exp(s_c - M)
+    e_n = torch.exp(s_n - M)
+    den = coll.psum(e_c.sum(dim=-1, keepdim=True) + (e_n if first else 0.0),
+                    mesh, axes)
+    part = _mm("bhsl,blr->bshr", (e_c / den).to(dt), ckv)   # float32
+    ctx_c = coll.psum(part, mesh, axes).to(dt)
+    return ctx_c + _mm("bhsl,blr->bshr", (e_n / den).to(dt),
+                       ckv_new.to(dt), dt)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, length: int, dtype,

@@ -7,7 +7,10 @@ each chunk's state — run in the ``ssd_chunk`` kernel (``kernels/ssd.py``;
 the reference computes them inline); the inter-chunk recurrence over the
 (H, P, N) state and the state-to-output correction stay in torch.
 
-Cache layout (decode): {"h": (B, H, P, N) fp32, "conv": (B, W-1, conv_dim)}.
+Cache layout (decode): {"h": (B, H, P, N) fp32, "conv": (B, W-1, conv_dim)};
+on a mesh a rank's pieces of them (``partition.cache_pspecs``: its heads
+of ``h``, its channels of ``conv``, where "model" divides them), which a
+serving step reads from ``Backend.ssm`` (``ssm_forward``).
 The kernel returns chunk states as (N, P); :func:`ssd_chunked` transposes
 them to the carried (P, N) layout in one place.
 
@@ -27,6 +30,7 @@ from repro_torch.core.backend import resolve as resolve_backend
 from repro_torch.kernels import ops
 from repro_torch.kernels.photonic_mvm import apply_activation
 from repro_torch.models.layers import apply_norm, cast, dense_init
+from repro_torch.sharding import collectives as coll
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -172,31 +176,95 @@ def _gate_norm(p, cfg: ModelConfig, y, z):
                       y * apply_activation(z, "silu"), "rms", cfg.norm_eps)
 
 
+def _channels(bk):
+    """This rank's conv channels (a slice) when the step's layout cuts
+    them over "model", else None."""
+    lay = bk.ssm
+    if lay is None or not lay.channels:
+        return None
+    return slice(lay.chan_lo, lay.chan_lo + lay.n_chans)
+
+
+def _join_channels(y, bk):
+    """The conv output of the rank's channels gathered whole over "model"
+    (a concatenation: exact)."""
+    if _channels(bk) is None:
+        return y
+    return coll.all_gather(y.contiguous(), bk.mesh, "model", dim=-1)
+
+
+def _head_inputs(cfg: ModelConfig, p, xBC, dt, bk, lead):
+    """The SSD inputs of the step's heads: every head, or under a layout
+    that cuts them the rank's heads [head_lo, head_lo + n_heads) with the
+    B/C of their groups.  ``xBC`` (lead..., conv_dim) is the whole conv
+    output, ``dt`` (lead..., H) the raw step sizes.  Returns x (lead..., h,
+    P), B and C (lead..., g, N), dt after softplus (float32), A, and D."""
+    s = cfg.ssm
+    d_in, H, _ = ssm_dims(cfg)
+    P, N = s.head_dim, s.d_state
+    gn = s.n_groups * N
+    lay = bk.ssm
+    h0, nh, g0, ng = 0, H, 0, s.n_groups
+    if lay is not None and lay.heads:
+        h0, nh, g0, ng = lay.head_lo, lay.n_heads, lay.group_lo, lay.n_groups
+    hs = slice(h0, h0 + nh)
+    xs = xBC[..., h0 * P:(h0 + nh) * P].reshape(*lead, nh, P)
+    Bm = xBC[..., d_in + g0 * N:d_in + (g0 + ng) * N].reshape(*lead, ng, N)
+    Cm = xBC[..., d_in + gn + g0 * N:d_in + gn + (g0 + ng) * N].reshape(
+        *lead, ng, N)
+    # softplus and exp over every head, then the rank's: an elementwise op
+    # on a slice may take another vector path on the CPU than on the whole
+    dt = _softplus(dt.to(torch.float32) + p["dt_bias"])[..., hs]
+    A = (-torch.exp(p["A_log"]))[..., hs]
+    return xs, Bm, Cm, dt, A, p["D"][..., hs]
+
+
+def _join_heads(y, bk):
+    """y (..., h, P) of the rank's heads gathered over "model" into every
+    head (exact) when the layout cuts them."""
+    lay = bk.ssm
+    if lay is None or not lay.heads:
+        return y
+    return coll.all_gather(y.contiguous(), bk.mesh, "model", dim=-2)
+
+
 def ssm_forward(p, cfg: ModelConfig, x, *, transpose=False,
                 return_cache=False, backend=None):
     """Full-sequence mamba2 block (train / prefill).  With
     ``return_cache`` it also returns {"h": the final state, "conv": the
-    last min(S, W-1) pre-conv xBC rows}."""
+    last min(S, W-1) pre-conv xBC rows}.
+
+    A serving step on a mesh whose layout (``Backend.ssm``) cuts the SSM
+    caches: ``w_in``'s output is gathered whole (its column split does not
+    fall on the z | xBC | dt bounds); the depthwise conv runs on the rank's
+    channels and is all-gathered; ``ssd_chunk`` scans the rank's heads
+    (with every group's B/C they read) and ``h`` keeps them; y is gathered
+    over the heads before the gated RMSNorm (exact: the norm spans all of
+    d_in), and ``w_out`` takes the whole normed y by its own rule (no
+    ``tp_hint``, as in the reference: column where "model" divides d).  The
+    conv tail keeps the rank's channels of the second ``w_in`` dot."""
     bk = resolve_backend(backend)
     s = cfg.ssm
     B_, S, d = x.shape
     d_in, H, _ = ssm_dims(cfg)
     proj = bk.dot(x, cast(p["w_in"], x.dtype), transpose=False)
     z, xBC, dt = _split_in(cfg, proj)
-    xBC = _causal_conv(xBC, p["conv_k"].to(x.dtype))
-    gn = s.n_groups * s.d_state
-    xs = xBC[..., :d_in].reshape(B_, S, H, s.head_dim)
-    Bm = xBC[..., d_in:d_in + gn].reshape(B_, S, s.n_groups, s.d_state)
-    Cm = xBC[..., d_in + gn:].reshape(B_, S, s.n_groups, s.d_state)
-    dt = _softplus(dt.to(torch.float32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    ch = _channels(bk)
+    kernel = p["conv_k"].to(x.dtype)
+    if ch is not None:
+        xBC, kernel = xBC[..., ch], kernel[:, ch]
+    xBC = _join_channels(_causal_conv(xBC, kernel), bk)
+    xs, Bm, Cm, dt, A, D = _head_inputs(cfg, p, xBC, dt, bk, (B_, S))
     y, h_last = ssd_chunked(xs, dt, A, Bm, Cm, s.chunk)
-    y = y + p["D"].to(x.dtype)[None, None, :, None] * xs
+    y = y + D.to(x.dtype)[None, None, :, None] * xs
+    y = _join_heads(y, bk)
     y = _gate_norm(p, cfg, y.reshape(B_, S, d_in), z)
     out = bk.dot(y, cast(p["w_out"], x.dtype),
                  transpose=transpose and d_in == d)
     if return_cache:
-        return out, {"h": h_last, "conv": _conv_tail(cfg, x, p, bk)}
+        tail = _conv_tail(cfg, x, p, bk)
+        return out, {"h": h_last,
+                     "conv": tail if ch is None else tail[..., ch]}
     return out, None
 
 
@@ -217,7 +285,10 @@ def ssm_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
     """Single-token recurrent step. x: (B,1,d).  Returns (out, full-slice
     cache update).  A conv cache shorter than W-1 rows (a prefill of fewer
     than W-1 tokens) reads its last row for the missing taps, as the
-    reference's clamped indexing does."""
+    reference's clamped indexing does.  Under a layout that cuts the
+    caches (``ssm_forward``) the conv runs on the rank's channels against
+    its ``conv`` piece and the state step on its heads against its ``h``
+    piece."""
     bk = resolve_backend(backend)
     s = cfg.ssm
     B_, S, d = x.shape
@@ -225,27 +296,28 @@ def ssm_decode(p, cfg: ModelConfig, x, cache, pos, *, transpose=False,
     d_in, H, _ = ssm_dims(cfg)
     proj = bk.dot(x, cast(p["w_in"], x.dtype), transpose=False)
     z, xBC_new, dt = _split_in(cfg, proj)               # (B,1,*)
+    ch = _channels(bk)
+    kernel = p["conv_k"].to(x.dtype)
+    if ch is not None:
+        xBC_new, kernel = xBC_new[..., ch], kernel[:, ch]
     # causal conv against the cached tail
     hist = torch.cat([cache["conv"], xBC_new.to(cache["conv"].dtype)], dim=1)
-    kernel = p["conv_k"].to(x.dtype)
     last = hist.shape[1] - 1
     conv_out = sum(kernel[w][None, :] * hist[:, min(w, last), :]
                    for w in range(s.conv_width))
-    xBC = apply_activation(conv_out, "silu")[:, None, :]
-    gn = s.n_groups * s.d_state
-    xs = xBC[..., :d_in].reshape(B_, H, s.head_dim)
-    Bm = xBC[..., d_in:d_in + gn].reshape(B_, s.n_groups, s.d_state)
-    Cm = xBC[..., d_in + gn:].reshape(B_, s.n_groups, s.d_state)
-    rep = H // s.n_groups
+    xBC = _join_channels(apply_activation(conv_out, "silu"), bk)[:, None, :]
+    xs, Bm, Cm, dt, A, D = _head_inputs(cfg, p, xBC, dt[:, 0, :], bk, (B_,))
+    rep = xs.shape[1] // Bm.shape[1]
     Bh = Bm.repeat_interleave(rep, dim=1).to(torch.float32)
     Ch = Cm.repeat_interleave(rep, dim=1).to(torch.float32)
-    dt = _softplus(dt[:, 0, :].to(torch.float32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
     dA = torch.exp(dt * A[None, :])
     h = cache["h"] * dA[:, :, None, None] + torch.einsum(
         "bhn,bhp->bhpn", Bh, xs.to(torch.float32) * dt[..., None])
-    y = torch.einsum("bhn,bhpn->bhp", Ch, h)
-    y = y.to(x.dtype) + p["D"].to(x.dtype)[None, :, None] * xs
+    # the read-out C h as a product and a sum over N: a head's bits do not
+    # depend on the heads beside it (a batched matmul's do on the card)
+    y = (Ch[:, :, None, :] * h).sum(-1)
+    y = y.to(x.dtype) + D.to(x.dtype)[None, :, None] * xs
+    y = _join_heads(y, bk)
     y = _gate_norm(p, cfg, y.reshape(B_, 1, d_in), z)
     out = bk.dot(y, cast(p["w_out"], x.dtype),
                  transpose=transpose and d_in == d)

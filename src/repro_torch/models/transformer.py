@@ -494,8 +494,8 @@ def init_caches(cfg: ModelConfig, batch: int, length: int,
 
     On an active ``mesh`` (a rank's), ``batch`` is the step's whole batch
     and every leaf is made at this rank's piece of the whole cache under
-    ``partition.placed_cache_pspecs`` (never whole and then cut), marked
-    with its spec and whole shape (``partition.piece_of``)."""
+    ``partition.cache_pspecs`` (never whole and then cut), marked with its
+    spec and whole shape (``partition.piece_of``)."""
     check_ported(cfg)
     dev = resolve_device(device)
     placed = mesh is not None and mesh.size > 1
@@ -520,8 +520,7 @@ def init_caches(cfg: ModelConfig, batch: int, length: int,
                         dtype=whole.dtype, device=dev)
         return partition.mark_piece(t, spec, whole.shape)
 
-    return piece(caches, partition.placed_cache_pspecs(cfg, mesh, batch,
-                                                       length))
+    return piece(caches, partition.cache_pspecs(cfg, mesh, batch, length))
 
 
 def has_ssm(cfg: ModelConfig) -> bool:

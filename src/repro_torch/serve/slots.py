@@ -13,8 +13,8 @@ mesh=)``).  The slot axis spans the mesh's ``dp`` data shards in
 contiguous blocks (capacity must divide): every rank keeps the bookkeeping
 of all slots, but its caches hold only its shard's block (capacity / dp
 rows; ``lo`` is the block's first slot), which is what a decode step on
-the rank's rows reads; KV heads or positions are cut over "model" as the
-spec says.  ``write_prefill`` is collective there (every rank calls it, as
+the rank's rows reads; KV heads or positions, MLA latent positions, SSM
+heads and conv channels are cut over "model" as the spec says.  ``write_prefill`` is collective there (every rank calls it, as
 every rank runs the scheduler's loop): a prefill cache whose positions are
 cut (over other axes or lengths than the pool's) is gathered whole over
 its axes, then each rank writes its block.  ``allocate`` packs per-shard
@@ -47,36 +47,52 @@ class SlotState:
     padded_to: int = 0             # prefill compile-bucket length
 
 
-def _positions_whole(pre, mesh):
-    """Tree ``pre`` with every leaf whose positions (dim 3) are cut
-    gathered whole over the cut's axes (``partition.piece_of``)."""
+def _cut_positions(t, name):
+    """(positions dim, its spec entry) of cache leaf ``name`` when the
+    rank's piece ``t`` has its positions cut over some axes
+    (``partition.positions_dim``, ``partition.piece_of``), else None."""
+    dim, rec = partition.positions_dim(name), partition.piece_of(t)
+    if dim is None or rec is None or not partition.cuts(
+            rec[0][dim:dim + 1]):
+        return None
+    return dim, rec[0][dim]
+
+
+def _positions_whole(pre, mesh, name=None):
+    """Tree ``pre`` with every leaf whose positions are cut gathered whole
+    over the cut's axes (:func:`_cut_positions`)."""
     if isinstance(pre, dict):
-        return {k: _positions_whole(v, mesh) for k, v in pre.items()}
-    rec = partition.piece_of(pre)
-    if rec is None or not partition.cuts(rec[0][3:4]):
+        return {k: _positions_whole(v, mesh, k) for k, v in pre.items()}
+    cut = _cut_positions(pre, name)
+    if cut is None:
         return pre
-    return partition.gather_leaf(pre, (None,) * 3 + rec[0][3:4], mesh)
+    dim, entry = cut
+    return partition.gather_leaf(pre, (None,) * dim + (entry,), mesh)
 
 
-def _insert(pool, pre, slot: int, mesh=None) -> None:
+def _insert(pool, pre, slot: int, mesh=None, name=None) -> None:
     """Write each prefill leaf's whole extent at (0, 0, slot, 0, 0, ...) of
-    its pool leaf, as the reference's ``dynamic_update_slice``: K/V rows
-    0..Lp-1, an SSM state whole, a conv tail at its leading rows.  A pool
-    leaf holding a block of positions (``partition.piece_of``) takes the
-    prefill rows of that block."""
+    its pool leaf, as the reference's ``dynamic_update_slice``: K/V and
+    latent rows 0..Lp-1, an SSM state whole, a conv tail at its leading
+    rows.  A pool leaf holding a block of positions
+    (:func:`_cut_positions`) takes the prefill rows of that block; a piece
+    of other heads or channels (an SSM state's heads, a conv tail's
+    channels) is the prefill's piece of the same cut and copies as it
+    is."""
     if isinstance(pool, dict):
         for k in pool:
-            _insert(pool[k], pre[k], slot, mesh)
+            _insert(pool[k], pre[k], slot, mesh, k)
         return
     if pre.ndim != pool.ndim:
         raise ValueError(f"prefill leaf rank {pre.ndim} != pool rank "
                          f"{pool.ndim}")
-    rec = partition.piece_of(pool)
-    if rec is not None and partition.cuts(rec[0][3:4]):
-        _, i = partition.piece(mesh, rec[0][3])
-        n = pool.shape[3]
-        pre = pre.narrow(3, min(i * n, pre.shape[3]),
-                         max(0, min(n, pre.shape[3] - i * n)))
+    cut = _cut_positions(pool, name)
+    if cut is not None:
+        dim, entry = cut
+        _, i = partition.piece(mesh, entry)
+        n = pool.shape[dim]
+        pre = pre.narrow(dim, min(i * n, pre.shape[dim]),
+                         max(0, min(n, pre.shape[dim] - i * n)))
     if pre.shape[2] != 1 or any(a > b for a, b in zip(pre.shape, pool.shape)):
         raise ValueError(f"batch-1 prefill leaf {tuple(pre.shape)} does not "
                          f"fit pool leaf {tuple(pool.shape)}")

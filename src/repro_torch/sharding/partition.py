@@ -30,10 +30,12 @@ every parameter whole over "model"), :func:`local_tree` cuts a rank's
 pieces of a parameter tree and :func:`gather_tree` all-gathers them back
 into the logical layout; :func:`scatter_leaf` reduce-scatters a whole
 gradient into the rank's piece.  A rank's caches are its pieces under
-:func:`placed_cache_pspecs` (``cache_pspecs``, MLA latents and SSM states
-by their batch entry only), each made at :func:`local_shape` and marked
-with its spec and whole shape (:func:`mark_piece` / :func:`piece_of`);
-:func:`kv_layout` says where a step's attention heads or positions lie.
+:func:`cache_pspecs`, each made at :func:`local_shape` and marked with
+its spec and whole shape (:func:`mark_piece` / :func:`piece_of`);
+:func:`positions_dim` names the dim of a leaf's positions by its key;
+:func:`kv_layout` says where a step's attention heads or positions (MLA:
+latent positions) lie, :func:`ssm_layout` where its SSM heads and conv
+channels do.
 """
 from __future__ import annotations
 
@@ -271,21 +273,15 @@ def replicated(mesh) -> tuple:
 
 
 # ------------------------------------------------------------ cache pieces
-# the leaves the port places by ``cache_pspecs``: self-attention K/V and
-# cross-attention K/V.  MLA latents and SSM states keep the data-axes part
-# of their spec (a rank holds its rows, every position, head and channel).
-_PLACED_CACHE_LEAVES = ("k", "v", "ck", "cv")
+# the cache leaves whose dim 3 holds positions (self-attention K/V, MLA
+# latents); an SSM state's dim 3 is its heads, a conv tail's its rows, a
+# cross-attention leaf's the memory rows
+_POSITION_LEAVES = ("k", "v", "ckv", "kr")
 
 
-def placed_cache_pspecs(cfg, mesh, batch: int, seq_len: int) -> Any:
-    """The spec tree a rank's caches are cut by (:func:`cache_pspecs`, the
-    MLA and SSM leaves reduced to their data-axes entries)."""
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict)
-                else v if k in _PLACED_CACHE_LEAVES else data_spec(v, mesh)
-                for k, v in tree.items()}
-
-    return walk(cache_pspecs(cfg, mesh, batch, seq_len))
+def positions_dim(name: str):
+    """The positions dim of cache leaf ``name`` (3), or None."""
+    return 3 if name in _POSITION_LEAVES else None
 
 
 def local_shape(shape, spec: tuple, mesh) -> tuple:
@@ -304,8 +300,8 @@ def local_shape(shape, spec: tuple, mesh) -> tuple:
 def mark_piece(t, spec: tuple, whole_shape):
     """Record on ``t`` (a cache leaf made at a rank's local shape) the spec
     it was cut by and the whole tensor's shape (:func:`piece_of`): a step
-    given the caches reads where its rows, heads and positions lie.  A view
-    of ``t`` does not carry the record."""
+    given the caches reads where its rows, heads, channels and positions
+    lie.  A view of ``t`` does not carry the record."""
     t.repro_piece = (tuple(spec), tuple(int(n) for n in whole_shape))
     return t
 
@@ -341,12 +337,79 @@ class KVLayout:
 
 def kv_layout(cfg, mesh, batch: int, seq_len: int) -> KVLayout:
     """The :class:`KVLayout` of ``cfg``'s caches for a ``batch``-row step
-    over ``seq_len`` positions on ``mesh``."""
+    over ``seq_len`` positions on ``mesh``.  MLA latents always take the
+    sequence entry (``cache_pspecs``: no head axis), even on a mesh whose
+    "model" axis has one rank, where one row leaves the data axes to the
+    positions; axes of one position in all cut nothing."""
     tp = mesh.shape["model"]
-    heads = tp > 1 and _heads_ok(cfg, mesh)
-    seq = () if heads or tp == 1 else _entry_axes(
-        _seq_axes(mesh, batch, seq_len))
+    if cfg.mla is not None:
+        heads, seq = False, _entry_axes(_seq_axes(mesh, batch, seq_len))
+    else:
+        heads = tp > 1 and _heads_ok(cfg, mesh)
+        seq = () if heads or tp == 1 else _entry_axes(
+            _seq_axes(mesh, batch, seq_len))
+    if mesh.axis_size(seq) == 1:
+        seq = ()
     return KVLayout(heads, seq, int(seq_len))
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMLayout:
+    """Where a serving step's SSM caches put their heads and channels on
+    an active mesh (``cache_pspecs``: ``h`` over "model" where it divides
+    the H heads, ``conv`` where it divides the conv_dim channels):
+
+      * ``heads``: a rank's ``h`` holds heads [head_lo, head_lo +
+        n_heads); it scans only those through ``ssd_chunk``, with the B/C
+        of groups [group_lo, group_lo + n_groups);
+      * ``channels``: a rank's ``conv`` tail holds channels [chan_lo,
+        chan_lo + n_chans); it runs the depthwise conv on those only.
+
+    A part not cut is whole: the whole range on every rank."""
+    heads: bool
+    channels: bool
+    head_lo: int
+    n_heads: int
+    group_lo: int
+    n_groups: int
+    chan_lo: int
+    n_chans: int
+
+
+def ssm_layout(cfg, mesh) -> SSMLayout:
+    """The :class:`SSMLayout` of ``cfg``'s SSM caches on ``mesh`` (it
+    depends on neither the batch nor the length).  Where the heads are cut
+    and ``n_groups > 1``, a rank's heads must lie within whole groups or
+    within one group: a cut that would give a rank part of one group and
+    part of another raises."""
+    from repro_torch.models.ssm import ssm_dims
+
+    _, H, conv_dim = ssm_dims(cfg)
+    G = cfg.ssm.n_groups
+    tp = mesh.shape["model"]
+    i = mesh.index("model")
+    heads = tp > 1 and H % tp == 0
+    channels = tp > 1 and conv_dim % tp == 0
+    head_lo, n_heads, group_lo, n_groups = 0, H, 0, G
+    if heads:
+        n_heads = H // tp
+        head_lo = i * n_heads
+        rep = H // G
+        if n_heads % rep == 0:
+            group_lo, n_groups = head_lo // rep, n_heads // rep
+        elif rep % n_heads == 0:
+            group_lo, n_groups = head_lo // rep, 1
+        else:
+            raise ValueError(
+                f"{cfg.name}: {H} SSM heads over {tp} 'model' ranks give a "
+                f"rank {n_heads} heads across groups of {rep} "
+                f"(n_groups={G}): a cut that splits a group")
+    chan_lo, n_chans = 0, conv_dim
+    if channels:
+        n_chans = conv_dim // tp
+        chan_lo = i * n_chans
+    return SSMLayout(heads, channels, head_lo, n_heads, group_lo, n_groups,
+                     chan_lo, n_chans)
 
 
 # ------------------------------------------------------- logical-axis specs

@@ -1,6 +1,7 @@
 """What the gloo ranks of ``tests/test_torch_train_mesh.py``,
-``tests/test_torch_fsdp.py``, ``tests/test_torch_dryrun.py`` and
-``tests/test_torch_tp_attention.py`` run (``launch.mesh.init_ranks``
+``tests/test_torch_fsdp.py``, ``tests/test_torch_dryrun.py``,
+``tests/test_torch_tp_attention.py`` and ``tests/test_torch_tp_ssm_mla.py``
+run (``launch.mesh.init_ranks``
 imports a rank's function in each child process).  This module imports the port
 only, so a rank starts without JAX; the test files hold its results
 against the reference."""
@@ -290,6 +291,88 @@ def tp_attention_rank(mesh, job):
                                            backend=bk)
         out["pairing"] = {"bit_equal": eq, "heads": heads.kv.heads,
                           "attention": (y_local, y_whole)}
+    for name, requests in job.get("drain", {}).items():
+        sched = ContinuousScheduler(progs[name], capacity=4, max_len=24)
+        for rid, prompt, max_new in requests:
+            sched.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+        out["drain"][name] = {c.rid: c.tokens.tolist()
+                              for c in sched.drain()}
+    if job.get("cells"):
+        out["census"] = census_rank(mesh, job["cells"])
+    return out
+
+
+def leaf_tree(caches) -> dict:
+    """``{(segment, layer, leaf): tensor}`` of a cache tree."""
+    return {(seg, layer, leaf): t for seg, group in caches.items()
+            for layer, leaves in group.items() for leaf, t in leaves.items()}
+
+
+def ssm_mla_steps(prog, cfg, B: int, L: int, chunk=None) -> dict:
+    """The SSM / MLA gates' steps on ``prog``: a prefill of the first
+    ``shardcheck.SEQ_PROMPT`` tokens of ``B`` rows of the shardcheck inputs
+    into ``L``-position caches (in chunks of ``chunk`` when given), decode
+    steps at the positions after it on the inputs' next tokens, then one
+    at per-row positions.  Returns the logits of every step, the shapes of
+    the prefill's cache leaves and the leaves themselves (copies)."""
+    from repro_torch.launch import shardcheck as sc
+
+    toks = sc.small_inputs(cfg)[:B]
+    S = toks.shape[1]
+    batch = {"tokens": toks[:, :sc.SEQ_PROMPT]}
+    if chunk is None:
+        logits, caches = prog.prefill(batch, L)
+    else:
+        logits, caches = prog.prefill_chunked(batch, L, chunk)
+    pieces = {k: t.clone() for k, t in leaf_tree(caches).items()}
+    out = [logits]
+    for pos in range(sc.SEQ_PROMPT, S):
+        lg, caches = prog.decode(toks[:, pos:pos + 1], caches, pos)
+        out.append(lg)
+    lg, caches = prog.decode(toks[:, -1:], caches,
+                             S - torch.arange(B))
+    out.append(lg)
+    return {"logits": out, "pieces": pieces,
+            "shapes": {k: tuple(t.shape) for k, t in pieces.items()}}
+
+
+def tp_ssm_mla_rank(mesh, job):
+    """The SSM and MLA checks of ``tests/test_torch_tp_ssm_mla.py`` on one
+    rank: per Program of ``job["programs"]`` ({name: (cfg, params,
+    execution)}) :func:`ssm_mla_steps` at each (rows, cache length) of
+    ``job["cases"]`` (``job["chunked"]``: names whose prefill also runs in
+    chunks of 4), a decode step given whole caches on each Program of
+    ``job["refuse"]`` (the error it raises, or None), ``job["drain"]``
+    ({name: requests}) drained by a ``ContinuousScheduler`` and the
+    collectives of ``job["cells"]`` (:func:`census_rank`)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    torch.set_num_threads(1)
+    out = {"programs": {}, "drain": {}}
+    progs = {}
+    for name, (cfg, params, execution) in job["programs"].items():
+        prog = api.Program.build(cfg, params, execution=execution, mesh=mesh)
+        progs[name] = prog
+        steps = {case: ssm_mla_steps(prog, cfg, *case)
+                 for case in job["cases"]}
+        if name in job.get("chunked", ()):
+            for B, L in job["cases"]:
+                steps[("chunked", B, L)] = ssm_mla_steps(prog, cfg, B, L,
+                                                         chunk=4)
+        out["programs"][name] = steps
+    out["refused"] = {}
+    for name in job.get("refuse", ()):
+        # caches made whole (no mesh) on a rank whose pieces are cut
+        prog = progs[name]
+        whole = tfm.init_caches(prog.cfg, 4, 16, dtype=torch.float32,
+                                device="cpu")
+        try:
+            prog.decode(torch.ones((4, 1), dtype=torch.long), whole, 5)
+            out["refused"][name] = None
+        except ValueError as e:
+            out["refused"][name] = str(e)
     for name, requests in job.get("drain", {}).items():
         sched = ContinuousScheduler(progs[name], capacity=4, max_len=24)
         for rid, prompt, max_new in requests:

@@ -114,12 +114,14 @@ def test_photonic_logits_within_bound_of_jax_and_port_unsharded(which):
 
 
 @pytest.mark.parametrize("which", ["1x2", "2x2"])
-@pytest.mark.parametrize("variant", ["rb", "moe"])
+@pytest.mark.parametrize("variant", ["rb", "moe", "ssm", "ssm_odd", "mla"])
 def test_rb_and_moe_variants_within_bound_of_unsharded(which, variant):
     """An R&B stack whose square attention banks are read transposed (a
-    rank regathers those fields over "model") and a MoE stack with
-    blended experts (the reuse-resident MVM column-split; the expert FFN
-    on the whole batch) against their unsharded port programs."""
+    rank regathers those fields over "model"), a MoE stack with blended
+    experts (the reuse-resident MVM column-split; the expert FFN on the
+    whole batch), Mamba-2 stacks with their SSM heads cut over "model" and
+    whole (3 heads), and an MLA stack with its latents over the positions,
+    against their unsharded port programs."""
     _, rep = _photonic_1x2() if which == "1x2" else _photonic_2x2()
     ul, ud = rep["unsharded_variants"][variant]
     for r in rep["ranks"]:
