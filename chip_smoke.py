@@ -1888,6 +1888,8 @@ def sharded_rank(mesh, job):
     if len(records) != per_prefill + per_decode:
         raise AssertionError(f"rank {mesh.rank}: {len(records)} taught "
                              f"dots, {per_prefill + per_decode} expected")
+    if job.get("act_modes"):
+        out["act_modes"] = act_mode_prefills(prog, cfg, prompts)
     if job.get("fsdp"):
         dense_bytes = bank_bytes(prog.bank)
         del prog, whole, caches
@@ -1901,6 +1903,110 @@ def sharded_rank(mesh, job):
                 "fused_per_decode": per_decode, "taught_dots": taught,
                 "wq_shapes": sorted(wq_shapes),
                 "rank_wall_s": time.perf_counter() - t_rank})
+    return out
+
+
+# the residual cut over "model" (slice 20): minitron's 1x2 prefill with
+# the "seq" and "hidden" specs against the serving spec's on each rank
+ACT_HIDDEN_TOL = 2.0 ** -8    # a "hidden" layer's residual piece vs the
+                              # serving spec's channels (bf16)
+
+
+def act_mode_prefills(prog, cfg, prompts) -> dict:
+    """On a rank's Program (its placed bank), the functional prefill
+    (``api.prefill_step_fn`` over the bank) of ``prompts`` under the
+    serving spec ("replicated") and the "seq" and "hidden" specs: per
+    mode the wall, the fused launches (each held to its plain version,
+    ``checked_kernels``), and every layer's residual as the rank holds it
+    (``transformer.apply_layer``'s output): its bytes, and against the
+    serving spec's layer output (the rank's block of positions, bit for
+    bit, or of channels, within ``ACT_HIDDEN_TOL``).  The last logits
+    under "seq" and "hidden" must equal the serving spec's bit for bit.
+    Raises on a failed gate."""
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import counts
+    from repro_torch.models import transformer as tfm
+
+    bk = prog.backend
+    mesh = bk.mesh
+    B = prompts.shape[0]
+    layer = tfm.apply_layer
+    base, out, bad = {}, {}, []
+    for mode in ("replicated", "seq", "hidden"):
+        ap = (api._serve_act_pspec(bk, B) if mode == "replicated"
+              else api._act_pspec_of(bk, B, mode))
+        fn = api.prefill_step_fn(cfg, SHARD_PROMPT + 1, act_pspec=ap,
+                                 execution=bk)
+        hs = []
+
+        def recorded(*a, **k):
+            h, c, aux = layer(*a, **k)
+            hs.append(h)
+            return h, c, aux
+
+        worst = {}
+        tfm.apply_layer = recorded
+        counts.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with checked_kernels(worst):
+                logits, caches = fn(prog.bank, {"tokens": prompts})
+            torch.cuda.synchronize()
+        finally:
+            tfm.apply_layer = layer
+        wall = time.perf_counter() - t0
+        launches = counts.snapshot()
+        del caches
+        r = {"wall_s": wall, "act_pspec": [str(e) for e in ap],
+             "fused_launches": launches["photonic_mvm_fused"],
+             "flash_launches": launches["flash_attention"],
+             "calls_vs_plain": {k: {"calls": c, "max_rel_l2": e}
+                                for k, (c, e) in worst.items()},
+             "layers": len(hs),
+             "residual_bytes": hs[0].numel() * hs[0].element_size(),
+             "residual_shape": list(hs[0].shape)}
+        calls = worst.get("photonic_mvm_fused", (0, 1.0))
+        if not (calls[0] == r["fused_launches"] > 0
+                and calls[1] <= MVM_TOL and r["flash_launches"] == 0):
+            bad.append(f"{mode}: launches {r}")
+        if mode == "replicated":
+            base = {"logits": logits, "hs": hs}
+            out[mode] = r
+            continue
+        tp = mesh.axis_size("model")
+        m = mesh.index("model")
+        rels, same = [], 0
+        for got, whole in zip(hs, base["hs"]):
+            if mode == "seq":
+                n = whole.shape[1] // tp
+                want = whole[:, m * n:(m + 1) * n]
+            else:
+                n = whole.shape[-1] // tp
+                want = whole[..., m * n:(m + 1) * n]
+            same += bool(torch.equal(got, want))
+            rels.append(rel_l2(got, want))
+        r.update({"layers_bit_equal": same, "max_layer_rel_l2": max(rels),
+                  "residual_bytes_replicated": base["hs"][0].numel()
+                  * base["hs"][0].element_size(),
+                  "logits_bit_equal": bool(torch.equal(logits,
+                                                       base["logits"]))})
+        out[mode] = r
+        if not r["logits_bit_equal"]:
+            bad.append(f"{mode}: logits differ from the serving spec's")
+        if len(hs) != len(base["hs"]) or 2 * r["residual_bytes"] != \
+                r["residual_bytes_replicated"]:
+            bad.append(f"{mode}: residual {r['residual_bytes']} B a layer "
+                       f"of {r['residual_bytes_replicated']} (half)")
+        if mode == "seq" and same != len(hs):
+            bad.append(f"seq: {same} of {len(hs)} layers bit-equal")
+        if mode == "hidden" and not max(rels) <= ACT_HIDDEN_TOL:
+            bad.append(f"hidden: a layer at {max(rels)} rel-L2")
+        del hs
+    del base
+    if bad:
+        raise AssertionError(f"rank {mesh.rank}: act modes {bad}")
     return out
 
 
@@ -2283,7 +2389,12 @@ def sharded_phase(torch, gpu):
     mamba2-780m R&B and deepseek-v2-lite-16b R&B on 1x2 with their SSM
     states and MLA latents cut by ``cache_pspecs`` (``tp_cache_runs``: the
     SSM logits gated bit-equal to the unsharded Program's).  Last,
-    ``launch.serve``'s ``--mesh 1x2`` serves 4 requests."""
+    ``launch.serve``'s ``--mesh 1x2`` serves 4 requests.  Since slice 20
+    the 1x2 minitron ranks also prefill under the "seq" and "hidden"
+    residual specs (``act_mode_prefills``): logits bit-equal to the
+    serving spec's, every "seq" layer's residual block bit-equal and every
+    "hidden" one within ``ACT_HIDDEN_TOL``, half the residual bytes, each
+    fused launch held to its plain version."""
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.launch import mesh as mesh_lib
@@ -2384,8 +2495,12 @@ def sharded_phase(torch, gpu):
             job["drain"] = drain
             job["fsdp"] = True
             job["two_rows"] = (two, tokens2)
+        else:
+            job["act_modes"] = True
         ranks = mesh_lib.init_ranks(sharded_rank, shape, device="cuda",
                                     args=(job,))
+        if shape == "1x2":
+            act_modes = [r.pop("act_modes") for r in ranks]
         rels = [rel_l2(got, want) for got, want in
                 zip(ranks[0]["logits"], ref)]
         same = all(all(torch.equal(a, b) for a, b in
@@ -2468,6 +2583,7 @@ def sharded_phase(torch, gpu):
               "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
               "padded_vocab": cfg.padded_vocab, "dtype": cfg.compute_dtype,
               "readings": readings,
+              "act_modes_1x2": act_modes,
               "unsharded_route_gap_rel_l2": route_gap,
               "drain_2x1_token_identical": True,
               "drain_requests": len(drain),
@@ -4357,6 +4473,7 @@ def train_phase(torch, gpu):
 # phase 3m2: training on a mesh of ranks, with and without FSDP (slice 16)
 # -------------------------------------------------------------------------
 TRAIN_MESH = "2x1"
+TRAIN_SEQ_MESH = "1x2"       # the reference's train layout ("seq"), slice 20
 TRAIN_MESH_STEPS = 2         # 2 steps, not 3: the script's 1200 s limit
 TRAIN_MESH_TOL = 1e-3       # DP step 0 vs the train phase's step 0; the
                             # mesh eval's CE vs the unsharded einsum route
@@ -4464,6 +4581,50 @@ def train_mesh_rank(mesh, job):
     return out
 
 
+def train_seq_rank(mesh):
+    """One rank of ``train_mesh``'s "seq" run: ``launch.train.run(...,
+    mesh=mesh)`` on granite-moe-1b-a400m R&B at full width, the train
+    phase's setup, ``TRAIN_MESH_STEPS`` steps from seed 0 with no
+    checkpoint (deterministic algorithms on).  The rank holds the
+    reference's whole ``tree_pspecs`` piece of every parameter and Adam
+    moment and trains with its dots tensor-parallel around a residual cut
+    by positions ("seq", ``partition.act_pspec``).  Returns its losses,
+    grad norms, step walls, peak, the bytes of its params plus Adam state
+    and the leaves it holds a "model" piece of."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import partition
+    from repro_torch.train import trainer
+
+    cfg = get_arch(TRAIN_ARCH, reuse=True)
+    tcfg = TrainConfig(lr=1e-3, total_steps=TRAIN_STEPS, warmup_steps=1,
+                       microbatch=2, checkpoint_every=0, checkpoint_dir="")
+    record = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with deterministic(torch):
+        params, opt, losses = launch.run(
+            cfg, tcfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            steps=TRAIN_MESH_STEPS, mesh=mesh, log_every=1, record=record)
+    torch.cuda.synchronize()
+    held = tree_leaves({"p": params, "m": opt.m, "v": opt.v})
+    specs = trainer.param_specs(cfg, mesh)
+    return {"rank": mesh.rank, "coords": mesh.coords,
+            "act_pspec": [str(e) for e in partition.act_pspec(mesh)],
+            "losses": losses,
+            "grad_norms": [float(r["grad_norm"]) for r in record],
+            "step_walls_s": [r["s"] for r in record],
+            "run_s": time.perf_counter() - t0,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_adam_bytes": sum(t.numel() * t.element_size()
+                                     for t in held),
+            "leaves_model_cut": sum(
+                1 for x in _spec_list(specs)
+                if partition.model_dim(x) is not None)}
+
+
 def _spec_list(specs) -> list:
     """The spec tuples of a spec tree (sorted keys)."""
     if isinstance(specs, dict):
@@ -4485,8 +4646,13 @@ def train_mesh_phase(torch, gpu, train):
     held-out CE within ``TRAIN_MESH_TOL`` of the unsharded Program's with
     flash off (the einsum route a mesh runs; the flash route's gap
     printed), every fused launch of the pass held to its plain version
-    and counted at ``TRAIN_FUSED_PER_PASS`` a rank.  ``train``: the train
-    phase's result (its losses)."""
+    and counted at ``TRAIN_FUSED_PER_PASS`` a rank.  Since slice 20 a
+    1x2 run in the reference's train layout (``train_seq_rank``: "model"
+    pieces, the residual cut by positions), its step-0 loss within
+    ``TRAIN_MESH_TOL`` of the unsharded step 0, its ranks' params + Adam
+    bytes and peak printed beside the DP rank's; the DP run keeps no
+    checkpoint (the script's 1200 s limit).  ``train``: the train phase's
+    result (its losses)."""
     import tempfile
     from repro_torch import api
     from repro_torch.configs import get_arch
@@ -4501,13 +4667,17 @@ def train_mesh_phase(torch, gpu, train):
     scratch = Path(tempfile.mkdtemp(prefix="train_mesh_",
                                     dir=ROOT / "build"))
     try:
-        job = {"dirs": {False: str(scratch / "dp"),
-                        True: str(scratch / "fsdp")}}
+        job = {"dirs": {False: "", True: str(scratch / "fsdp")}}
         t0 = time.perf_counter()
         ranks = mesh_lib.init_ranks(train_mesh_rank, TRAIN_MESH,
                                     device="cuda", args=(job,))
         ranks_s = time.perf_counter() - t0
-        shutil.rmtree(scratch / "dp")
+        # the reference's launch.train layout on 1x2: "model" pieces of
+        # every parameter and moment, the residual cut by positions
+        t0 = time.perf_counter()
+        seq_ranks = mesh_lib.init_ranks(train_seq_rank, TRAIN_SEQ_MESH,
+                                        device="cuda")
+        seq_s = time.perf_counter() - t0
 
         # the FSDP checkpoint on one device, in this process
         t0 = time.perf_counter()
@@ -4552,10 +4722,21 @@ def train_mesh_phase(torch, gpu, train):
                / ces["einsum"],
                "eval_ce_mesh_vs_flash_rel": abs(ce_mesh - ces["flash"])
                / ces["flash"],
-               "eval_fused_per_pass": TRAIN_FUSED_PER_PASS}
+               "eval_fused_per_pass": TRAIN_FUSED_PER_PASS,
+               "seq": {"mesh": TRAIN_SEQ_MESH, "ranks_s": seq_s,
+                       "step0_rel": abs(seq_ranks[0]["losses"][0] - step0)
+                       / step0,
+                       "params_adam_bytes": [r["params_adam_bytes"]
+                                             for r in seq_ranks],
+                       "peak_mem_gb": [r["peak_mem_gb"]
+                                       for r in seq_ranks],
+                       "dp_params_adam_bytes": r0["dp"]["params_adam_bytes"],
+                       "dp_peak_mem_gb": r0["dp"]["peak_mem_gb"]}}
         for r in ranks:
             r.pop("digest")
             emit({"phase": "train_mesh_rank", "gpu": gpu, **r})
+        for r in seq_ranks:
+            emit({"phase": "train_seq_rank", "gpu": gpu, **r})
         emit(out)
         bad = []
         if not all(out["fsdp_bit_equal_to_dp"]):
@@ -4563,6 +4744,13 @@ def train_mesh_phase(torch, gpu, train):
         if not out["dp_step0_rel"] <= TRAIN_MESH_TOL:
             bad.append(f"DP step 0 {r0['dp']['losses'][0]} vs unsharded "
                        f"{step0}")
+        if not out["seq"]["step0_rel"] <= TRAIN_MESH_TOL:
+            bad.append(f"1x2 seq step 0 {seq_ranks[0]['losses'][0]} vs "
+                       f"unsharded {step0}")
+        if not all(r["losses"] == seq_ranks[0]["losses"]
+                   and r["leaves_model_cut"] > 0
+                   and np.isfinite(r["losses"]).all() for r in seq_ranks):
+            bad.append(f"1x2 seq ranks {seq_ranks}")
         if not all(out["checkpoint_bit_equal"]):
             bad.append("the restored checkpoint differs from the ranks'")
         if not out["eval_ce_mesh_vs_einsum_rel"] <= TRAIN_MESH_TOL:
@@ -4593,19 +4781,20 @@ H100_BF16_FLOPS = 989e12
 
 
 def planned_calls(cfg, kind: str, rows: int, seq: int, mesh: str = "1x1",
-                  with_ops: bool = False):
+                  with_ops: bool = False, act_mode: str = "replicated"):
     """The kernels' planned calls of one pass (``kind`` "prefill" of
     ``rows`` x ``seq`` tokens, or "decode" of ``rows`` tokens over ``seq``
     cached positions) of ``cfg``'s step on rank 0 of a ``mesh`` census
     mesh: the dry-run's step walked on meta tensors, without its census.
-    ``with_ops``: also the planned operations per kernel."""
+    ``with_ops``: also the planned operations per kernel; ``act_mode``: the
+    residual's placement (``dryrun.rank_step``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import planned
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
 
     run, _ = dryrun.rank_step(cfg, ShapeConfig(kind, seq, rows, kind),
-                              mesh_lib.census_mesh(mesh))
+                              mesh_lib.census_mesh(mesh), act_mode=act_mode)
     before, ops0 = planned.snapshot(), dict(planned.ops)
     run()
     calls = {k: v - before[k] for k, v in planned.snapshot().items()}
@@ -4622,7 +4811,10 @@ def dryrun_phase(gpu, measured, train):
     blended experts: resident calls a pass against ``serve_moe``'s
     launches over its passes) and of the SSM path's (mamba2 R&B:
     ``ssd_chunk`` calls a prefill pass and fused calls a prefill and a
-    decode pass against ``serve_ssm``'s), exactly; then ``train``'s cell
+    decode pass against ``serve_ssm``'s) and, since slice 20, of the
+    "seq" prefill of ``sharded``'s 1x2 minitron rank (4 x 600, rank 0 of
+    a 1x2 census mesh) against its counted launches, exactly; then
+    ``train``'s cell
     (granite R&B, xla, 8 x 1024 in 2 microbatches, remat) walked with the
     census: its ``per_device_total_gb`` within ``DRYRUN_MEM_RATIO`` of the
     phase's ``max_memory_allocated``.  Reported: the train step's MFU
@@ -4646,6 +4838,8 @@ def dryrun_phase(gpu, measured, train):
                                 execution="photonic")
     mini_pre = planned_calls(mini, "prefill", 1, 600)
     mini_dec = planned_calls(mini, "decode", 1, 616)
+    mini_seq = planned_calls(mini, "prefill", SHARD_ROWS, SHARD_PROMPT,
+                             mesh="1x2", act_mode="seq")
     moe_dec = planned_calls(granite, "decode", 1, 616)
     ssm_pre = planned_calls(mamba, "prefill", 1, 600)
     ssm_dec = planned_calls(mamba, "decode", 1, 616)
@@ -4668,6 +4862,8 @@ def dryrun_phase(gpu, measured, train):
                                     ssm["fused_per_decode"]),
         "minitron_decode_attention_per_decode": (
             mini_dec["decode_attention"], fused["decode"]["decode_attention"]),
+        "minitron_1x2_seq_fused_per_prefill": (
+            mini_seq["photonic_mvm_fused"], measured["seq_prefill_fused"]),
     }
     calls_s = time.perf_counter() - t0
 
@@ -4980,7 +5176,7 @@ def main() -> int:
     # each path's launches are counted in its own window
     fused_path, fused_measured = timed("serve", serve, torch, smi)
     timed("serve_launcher", serve_launcher, torch, smi)
-    timed("sharded", sharded_phase, torch, smi)
+    sharded = timed("sharded", sharded_phase, torch, smi)
     torch.cuda.reset_peak_memory_stats()
     fault_path = timed("serve_noisy", serve_noisy, torch, smi)
     timed("small_model_fault_checks", small_model_fault_checks, torch)
@@ -5001,7 +5197,9 @@ def main() -> int:
         "fused": fused_measured,
         "resident_per_pass": moe_path["photonic_mvm_resident"] / moe_passes,
         "ssm": dict(ssm_measured, ssd_per_prefill=ssm_path["ssd_chunk"]
-                    / ssm_measured["prefill_passes"])}, train)
+                    / ssm_measured["prefill_passes"]),
+        "seq_prefill_fused": sharded["act_modes_1x2"][0]["seq"][
+            "fused_launches"]}, train)
     timed("paper", paper_phase, torch, smi)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t0})
 

@@ -51,8 +51,11 @@ MLA latents over the positions; SSM states over their heads and conv tails
 over their channels where "model" divides them.  Each serving step carries
 that layout (``Backend.kv``, ``Backend.ssm``), so attention runs on the
 rank's own heads or positions (``models/attention.py``) and an SSM layer
-on its own heads and channels (``models/ssm.py``).  Not
-ported: sequence- or hidden-sharded residuals (a rank holds whole rows).
+on its own heads and channels (``models/ssm.py``).  The functional
+prefill (``prefill_step_fn``) also takes the reference's "seq" and
+"hidden" residual specs: the rank holds its block of the positions or the
+channels between the layers (``partition.ResidualLayout``,
+``models/transformer.py``); the Program's own steps hold whole rows.
 
 The Program keeps the reference's ledger on the default metrics registry:
 ``program.builds``, a ``program.bank.<k>`` gauge per ``bank_stats()`` key
@@ -285,23 +288,44 @@ def _check_act_pspec(execution, act_pspec) -> None:
                          "active mesh")
 
 
-def _step_rows(backend, B: int, act_pspec):
+def _act_pspec_of(backend, B: int, mode: str):
+    """The residual spec of a B-row step in ``mode`` ("seq" / "hidden") on
+    ``backend``'s mesh, as the reference's dry-run gives it: the batch over
+    the data axes, or, when B does not divide them, ``(None, "model",
+    None)`` / ``(None, None, "model")`` (every rank holds every row)."""
+    mesh = _backend_mesh(backend)
+    dp = partition.dp_size(mesh)
+    if dp > 1 and B % dp != 0:
+        return (None, "model", None) if mode == "seq" else \
+            (None, None, "model")
+    return partition.act_pspec(mesh, mode)
+
+
+def _step_rows(backend, B: int, act_pspec, length=None, width=None):
     """(row slice or None, backend for the step) of a functional step
-    (after :func:`_check_act_pspec`).  ``act_pspec`` must be the serving
-    spec or None: the port places the residual batch-over-data, replicated
-    over "model", only."""
+    (after :func:`_check_act_pspec`).  ``act_pspec`` is None, the serving
+    spec (the rank's rows, replicated over "model") or the "seq" /
+    "hidden" spec of :func:`_act_pspec_of`: then a step over ``length``
+    positions of ``width`` channels (a prefill; None: a decode step, whose
+    one position keeps the residual whole) carries its
+    ``partition.ResidualLayout``."""
     bk = backend_lib.resolve(backend)
     if act_pspec is None:
         return None, bk
-    if tuple(act_pspec) != _serve_act_pspec(bk, B):
+    mode = partition.residual_mode(act_pspec)
+    want = (_serve_act_pspec(bk, B) if mode == "replicated"
+            else _act_pspec_of(bk, B, mode))
+    if tuple(act_pspec) != tuple(want):
         raise NotImplementedError(
-            f"act_pspec {tuple(act_pspec)}: a rank holds its data shard's "
-            f"rows replicated over 'model' "
-            f"({_serve_act_pspec(bk, B)}); sequence- and hidden-sharded "
-            f"residuals are left for a later slice")
+            f"act_pspec {tuple(act_pspec)}: a {B}-row step on this mesh "
+            f"places its residual as {tuple(want)} in {mode!r} mode")
     sl = _row_split(bk, B)
-    return sl, (bk if sl is None else dataclasses.replace(
-        bk, rows_sharded=True))
+    if sl is not None:
+        bk = dataclasses.replace(bk, rows_sharded=True)
+    if mode != "replicated" and length is not None:
+        bk = dataclasses.replace(bk, residual=partition.residual_layout(
+            act_pspec, bk.mesh, length, width))
+    return sl, bk
 
 
 def _rows_of(batch: dict, sl, B: int) -> dict:
@@ -350,8 +374,10 @@ def prefill_step_fn(cfg: ModelConfig, cache_len: int, *, act_pspec=None,
     """Pure ``fn(params, batch) -> (last_logits (B, V), caches)`` over raw
     params (no banks: a photonic backend quantizes each weight in the
     step); the caches are made on the params' device.  With ``act_pspec``
-    (the serving spec of ``execution``'s mesh) the step runs on this
-    rank's rows and returns theirs."""
+    (the serving spec of ``execution``'s mesh, or its "seq" / "hidden"
+    spec, ``_act_pspec_of``) the step runs on this rank's rows, with its
+    residual cut over "model" as the spec says, and returns their
+    logits."""
     _check_act_pspec(execution, act_pspec)
 
     @torch.no_grad()
@@ -359,7 +385,8 @@ def prefill_step_fn(cfg: ModelConfig, cache_len: int, *, act_pspec=None,
         batch = _as_batch(batch, _device_of(params))
         B = batch["tokens"].shape[0]
         sl, bk = _step_rows(execution if execution is not None else cfg,
-                            B, act_pspec)
+                            B, act_pspec, batch["tokens"].shape[1],
+                            cfg.d_model)
         logits, caches = _prefill(cfg, params, _rows_of(batch, sl, B),
                                   cache_len, bk, B)
         return logits[:, -1, :], caches
@@ -374,8 +401,9 @@ def decode_step_fn(cfg: ModelConfig, *, act_pspec=None, legacy_decode=False,
     (``attention.gqa_decode_legacy``: the token's K/V written into the
     cache at a scalar ``pos`` inside the block, attention over the whole
     buffer).  With ``act_pspec`` (the serving spec of ``execution``'s
-    mesh) the step runs on this rank's rows of the tokens and positions,
-    with the rank's caches, and returns its rows' logits."""
+    mesh, or its "seq" / "hidden" spec: the one position keeps the
+    residual whole) the step runs on this rank's rows of the tokens and
+    positions, with the rank's caches, and returns its rows' logits."""
     _check_act_pspec(execution, act_pspec)
 
     @torch.no_grad()

@@ -66,8 +66,21 @@ divides and never splits the T streams.  The blocked shuffle keeps the
 channel axis whole (a rank's rows are already local).  Flash is off under
 an active mesh (``use_flash``), as in the reference.  A fault model on a
 multi-position mesh raises.  A 1x1 mesh takes the exact unsharded path.
-The xla backend runs its dots whole on the rank's rows (the reference
-leaves xla to GSPMD; no rule to follow).  A bank placed on a rank
+The xla backend runs a serving step's dots whole on the rank's rows (the
+reference leaves xla to GSPMD; no rule to follow); a train step's weight
+pieces (``partition.ModelPiece``: the rank's "model" piece of a matrix)
+run by :func:`partition_rule` (``Backend._xla_piece_dot``), every
+collective differentiable in Megatron's convention.
+
+**The residual layout** (``residual``, a ``partition.ResidualLayout`` of a
+train or prefill step whose ``act_pspec`` is "seq" or "hidden"): a
+pair-second dot (``tp_hint="row"``) under a row rule rejoins its partial
+sums with a reduce-scatter over the positions (its epilogue then on the
+rank's block of rows) or over the channels (the ``scatter`` rule without
+its final all-gather), so its output lands in the layout's block; the
+blocked shuffle of a "hidden" residual runs on the channels gathered
+whole.  ``models/transformer.py`` cuts and gathers the stream around the
+mixers.  A bank placed on a rank
 (``core/prepared.Placement``) holds its ``field_specs`` piece; a rule that
 reads a field in another layout gathers it over "model" once and keeps the
 piece it reads.  Under ``cfg.fsdp`` a field's "embed" dim is cut over the
@@ -231,6 +244,9 @@ class Backend:
     ssm: Any = None                   # partition.SSMLayout of the same
                                       # step: a rank's SSM heads and conv
                                       # channels
+    residual: Any = None              # partition.ResidualLayout of a step
+                                      # whose residual is cut over "model"
+                                      # ("seq" / "hidden"), else None
 
     def __post_init__(self):
         if self.execution not in EXECUTIONS:
@@ -270,11 +286,26 @@ class Backend:
         """"model" ranks of an active mesh (1 off-mesh)."""
         return self.mesh.axis_size("model") if self.mesh_active else 1
 
-    def pairs(self, n: int) -> bool:
-        """Whether a pair-first photonic dot of ``n`` output channels keeps
-        its output local (the Megatron pairing): an active mesh whose
-        "model" axis divides ``n``."""
-        return self.is_photonic and self.tp > 1 and n % self.tp == 0
+    def pairs(self, n: int, w=None) -> bool:
+        """Whether a pair-first dot of ``n`` output channels keeps its
+        output local (the Megatron pairing): an active mesh whose "model"
+        axis divides ``n``, on the photonic backend or for a train step's
+        weight piece (``w`` a ``partition.ModelPiece``: its xla dots run
+        tensor-parallel)."""
+        tp_dots = self.is_photonic or isinstance(w, _partition.ModelPiece)
+        return tp_dots and self.tp > 1 and n % self.tp == 0
+
+    def _residual(self, tp_hint, y):
+        """The active residual layout a pair-second dot's partial sums
+        ``y`` rejoin into (a reduce-scatter over its positions or channels
+        in place of the whole rejoin), else None."""
+        lay = self.residual
+        if tp_hint != "row" or lay is None or not lay.active:
+            return None
+        if y.ndim != 3 or y.shape[1] != lay.length \
+                or y.shape[-1] != lay.width:
+            return None
+        return lay
 
     def _local_in(self, x, local_in: bool):
         """``x`` whole: a ``local_in`` block all-gathered over "model"."""
@@ -333,6 +364,11 @@ class Backend:
                                      block_perm=block_perm, block=block,
                                      activation=activation, tp_hint=tp_hint,
                                      local_in=local_in, local_out=local_out)
+        if isinstance(w, _partition.ModelPiece):
+            return self._xla_piece_dot(
+                x, w, transpose=transpose, bias=bias, block_perm=block_perm,
+                block=block, activation=activation, tp_hint=tp_hint,
+                local_in=local_in, local_out=local_out)
         if not self.is_photonic:
             y = obu.blend_dot(self._local_in(x, local_in), w,
                               transpose=transpose)
@@ -356,6 +392,78 @@ class Backend:
                                      bias=bias, block_perm=block_perm,
                                      block=block, activation=activation,
                                      bank_tag=None)
+
+    def _xla_piece_dot(self, x, w, *, transpose, bias, block_perm, block,
+                       activation, tp_hint, local_in, local_out):
+        """A train step's dot on the xla backend against this rank's piece
+        of its weight (``w`` a ``partition.ModelPiece``), by
+        :func:`partition_rule`: ``column`` multiplies x by the rank's block
+        of the output columns (kept local for ``local_out``, else
+        all-gathered); a row rule multiplies the rank's block of x's
+        channels by its block of the weight's rows and rejoins the partial
+        sums (:meth:`_rejoin`); ``replicated`` the whole weight.  A piece cut
+        on the other dim is gathered at its use (``ModelPiece.block``).
+        Every collective is differentiable, in Megatron's convention
+        (``sharding/collectives.py``): x, whole on every rank, enters a
+        column block through ``copy_to_model`` and a row block through
+        ``split_grad``, so a tensor every rank holds whole gets its whole
+        gradient on each."""
+        mesh = self.mesh
+        tp = self.tp
+        K = x.shape[-1] * (tp if local_in else 1)
+        n_dim, k_dim = (-2, -1) if transpose else (-1, -2)
+        N = w.shape[n_dim]
+        rule = partition_rule(tp, K, N, block_perm=block_perm,
+                              tp_hint=tp_hint, collective=self.tp_collective)
+        if rule in ("scatter", "ring", "psum"):
+            xl = x if local_in else coll.split_grad(x, mesh, "model")
+            y = obu.blend_dot(xl, w.block(k_dim, mesh), transpose=transpose)
+            y = self._rejoin(y, N, bias, block_perm, block, activation,
+                             tp_hint, _epilogue_xla, grad=True)
+            return coll.split_grad(y, mesh, "model") if local_out else y
+        if local_in:
+            x = coll.all_gather_split(x, mesh, "model", dim=-1)
+        if rule == "column":
+            y = obu.blend_dot(coll.copy_to_model(x, mesh),
+                              w.block(n_dim, mesh), transpose=transpose)
+            y = _epilogue_xla(y, None if bias is None else coll.split_grad(
+                bias, mesh, "model"), None, 0, activation)
+            return y if local_out else coll.all_gather_split(
+                y, mesh, "model", dim=-1)
+        y = _epilogue_xla(obu.blend_dot(x, w.block(None, mesh),
+                                        transpose=transpose),
+                          bias, block_perm, block, activation)
+        return coll.split_grad(y, mesh, "model") if local_out else y
+
+    def _rejoin(self, y, N, bias, block_perm, block, activation, tp_hint,
+                epilogue, grad=False):
+        """The partial sums ``y`` of a row-parallel dot summed over "model"
+        and the epilogue run: a pair-second dot under an active residual
+        layout reduce-scatters them over the positions ("seq": the
+        epilogue on the rank's block of rows) or the channels ("hidden":
+        on its block of channels, when they divide and no blocked shuffle
+        crosses them) and returns that block; otherwise an all-reduce and
+        the whole epilogue.  ``grad``: differentiable collectives (a bias
+        every rank holds whole, added to the rank's rows, passes
+        ``copy_to_model``; its block of channels, ``split_grad``)."""
+        mesh = self.mesh
+        lay = self._residual(tp_hint, y)
+        if grad:
+            scatter, join = coll.reduce_scatter_grad, coll.psum_grad
+            copy, split = coll.copy_to_model, coll.split_grad
+        else:
+            scatter, join = coll.psum_scatter, coll.psum
+            copy, split = (lambda t, m: t), coll.split_last
+        if lay is not None and lay.mode == "seq":
+            y = scatter(y, mesh, "model", dim=1)
+            return epilogue(y, None if bias is None else copy(bias, mesh),
+                            block_perm, block, activation)
+        if (lay is not None and N % self.tp == 0 and block_perm is None):
+            y = scatter(y, mesh, "model", dim=-1)
+            return epilogue(y, None if bias is None else split(
+                bias, mesh, "model"), None, 0, activation)
+        y = join(y, mesh, "model")
+        return epilogue(y, bias, block_perm, block, activation)
 
     def dot_prepared(self, x, prep: PreparedTensor, *,
                      transpose: bool = False, bias=None, block_perm=None,
@@ -500,8 +608,13 @@ class Backend:
             y = kernel(fetch("w", col_dim), fetch("s", -1), True, my_bias())
             return y if local_out else coll.all_gather(y, mesh, "model",
                                                        dim=-1)
-        if rule == "scatter":
+        if rule in ("scatter", "psum"):
             y = kernel(fetch("w", red_dim), fetch("s", None), False)
+            if self._residual(tp_hint, y) is not None:
+                # the pair-second dot lands in the step's residual layout
+                return self._rejoin(y, N, bias, block_perm, block,
+                                    activation, tp_hint, _epilogue_unfused)
+        if rule == "scatter":
             y = coll.psum_scatter(y, mesh, "model")
             y = _epilogue_unfused(y, my_bias(), None, 0, activation)
             y = coll.all_gather(y, mesh, "model", dim=-1)
@@ -526,7 +639,6 @@ class Backend:
             y = _epilogue_unfused(acc, my_bias(), None, 0, activation)
             y = coll.all_gather(y, mesh, "model", dim=-1)
         elif rule == "psum":
-            y = kernel(fetch("w", red_dim), fetch("s", None), False)
             y = coll.psum(y, mesh, "model")
             y = _epilogue_unfused(y, bias, block_perm, block, activation)
         else:
@@ -600,6 +712,13 @@ class Backend:
         split alike; under an active mesh on the rank's rows, the channel
         axis whole (the reference's mesh branch).  Otherwise the static
         index gather."""
+        lay = self.residual
+        if lay is not None and lay.active and lay.mode == "hidden":
+            # a rank holds a block of the channels: shuffle them whole
+            whole = coll.all_gather_split(h, self.mesh, "model", dim=-1)
+            return coll.split_grad(dataclasses.replace(
+                self, residual=None).shuffle(whole, perm, block_perm, block),
+                self.mesh, "model")
         if self.is_photonic and block_perm is not None and block > 0:
             return ops.blend_shuffle(h, None, block_perm, block=block,
                                      activation="none")

@@ -11,22 +11,26 @@ census of ``launch/analysis.py``.  Nothing is allocated and no card, no
 process group and no JAX is needed: a cell at the width of a 123 B model
 on a 512-rank mesh walks on a laptop's CPU.
 
-  * "lowering" builds the rank's inputs: its parameters (``trainer.
-    param_specs``: the data-axes pieces of ``partition.tree_pspecs`` under
-    ``cfg.fsdp``, whole otherwise), Adam state, the global batch (every
+  * "lowering" builds the rank's inputs: its parameters (a train cell:
+    ``trainer.param_specs``, the pieces of ``partition.tree_pspecs`` under
+    ``cfg.fsdp``, "model" entries included; a serving cell: their data-axes
+    part, whole otherwise), Adam state, the global batch (every
     rank passes it, as the Program's methods take it) and, for decode, its
     pieces of the caches under ``partition.cache_pspecs`` (its rows, and
     its KV heads or its block of the positions, its latent positions, its
-    SSM heads and conv channels), as a prefill makes them too.  ``--no-compile`` stops here (``"lowered"``);
+    SSM heads and conv channels), as a prefill makes them too.
+    ``--no-compile`` stops here (``"lowered"``);
   * "compiling" is the walk: aten ops, FLOPs, modelled HBM traffic, the
     peak of live bytes, every collective with its bytes, and each kernel's
     planned calls (``kernels/planned.py``; no launch counter moves).
 
 The steps are the port's: ``trainer.make_train_step`` (remat, the
 reference's microbatch rule), ``api.prefill_step_fn`` and
-``api.decode_step_fn``.  A rank whose parameters are FSDP pieces gathers
-them whole at the start of a prefill or decode step, as ``api.Program``
-does.  The port's scalar decode position is a Python int; the walk passes
+``api.decode_step_fn``.  ``--act-mode seq|hidden`` cuts the residual of
+the train and prefill cells over "model" as the reference's rules give its
+spec (``rank_step``); decode cells keep it whole.  A rank whose
+parameters are FSDP pieces gathers them whole at the start of a prefill or
+decode step, as ``api.Program`` does.  The port's scalar decode position is a Python int; the walk passes
 the cache's last position.
 
 Memory, per rank: ``argument_size_in_bytes`` (the inputs), ``output_size_
@@ -161,17 +165,25 @@ def _spec_leaves(specs):
 
 def rank_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, params=None,
               batch=None, legacy_decode=False, noise=None, microbatch=None,
-              result=None):
+              act_mode="replicated", result=None):
     """(run, arguments): the step a rank of ``mesh`` (bound: a census
     mesh, or a rank's from ``launch.mesh.init_ranks``) runs for the cell,
     as a thunk over its inputs.  ``params`` (the whole float32 tree) and
     ``batch`` default to meta tensors (``abstract_params``,
     ``input_specs``); given real ones, the thunk runs the same step on
-    them (the tests hold a census walk to a gloo run that way)."""
+    them (the tests hold a census walk to a gloo run that way).
+    ``act_mode`` "seq" / "hidden" cuts the residual of a train or prefill
+    step over "model" (the reference's ``act_pspec(mesh, act_mode)``, its
+    batch entry None where the batch does not divide the data axes); a
+    decode step keeps it whole.  A train step's rank holds the "model"
+    pieces of its parameters and Adam state (``trainer.param_specs``); a
+    serving step's, the data-axes part of them."""
     B, S = shape.global_batch, shape.seq_len
     active = mesh.size > 1
     result = {} if result is None else result
     pspecs = trainer.param_specs(cfg, mesh)
+    if shape.kind != "train":
+        pspecs = partition.data_specs(pspecs, mesh)
     if params is None:
         params = tfm.abstract_params(cfg)
     local = partition.local_tree(params, pspecs, mesh)
@@ -181,8 +193,10 @@ def rank_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, params=None,
     if shape.kind == "train":
         mb = microbatch or microbatches(cfg)
         result["microbatch"] = mb
+        apspec = (partition.act_pspec(mesh, act_mode)
+                  if active and act_mode != "replicated" else None)
         step = trainer.make_train_step(cfg, TrainConfig(microbatch=mb),
-                                       remat=True,
+                                       act_pspec=apspec, remat=True,
                                        mesh=mesh if active else None)
         opt = adamw.init(local)
         return (lambda: step(local, opt, batch)), (local, opt, batch)
@@ -194,6 +208,8 @@ def rank_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, params=None,
     if active:
         bk = dataclasses.replace(bk, mesh=mesh)
     apspec = api._serve_act_pspec(bk, B) if active else None
+    if active and act_mode != "replicated" and shape.kind == "prefill":
+        apspec = api._act_pspec_of(bk, B, act_mode)
     fsdp = active and any(partition.cuts(spec)
                           for spec in _spec_leaves(pspecs))
 
@@ -215,13 +231,14 @@ def rank_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, params=None,
 
 def walk(cfg: ModelConfig, shape: ShapeConfig, mesh, *, compile_=True,
          legacy_decode=False, noise=None, microbatch=None, rank=0,
-         result=None) -> dict:
+         act_mode="replicated", result=None) -> dict:
     """Lower and walk one cell on one rank (module docstring): ``cfg`` and
     ``shape`` objects at any size, ``mesh`` a mesh spec (``"DxM"``, a
     tuple or a ``launch.mesh.Mesh``) bound here to rank ``rank``.
     ``microbatch`` overrides the reference's rule for a train step;
     ``noise`` a ``NoiseConfig`` for a photonic inference step.  Returns
-    the result dict (``result``'s keys kept)."""
+    the result dict (``result``'s keys kept).  ``act_mode``: the
+    residual's placement (:func:`rank_step`)."""
     result = {} if result is None else result
     mesh = mesh_lib.census_mesh(mesh, rank)
     chips = mesh.size
@@ -232,7 +249,8 @@ def walk(cfg: ModelConfig, shape: ShapeConfig, mesh, *, compile_=True,
                               cfg.fsdp, report)
     t0 = time.time()
     run, args = rank_step(cfg, shape, mesh, legacy_decode=legacy_decode,
-                          noise=noise, microbatch=microbatch, result=result)
+                          noise=noise, microbatch=microbatch,
+                          act_mode=act_mode, result=result)
     result["lower_s"] = round(time.time() - t0, 2)
     if not compile_:
         result["metrics"] = _metrics_block()
@@ -348,17 +366,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod=False, reuse=False,
         result["status"] = "SKIP(--noise is single-device; use " \
                            "--mesh-shape 1x1)"
         return result
-    if act_mode != "replicated" and mesh.size > 1:
-        # the port's ranks hold their data shard's rows replicated over
-        # "model" (api.py); sequence- and hidden-sharded residuals are not
-        # ported
-        result["status"] = f"SKIP(act_mode {act_mode}: not ported)"
-        return result
+    if act_mode != "replicated":
+        result["act_mode"] = act_mode
     prev = obu._ACCUM_FP32
     obu.set_matmul_accum_fp32(fp32_accum)
     try:
         return walk(cfg, shape, mesh, compile_=compile_,
-                    legacy_decode=legacy_decode, noise=ncfg, result=result)
+                    legacy_decode=legacy_decode, noise=ncfg,
+                    act_mode=act_mode, result=result)
     finally:
         obu.set_matmul_accum_fp32(prev)
 
@@ -390,8 +405,9 @@ def main(argv=None):
                          "buffer at a scalar position)")
     ap.add_argument("--act-mode", default="replicated",
                     choices=["seq", "hidden", "replicated"],
-                    help="residual-stream sharding; the port runs "
-                         "'replicated' only (others SKIP on a mesh)")
+                    help="residual-stream sharding of the train and "
+                         "prefill cells: the positions ('seq') or the "
+                         "channels ('hidden') over 'model', or whole rows")
     ap.add_argument("--fp32-accum", action="store_true",
                     help="float32 blend_dot products "
                          "(obu.set_matmul_accum_fp32)")

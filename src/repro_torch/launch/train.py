@@ -15,10 +15,12 @@ xla backend.
 ``run(..., mesh=)`` with a bound mesh (``launch.mesh.init_ranks`` starts
 one rank per position and each calls ``run``) trains on the ranks, as the
 reference's ``run(mesh=)`` does: every rank builds the same seeded weights
-and keeps its pieces of them (``trainer.param_specs``: its ``cfg.fsdp``
-pieces, else whole), each data rank steps on its rows of every global batch
-(``trainer.make_train_step(..., act_pspec=partition.act_pspec(mesh),
-mesh=mesh)``), and checkpoints hold the logical layout, so a run resumes on
+and keeps its pieces of them (``trainer.param_specs``: the reference's
+``tree_pspecs``, "model" entries and, under ``cfg.fsdp``, the data axes'),
+each data rank steps on its rows of every global batch with the residual
+cut over "model" by positions (``trainer.make_train_step(...,
+act_pspec=partition.act_pspec(mesh), mesh=mesh)``: "seq", the reference's
+train layout), and checkpoints hold the logical layout, so a run resumes on
 any mesh or on none.  Every rank keeps its own trap, straggler watch and
 ``record``; the ranks agree after each step whether a signal arrived, so
 all of them checkpoint and stop at the same step.  Rank 0 prints the step
@@ -64,8 +66,9 @@ def run(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
     tensors ``grad_norm`` and ``lr`` (read them after the run; reading
     them here would add host syncs).  ``mesh``: the rank's bound mesh
     (module docstring; ``None`` is the 1x1 mesh); ``device`` defaults to
-    the rank's.  Returns (params, opt_state, losses): on a mesh the
-    rank's pieces (``partition.gather_tree`` with ``trainer.param_specs``
+    the rank's.  An empty ``tcfg.checkpoint_dir`` keeps no checkpoint:
+    nothing is resumed or saved.  Returns (params, opt_state, losses): on
+    a mesh the rank's pieces (``partition.gather_tree`` with ``trainer.param_specs``
     gathers them)."""
     mesh = mesh_lib.single_device_mesh() if mesh is None else mesh
     if mesh.size > 1 and not mesh.bound:
@@ -83,7 +86,8 @@ def run(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
     specs = trainer.state_specs(pspecs)
     opt_state = adamw.init(params)
     start_step = 0
-    if resume:
+    keeps = bool(tcfg.checkpoint_dir)
+    if resume and keeps:
         last = checkpoint.latest_step(tcfg.checkpoint_dir)
         if last is not None:
             (params, opt_state), extra = checkpoint.restore(
@@ -140,7 +144,7 @@ def run(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"lr {float(metrics['lr']):.2e} {dt:.2f}s",
                       flush=True)
-            if tcfg.checkpoint_every and (step + 1) % \
+            if keeps and tcfg.checkpoint_every and (step + 1) % \
                     tcfg.checkpoint_every == 0:
                 checkpoint.save(tcfg.checkpoint_dir, step + 1,
                                 (params, opt_state),
@@ -153,9 +157,11 @@ def run(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
     finally:
         for s, h in old.items():
             signal.signal(s, h)
-    checkpoint.save(tcfg.checkpoint_dir, state["step"], (params, opt_state),
-                    extra={"next_step": state["step"]}, mesh=mesh,
-                    specs=specs)
+    if keeps:
+        checkpoint.save(tcfg.checkpoint_dir, state["step"],
+                        (params, opt_state),
+                        extra={"next_step": state["step"]}, mesh=mesh,
+                        specs=specs)
     return params, opt_state, losses
 
 

@@ -119,7 +119,7 @@ def apply_mlp(p, x, act: str = "swiglu", transpose: bool = False,
     # it runs row-parallel over the ff axis, and where ``bk.pairs`` holds
     # it takes the pair-first dots' local ff block as it is (the Megatron
     # pairing, core/backend.py)
-    pair = bk.pairs(p["w_up"].shape[-1])
+    pair = bk.pairs(p["w_up"].shape[-1], p["w_up"])
     if act != "swiglu":
         wu, wd = p["w_up"], p["w_down"]
         if transpose:

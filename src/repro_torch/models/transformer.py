@@ -24,6 +24,12 @@ within a group.  An FFN is a SwiGLU or gelu MLP (``dense``;
 (``moe``, ``models/moe.py``), whose load-balance loss adds to the
 forward's ``aux``, or absent (``none``: mamba2 has no FFN).
 
+On a mesh a train or prefill step may hold its residual cut over "model"
+between the layers (``Backend.residual``: "seq", the rank's block of the
+positions, or "hidden", of the channels; :func:`apply_layer`): every norm's
+output is gathered whole for the mixer and the FFN, and their output lands
+back in the rank's block.
+
 Memory streams: the vlm projects its image embeddings (``vision_proj``);
 whisper runs its encoder segment, non-causal, over the projected frame
 embeddings (``audio_proj``, then ``enc_final_norm``).  Prefill computes
@@ -161,9 +167,13 @@ def _moe_ffn(p, cfg: ModelConfig, hn, transpose, backend):
     the aux is then the same on every rank (``train/trainer.py`` counts it
     once)."""
     bk = backend_lib.resolve(backend)
+    if bk.residual is not None:
+        # the routed FFN returns whole rows (the layer cuts them); its
+        # shared expert's pair-second dot rejoins whole too
+        bk = dataclasses.replace(bk, residual=None)
     if not (bk.mesh_active and bk.rows_sharded):
         return moe_lib.apply_moe(p, hn, cfg.moe, transpose=transpose,
-                                 backend=backend)
+                                 backend=bk)
     from repro_torch.sharding import collectives as coll
     from repro_torch.sharding.partition import data_axes
     d_axes = data_axes(bk.mesh)
@@ -173,6 +183,79 @@ def _moe_ffn(p, cfg: ModelConfig, hn, transpose, backend):
     n = hn.shape[0]
     i = bk.mesh.index(d_axes)
     return y[i * n:(i + 1) * n], aux
+
+
+# =========================================================================
+# the residual stream under a layout (``Backend.residual``)
+# =========================================================================
+def _layout(backend):
+    """The step's active ``partition.ResidualLayout``, or None."""
+    lay = backend_lib.resolve(backend).residual
+    return lay if lay is not None and lay.active else None
+
+
+def cut_residual(h, backend):
+    """This rank's block of a whole residual ``h`` (B, S, D) under the
+    step's layout: its positions ("seq") or channels ("hidden"); ``h``
+    itself without one, or when it is that block already (a pair-second
+    dot rejoined into it).  Differentiable: the blocks' gradients are
+    all-gathered back."""
+    lay = _layout(backend)
+    if lay is None:
+        return h
+    whole = lay.length if lay.mode == "seq" else lay.width
+    if h.shape[lay.dim] != whole:
+        return h
+    from repro_torch.sharding import collectives as coll
+    return coll.split_grad(h, backend_lib.resolve(backend).mesh, "model",
+                           dim=lay.dim)
+
+
+def normed_whole(p, h, cfg: ModelConfig, backend):
+    """The norm of residual ``h`` as the next mixer, FFN or head reads it:
+    whole rows.  Under "seq" each rank norms its positions and the result
+    is all-gathered over "model" (the norm's scale and bias, whole on every
+    rank, enter through ``copy_to_model``: a rank's gradient of them is its
+    positions' share); under "hidden" the rank's channels are all-gathered
+    and normed whole (the statistics span every channel, so they are the
+    unsharded ones bit for bit: a sum of per-rank partial squares would
+    re-round them and flip A8 codes downstream)."""
+    lay = _layout(backend)
+    if lay is None:
+        return apply_norm(p, h, cfg.norm, cfg.norm_eps)
+    from repro_torch.sharding import collectives as coll
+    mesh = backend_lib.resolve(backend).mesh
+    if lay.mode == "seq":
+        p = {k: coll.copy_to_model(v, mesh) for k, v in p.items()}
+        return coll.all_gather_split(
+            apply_norm(p, h, cfg.norm, cfg.norm_eps), mesh, "model", dim=1)
+    whole = coll.all_gather_split(h, mesh, "model", dim=-1)
+    return apply_norm(p, whole, cfg.norm, cfg.norm_eps)
+
+
+def _embed(p, tokens, dtype, backend):
+    """The embedding rows of ``tokens``, cut to the step's residual layout.
+    A train step's table cut over the vocabulary (a ``ModelPiece``) is
+    looked up vocab-parallel: each rank takes the tokens in its rows of
+    the table (zeros elsewhere) and the ranks' rows are summed, by a
+    reduce-scatter into the layout's block or an all-reduce (one nonzero
+    term per output: exact)."""
+    from repro_torch.sharding.partition import ModelPiece
+    table = p["table"]
+    if not isinstance(table, ModelPiece):
+        return cut_residual(embed(p, tokens, dtype), backend)
+    from repro_torch.sharding import collectives as coll
+    bk = backend_lib.resolve(backend)
+    mesh = bk.mesh
+    n = table.t.shape[0]
+    local = tokens.long() - mesh.index("model") * n
+    hit = (local >= 0) & (local < n)
+    rows = table.t.to(dtype)[local.clamp(0, n - 1)]
+    rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
+    lay = _layout(bk)
+    if lay is None:
+        return coll.psum_grad(rows, mesh, "model")
+    return coll.reduce_scatter_grad(rows, mesh, "model", dim=lay.dim)
 
 
 def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
@@ -186,14 +269,20 @@ def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
     memory's K/V in prefill (written at offset 0 by ``run_stack``) and
     None in decode, where it only reads the cache.  ``legacy_decode``
     sends a GQA self-attention layer's decode through
-    ``attention.gqa_decode_legacy``, which writes the cache itself."""
+    ``attention.gqa_decode_legacy``, which writes the cache itself.
+
+    Under a residual layout (``Backend.residual``) ``h`` is the rank's
+    block of positions or channels: each norm's output reaches the mixer
+    and the FFN whole (:func:`normed_whole`), and their output, either
+    rejoined into the block by the pair-second dot or whole (then cut:
+    :func:`cut_residual`), adds to ``h`` locally."""
     if mode == "prefill_chunk" and mixer_kind != "attn":
         # SSM state integration and cross-attention memory streams would
         # need chunk-to-chunk state threading; the scheduler prefills such
         # stacks monolithically
         raise ValueError(f"chunked prefill supports attention mixers only, "
                          f"got {mixer_kind!r}")
-    hn = apply_norm(p["norm1"], h, cfg.norm, cfg.norm_eps)
+    hn = normed_whole(p["norm1"], h, cfg, backend)
     if mixer_kind == "ssm":
         if mode == "decode":
             y, new_cache = ssm_lib.ssm_decode(p["mixer"], cfg, hn, cache, pos,
@@ -225,8 +314,8 @@ def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
                 backend=backend)
             kv = _cross_kv(pm["cross"], cfg, memory, h.shape[0], backend)
             cross_c = kv
-        h = h + y
-        hn2 = apply_norm(p["norm_cross"], h, cfg.norm, cfg.norm_eps)
+        h = h + cut_residual(y, backend)
+        hn2 = normed_whole(p["norm_cross"], h, cfg, backend)
         y = attn.cross_attn_forward(pm["cross"], cfg, hn2, kv,
                                     transpose=transpose, backend=backend)
         new_cache = ({"self": self_c, "cross": cross_c}
@@ -252,16 +341,16 @@ def apply_layer(p, cfg: ModelConfig, h, cache, aux, *, mixer_kind, ffn_kind,
                                backend=backend)
     else:
         raise ValueError(mixer_kind)
-    h = h + y
+    h = h + cut_residual(y, backend)
     if ffn_kind != "none":
-        hn = apply_norm(p["norm2"], h, cfg.norm, cfg.norm_eps)
+        hn = normed_whole(p["norm2"], h, cfg, backend)
         if ffn_kind == "moe":
             y, moe_aux = _moe_ffn(p["ffn"], cfg, hn, transpose, backend)
             aux = aux + moe_aux["load_balance"]
         else:
             y = apply_mlp(p["ffn"], hn, act=cfg.mlp_act,
                           transpose=transpose, backend=backend)
-        h = h + y
+        h = h + cut_residual(y, backend)
     return h, new_cache, aux
 
 
@@ -381,15 +470,20 @@ def encoder_pass(params, cfg: ModelConfig, batch, backend,
     Returns the memory (B, F, d) and the aux."""
     dtype = torch_dtype(cfg.compute_dtype)
     frames = batch["audio_embeds"].to(dtype)
-    h = apply_linear(params["audio_proj"], frames, backend=backend)
+    bk = backend_lib.resolve(backend)
+    if bk.residual is not None:
+        # the encoder's residual over its frames, in the step's layout
+        bk = dataclasses.replace(
+            bk, residual=bk.residual.for_length(frames.shape[1]))
+    h = cut_residual(apply_linear(params["audio_proj"], frames,
+                                  backend=bk), bk)
     spec = build_segments(cfg)[0]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    h, _, aux = run_stack(group_block_fn(cfg, spec, "train", None, backend),
+    h, _, aux = run_stack(group_block_fn(cfg, spec, "train", None, bk),
                           params["segments"][spec.name], h,
                           shareds_for(cfg)[spec.name], aux0=aux,
-                          remat=remat, backend=backend)
-    return apply_norm(params["enc_final_norm"], h, cfg.norm,
-                      cfg.norm_eps), aux
+                          remat=remat, backend=bk)
+    return normed_whole(params["enc_final_norm"], h, cfg, bk), aux
 
 
 def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
@@ -410,7 +504,16 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
     so the stack runner writes no deltas; as in the reference it leaves
     MLA's decode as it is, and it refuses stacks whose decode step returns
     a delta the runner would then not write (MLA, whisper's self- and
-    cross-attention layer).  Returns (logits (B, S, V), caches, aux)."""
+    cross-attention layer).  Returns (logits (B, S, V), caches, aux).
+
+    A backend carrying a residual layout (``Backend.residual``, set for a
+    train or prefill step by ``train/trainer.py`` and ``api._step_rows``)
+    holds the residual cut over "model" between the layers, the
+    encoder's too: the embedding is cut to the rank's block (:func:`_embed`),
+    every layer norms its block and works on whole rows
+    (:func:`apply_layer`), and the final norm's output is gathered whole,
+    so the lm head (column-parallel over the vocabulary where it is cut)
+    and the logits see whole rows."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     check_ported(cfg)
@@ -423,7 +526,11 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
     backend = backend_lib.resolve(execution if execution is not None
                                   else cfg)
     shareds = shareds_for(cfg)
-    h = embed(params["embed"], batch["tokens"], dtype)
+    if backend.residual is not None and mode not in ("train", "prefill"):
+        # only full-sequence steps cut the residual (a decode step's one
+        # position, a chunk's rows: whole)
+        backend = dataclasses.replace(backend, residual=None)
+    h = _embed(params["embed"], batch["tokens"], dtype, backend)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     memory = None                   # decode: the cross K/V are in the cache
     if cfg.family == "vlm" and mode != "decode":
@@ -443,7 +550,7 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
             cache=seg_cache, aux0=aux, remat=remat,
             decode_pos=pos if mode == "decode" and not legacy else None,
             backend=backend)
-    h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+    h = normed_whole(params["final_norm"], h, cfg, backend)
     if cfg.tie_embeddings:
         logits = backend.dot(h, cast(params["embed"]["table"], h.dtype),
                              transpose=True)

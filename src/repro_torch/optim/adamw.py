@@ -10,9 +10,9 @@ are left as they were.
 
 On a mesh (``train/trainer.py``) the update is elementwise on the rank's
 pieces, and :func:`global_norm` adds every rank's share of the squares
-over the data axes, so the clip scale and ``grad_norm`` are the unsharded
+over the whole mesh, so the clip scale and ``grad_norm`` are the unsharded
 ones, and the same bit for bit whether the rank holds ``cfg.fsdp`` pieces
-or whole leaves.
+or leaves whole over the data axes.
 """
 from __future__ import annotations
 
@@ -57,26 +57,32 @@ def global_norm(tree, mesh=None, norm_specs=None,
                 pieces: bool = False) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares.
 
-    On a mesh, ``norm_specs`` gives each leaf's data-axes spec under the
-    FSDP rules (``trainer.param_specs(..., fsdp=True)``): a rank squares
-    its share of every leaf, the leaf itself where ``pieces`` (the tree
-    holds its FSDP pieces) or else its cut of the whole leaf, and a leaf no
-    rule cuts on data rank 0 only (counted once, not once a rank); the
-    sums are added over the data axes."""
-    if mesh is None or partition.dp_size(mesh) == 1:
+    On a mesh, ``norm_specs`` gives each leaf's spec under the FSDP rules
+    (``trainer.param_specs(..., fsdp=True)``), and the tree holds the
+    rank's "model" piece of each leaf it cuts over "model".  A rank squares
+    its share of every leaf: over the data axes its piece where ``pieces``
+    (the tree holds its FSDP pieces), else its cut of the leaf, and a leaf
+    no rule cuts over them on data rank 0 only; over "model" its piece, and
+    a leaf whole over "model" on model rank 0 only (each element counted
+    once).  The sums are added over the whole mesh."""
+    if mesh is None or mesh.size == 1:
         total = 0
         for x in tree_leaves(tree):
             total = total + torch.sum(torch.square(x.to(torch.float32)))
         return torch.sqrt(total)
     d = partition.data_axes(mesh)
-    first = mesh.index(d) == 0
+    first_data = mesh.index(d) == 0
+    first_model = mesh.index("model") == 0
     shares = []
 
     def share(x, spec):
-        if partition.cuts(spec):
+        dspec = partition.data_spec(spec, mesh)
+        if partition.cuts(dspec):
             if not pieces:
-                x = partition.local_slice(x, spec, mesh).contiguous()
-        elif not first:
+                x = partition.local_slice(x, dspec, mesh).contiguous()
+        elif not first_data:
+            return
+        if partition.model_dim(spec) is None and not first_model:
             return
         shares.append(torch.sum(torch.square(x.to(torch.float32))))
 
@@ -85,7 +91,7 @@ def global_norm(tree, mesh=None, norm_specs=None,
                         device=tree_leaves(tree)[0].device)
     for x in shares:
         total = total + x
-    return torch.sqrt(coll.psum(total, mesh, d))
+    return torch.sqrt(coll.psum(total, mesh, mesh.axis_names))
 
 
 @torch.no_grad()

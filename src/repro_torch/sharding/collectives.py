@@ -24,13 +24,21 @@ per-rank result (``launch/analysis.py``'s counterpart of
 ``collective_bytes_trip_corrected``).  So a census walk and a real run of
 the same step can be held to each other.
 
-Two of them are differentiable (``torch.autograd.Function``s), for the
-train step on a mesh: :func:`all_gather_grad` (backward: a reduce-scatter
-on the gathered dim, so each rank receives the gradient of its own block
-summed over the ranks) and :func:`reduce_scatter_grad` (backward: an
-all-gather).  Every rank of the group must reach each of them, forward and
-backward, in the same order; a train step's graph is the same on every
-rank, so its backward is too.
+Six are differentiable (``torch.autograd.Function``s), for the train step
+on a mesh.  Over the data axes each rank differentiates its own share of
+the loss: :func:`all_gather_grad` (backward: a reduce-scatter on the
+gathered dim, so each rank receives the gradient of its own block summed
+over the ranks) and :func:`reduce_scatter_grad` (backward: an all-gather).
+Over "model" the loss is the same on every rank and a tensor every rank
+holds whole gets the whole gradient on each (Megatron's convention): the
+conjugates :func:`copy_to_model` (the identity whose backward all-reduces:
+entering a computation that each rank does on its own piece) and
+:func:`psum_grad` (an all-reduce whose backward is the identity: leaving
+one), :func:`all_gather_split` (backward: the rank's block) and
+:func:`split_grad` (the rank's block; backward: an all-gather), beside
+:func:`reduce_scatter_grad`.  Every rank of the group must reach each of
+them, forward and backward, in the same order; a train step's graph is the
+same on every rank, so its backward is too.
 """
 from __future__ import annotations
 
@@ -201,6 +209,101 @@ def reduce_scatter_grad(x: torch.Tensor, mesh, axes, dim: int = -1):
     return _ReduceScatter.apply(x, mesh, axes, dim)
 
 
+class _PsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+def _block(t, mesh, axes, dim):
+    n = mesh.axis_size(axes)
+    w = t.shape[dim] // n
+    return t.narrow(dim, mesh.index(axes) * w, w)
+
+
+class _GatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(x, mesh, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_block(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(), None,
+                None, None)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _block(x, mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, ctx.axes,
+                          dim=ctx.dim), None, None, None
+
+
+def psum_grad(x: torch.Tensor, mesh, axes):
+    """:func:`psum` whose backward is the identity (Megatron's "g"): the
+    ranks' partial sums joined into a tensor every rank holds whole, whose
+    gradient each rank has whole (a row-parallel dot's rejoin); over the
+    data axes, the train step's CE numerator: its value the whole sum, each
+    rank's gradient its own term's."""
+    axes = _axes(axes)
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _PsumGrad.apply(x, mesh, axes)
+
+
+def copy_to_model(x: torch.Tensor, mesh, axes="model"):
+    """The identity whose backward all-reduces the gradient over ``axes``
+    (Megatron's "f"): a tensor every rank holds whole, entering a
+    computation each rank does on its own piece (a column-parallel dot's
+    input, a norm scale applied to the rank's positions) gets the sum of
+    the ranks' partial gradients."""
+    axes = _axes(axes)
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _Copy.apply(x, mesh, axes)
+
+
+def all_gather_split(x: torch.Tensor, mesh, axes, dim: int = -1):
+    """:func:`all_gather` on ``dim`` whose backward keeps the rank's block
+    of the gradient: the gathered tensor's gradient is whole on every rank
+    already (Megatron's gather from the model-parallel region)."""
+    axes = _axes(axes)
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _GatherSplit.apply(x, mesh, axes, dim)
+
+
+def split_grad(x: torch.Tensor, mesh, axes, dim: int = -1):
+    """The rank's block of ``x`` on ``dim`` (a tensor every rank holds
+    whole) whose backward all-gathers the blocks' gradients into the whole
+    one (Megatron's scatter to the model-parallel region)."""
+    axes = _axes(axes)
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _Split.apply(x, mesh, axes, dim)
+
+
 def barrier(mesh) -> None:
     """Wait for every rank of ``mesh`` (no-op on one position and on a
     census mesh)."""
@@ -232,8 +335,7 @@ def ppermute_ring(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 def split_last(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """This rank's block of ``x``'s last dim along ``axes`` (no
     communication)."""
-    n = mesh.axis_size(_axes(axes))
-    if n == 1:
+    axes = _axes(axes)
+    if mesh.axis_size(axes) == 1:
         return x
-    w = x.shape[-1] // n
-    return x.narrow(-1, mesh.index(_axes(axes)) * w, w)
+    return _block(x, mesh, axes, -1)

@@ -24,13 +24,18 @@ On top of the rules, the port's ranks need a rank's piece of a tensor:
 pieces back, and :func:`place_bank` gives a rank its piece of every
 programmed bank (``core.prepared.PreparedTensor.field_specs``; under
 ``fsdp`` the matrices' and the float leaves' "embed" dims over the data
-axes too).  For training, :func:`data_specs` keeps the data-axes part of a
-``tree_pspecs`` tree (the xla backend runs its dots whole, so a rank holds
-every parameter whole over "model"), :func:`local_tree` cuts a rank's
-pieces of a parameter tree and :func:`gather_tree` all-gathers them back
-into the logical layout; :func:`scatter_leaf` reduce-scatters a whole
-gradient into the rank's piece.  A rank's caches are its pieces under
-:func:`cache_pspecs`, each made at :func:`local_shape` and marked with
+axes too).  For training, a rank holds the whole ``tree_pspecs`` piece of
+every parameter ("model" entries too); :func:`data_specs` keeps the
+data-axes part of a spec tree (what FSDP gathers at a step's start),
+:func:`local_tree` cuts a rank's pieces of a parameter tree and
+:func:`gather_tree` all-gathers them back into the logical layout;
+:func:`scatter_leaf` reduce-scatters a whole gradient into the rank's
+piece; :func:`forward_leaf` gives a train step's forward each leaf as its
+dots read it (a :class:`ModelPiece` for a matrix cut over "model").
+:func:`residual_layout` reads a step's residual placement ("seq" /
+"hidden") from its activation spec (:class:`ResidualLayout`).  A rank's
+caches are its pieces under :func:`cache_pspecs`, each made at
+:func:`local_shape` and marked with
 its spec and whole shape (:func:`mark_piece` / :func:`piece_of`);
 :func:`positions_dim` names the dim of a leaf's positions by its key;
 :func:`kv_layout` says where a step's attention heads or positions (MLA:
@@ -190,6 +195,58 @@ def act_pspec(mesh, mode: str = "seq") -> tuple:
     if mode == "hidden":
         return (dd, None, "model")
     return (dd,)
+
+
+def residual_mode(spec) -> str:
+    """The residual placement an activation spec asks for: ``"seq"`` (its
+    positions entry is "model"), ``"hidden"`` (its d_model entry is) or
+    ``"replicated"`` (neither; also ``None``)."""
+    spec = tuple(spec or ())
+    if len(spec) > 1 and "model" in _entry_axes(spec[1]):
+        return "seq"
+    if len(spec) > 2 and "model" in _entry_axes(spec[2]):
+        return "hidden"
+    return "replicated"
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualLayout:
+    """How a step holds its residual stream (B, S, D) over "model" between
+    the layers: ``mode`` "seq" (a rank's block of the ``length`` positions)
+    or "hidden" (its block of the ``width`` channels), over ``tp`` ranks.
+    ``active`` when that dim divides; otherwise the residual stays whole
+    (a decode step's one position), as ``spec_for`` drops a rule that does
+    not divide.  ``models/transformer.py`` cuts and gathers it; the
+    pair-second dot rejoins into it (``core/backend.py``)."""
+    mode: str
+    length: int
+    width: int
+    tp: int
+
+    @property
+    def dim(self) -> int:
+        """The residual dim that is cut: 1 (positions) or -1 (channels)."""
+        return 1 if self.mode == "seq" else -1
+
+    @property
+    def active(self) -> bool:
+        n = self.length if self.mode == "seq" else self.width
+        return self.tp > 1 and n % self.tp == 0
+
+    def for_length(self, length: int) -> "ResidualLayout":
+        """The same layout for another stream (the encoder's frames)."""
+        return dataclasses.replace(self, length=int(length))
+
+
+def residual_layout(spec, mesh, length: int, width: int):
+    """The :class:`ResidualLayout` of activation spec ``spec`` for a stream
+    of ``length`` positions and ``width`` channels on ``mesh``, or None
+    ("replicated", or a mesh whose "model" axis has one rank)."""
+    mode = residual_mode(spec)
+    tp = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    if mode == "replicated" or tp == 1:
+        return None
+    return ResidualLayout(mode, int(length), int(width), int(tp))
 
 
 def _seq_axes(mesh, batch: int, L: int):
@@ -599,6 +656,86 @@ def bank_data_specs(bank: Any, specs: Any, mesh, fsdp: bool) -> Any:
 
 
 # ----------------------------------------------------- parameter pieces
+# the leaves a train step's dots read (``Backend.dot``); under their
+# "model" rule each stays the rank's piece in the forward (ModelPiece)
+DOT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_dkv", "w_ukv", "w_gate",
+                      "w_up", "w_down", "w_in", "w_out", "w", "table"})
+
+
+def model_dim(spec: tuple):
+    """The dim ``spec`` cuts over "model", or None."""
+    for d, e in enumerate(spec):
+        if "model" in _entry_axes(e):
+            return d
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelPiece:
+    """A rank's piece ``t`` of a matrix parameter cut over "model" on dim
+    ``dim`` (-1 or -2), as a train step's forward reads it: ``shape`` is
+    the whole leaf's.  ``Backend.dot`` on the xla backend runs a dot on it
+    by its rule (``core/backend.py``), the embedding looks its rows up
+    vocab-parallel (``models/transformer.py``); indexing a leading dim and
+    ``.to`` keep the record."""
+    t: Any
+    dim: int
+    shape: tuple
+
+    def __getitem__(self, i):
+        if not isinstance(i, int):
+            raise TypeError(f"a ModelPiece indexes one leading dim, got {i!r}")
+        return ModelPiece(self.t[i], self.dim, tuple(self.shape[1:]))
+
+    def to(self, dtype):
+        return ModelPiece(self.t.to(dtype), self.dim, self.shape)
+
+    def block(self, dim: int, mesh):
+        """The rank's block of the whole leaf along ``dim`` (-1 or -2): the
+        piece itself when it is cut there, else the whole leaf gathered over
+        "model" (differentiably: its gradient comes back as the piece) and
+        cut; ``dim=None``: the whole leaf."""
+        from repro_torch.sharding import collectives as coll
+
+        if dim == self.dim:
+            return self.t
+        whole = coll.all_gather_split(self.t, mesh, "model", dim=self.dim)
+        if dim is None:
+            return whole
+        return coll.split_grad(whole, mesh, "model", dim=dim)
+
+
+def forward_leaf(t, spec: tuple, path: tuple, mesh):
+    """A train step's leaf as its forward reads it on this rank, given the
+    rank's piece ``t`` under the whole ``tree_pspecs`` spec ``spec``: a
+    leaf whole over "model" as it is; a matrix a dot reads (a
+    :data:`DOT_KEYS` leaf cut on one of its two matrix dims, not a MoE
+    expert bank) a :class:`ModelPiece`; any other cut leaf (an expert bank
+    cut on its experts, the SSM's conv kernel and per-head vectors)
+    all-gathered whole (``collectives.all_gather_split``: every rank runs
+    it whole, and its gradient comes back as the rank's piece)."""
+    from repro_torch.sharding import collectives as coll
+
+    d = model_dim(spec)
+    if d is None or mesh.axis_size("model") == 1:
+        return t
+    axes = leaf_axes(path, t.ndim)
+    if path[-1] in DOT_KEYS and "experts" not in axes and d >= t.ndim - 2:
+        shape = list(t.shape)
+        shape[d] *= mesh.axis_size("model")
+        return ModelPiece(t, d - t.ndim, tuple(shape))
+    return coll.all_gather_split(t, mesh, "model", dim=d)
+
+
+def map_with_paths(fn, tree: Any, specs: Any, path=()) -> Any:
+    """``fn(leaf, spec, path)`` over a nested-dict tree and its spec
+    tree."""
+    if isinstance(tree, dict):
+        return {k: map_with_paths(fn, tree[k], specs[k], path + (k,))
+                for k in sorted(tree)}
+    return fn(tree, specs, path)
+
+
 def local_tree(tree: Any, specs: Any, mesh) -> Any:
     """This rank's piece of every leaf of ``tree`` under the parallel spec
     tree ``specs`` (each cut leaf an owned contiguous copy, so the whole

@@ -10,24 +10,53 @@ the weights out.
 
 **On a mesh** (``mesh``: the rank's bound ``launch.mesh.Mesh`` of more than
 one position; ``act_pspec`` the reference's train spec,
-``partition.act_pspec(mesh)``): every rank is handed the global batch and
-each data rank runs its rows of it (of each microbatch), replicated over
-"model" (the xla backend runs its dots whole, so the "model" part of the
-"seq" spec saves nothing yet).  CE's numerator and its denominator are each
-summed over the data axes before the division, and the MoE load-balance
-aux, the same on every rank (``transformer._moe_ffn`` routes the batch
-gathered over "data"), enters on data rank 0 only: the losses the ranks
-differentiate add up to the unsharded loss.  A ``cfg.fsdp`` piece (its
-"embed" dim over the data axes) is all-gathered whole once a step, before
-the first microbatch.  The rank sums its gradients over the microbatches,
-then over the data axes once a step: all-reduced for a leaf the rank holds
-whole, reduce-scattered into the rank's piece for a ``cfg.fsdp`` leaf.  So
-every parameter's gradient is the unsharded one, and under FSDP the rank's
-piece of it.  ``grad_norm``, the clip and the update follow
-``optim/adamw.py``.  :func:`param_specs` gives the layout,
-:func:`state_specs` that of ``(params, OptState)`` for the checkpoints.
-``tcfg.grad_allreduce_dtype`` is not read (nor is it in the reference):
-the gradients are summed in float32.  Without a mesh the step runs on
+``partition.act_pspec(mesh)``, "seq" by default): every rank is handed the
+global batch and each data rank runs its rows of it (of each microbatch).
+A rank holds the reference's whole ``tree_pspecs(..., cfg.fsdp)`` piece of
+every parameter and of the Adam moments (:func:`param_specs`), "model"
+entries included, as the reference's ``launch.train`` places them.
+
+The forward runs tensor-parallel over "model" (the reference leaves the
+xla dots to GSPMD, which partitions them so): a matrix the rank holds a
+piece of reaches ``Backend.dot`` as a ``partition.ModelPiece`` and runs
+by ``partition_rule`` on it (``core/backend.py``: column blocks, row blocks
+rejoined, the Megatron pairing of the MLP and, where "model" divides the
+KV heads, of attention on the rank's own heads); any other leaf cut over
+"model" (a MoE expert bank, the SSM's conv kernel and per-head vectors) is
+all-gathered whole at the step's start, differentiably.  The residual
+follows ``act_pspec`` (``partition.ResidualLayout``): "seq" holds the
+rank's block of positions between the layers (Korthikanti's sequence
+parallelism: each norm on the rank's positions, an all-gather entering
+each mixer and FFN, the pair-second dot's reduce-scatter over the
+positions), "hidden" its block of channels, "replicated" whole rows.  The
+final norm's output is gathered whole: the lm head runs column-parallel
+over the vocabulary and its logits are gathered whole, so CE is not
+vocab-parallel.
+
+The loss and the gradients: every collective is differentiable.  Over the
+data axes each rank differentiates its own share of the loss: CE's
+numerator over the rank's rows, summed over the data axes
+(``collectives.psum_grad``: the value is the whole CE, the gradient the
+rows') and divided by the denominator summed over them; the MoE
+load-balance aux, the same on every rank (``transformer._moe_ffn`` routes
+the batch gathered over "data", whole positions), on data rank 0 only.
+Over "model" the loss is the same on every rank and Megatron's convention
+holds (``sharding/collectives.py``, ``core/backend.py``): a tensor every
+rank holds whole gets its whole gradient on each, so a leaf whole over
+"model" (norm scales, biases, the router) has the unsharded gradient of
+its data rank's rows (a norm applied to the rank's positions takes its
+scale through ``copy_to_model``), and a "model" piece the gradient of its
+block.  Then, once a step, the rank sums its gradients over the
+microbatches and over the data axes: all-reduced for a leaf whole over
+them, reduce-scattered into the rank's piece for a ``cfg.fsdp`` leaf.  A
+``cfg.fsdp`` piece (its "embed" dim over the data axes) is all-gathered
+over them once a step, before the first microbatch.  ``grad_norm``, the
+clip and the update follow ``optim/adamw.py`` (the norm's shares over
+"model" too).
+:func:`state_specs` is the layout of ``(params, OptState)`` for the
+checkpoints, which hold the logical layout.  ``tcfg.grad_allreduce_dtype``
+is not read (nor is it in the reference): the gradients are summed in
+float32.  Without a mesh the step runs on
 ``launch.mesh.single_device_mesh()``, where every collective is the
 identity: one body for every mesh.
 """
@@ -90,14 +119,13 @@ def _loss_with_mask(params, cfg: ModelConfig, batch, aux_weight, remat):
 # the layout on a mesh
 # =========================================================================
 def param_specs(cfg: ModelConfig, mesh, fsdp=None) -> dict:
-    """A rank's layout of the parameter tree: the data-axes part of the
-    reference's ``tree_pspecs(..., cfg.fsdp)`` (``fsdp`` overrides it), one
-    spec tuple a leaf (``()``: whole on every rank).  Without ``cfg.fsdp``
-    every leaf is whole."""
+    """A rank's layout of the parameter tree: the reference's whole
+    ``tree_pspecs(..., cfg.fsdp)`` (``fsdp`` overrides it), one spec tuple
+    a leaf (``()``: whole on every rank), "model" entries included."""
     shapes = tfm.abstract_params(cfg)
     fsdp = cfg.fsdp if fsdp is None else fsdp
-    return partition.data_specs(partition.tree_pspecs(
-        shapes, partition.model_specs(shapes), mesh, fsdp), mesh)
+    return partition.tree_pspecs(shapes, partition.model_specs(shapes),
+                                 mesh, fsdp)
 
 
 def state_specs(pspecs) -> tuple:
@@ -109,19 +137,27 @@ def state_specs(pspecs) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class _MeshStep:
     """What a rank's train step needs of its mesh: the backend (xla, rows
-    over the data axes), the parameter layout and the grad-norm shares.
-    One position (``launch.mesh.single_device_mesh``) is the unsharded
-    step: every collective below is the identity there."""
+    over the data axes), the parameter layout, the residual's and the
+    grad-norm shares.  One position (``launch.mesh.single_device_mesh``)
+    is the unsharded step: every collective below is the identity there."""
 
     mesh: object
+    cfg: ModelConfig
     backend: backend_lib.Backend
+    act_pspec: tuple       # the residual's spec (partition.residual_mode)
     specs: dict            # param_specs under cfg.fsdp
+    data_specs: dict       # their data-axes part (what FSDP gathers)
     norm_specs: dict       # param_specs under fsdp=True: the norm's shares
     fsdp: bool             # the rank holds cfg.fsdp pieces (dp > 1)
 
     @property
     def data(self) -> tuple:
         return partition.data_axes(self.mesh)
+
+    @property
+    def first(self) -> bool:
+        """Data rank 0 (it counts the aux)."""
+        return self.mesh.index(self.data) == 0
 
     def rows(self, B: int) -> slice:
         """This data rank's rows of a B-row (micro)batch."""
@@ -133,18 +169,44 @@ class _MeshStep:
         i = self.mesh.index(self.data)
         return slice(i * n, (i + 1) * n)
 
+    def step_backend(self, B: int, S: int) -> backend_lib.Backend:
+        """The backend of a forward over B rows of S positions: the
+        residual layout of ``act_pspec``, and on "model" ranks that divide
+        the KV heads, attention on the rank's own heads."""
+        mesh = self.mesh
+        if mesh.axis_size("model") == 1:
+            return self.backend
+        lay = partition.residual_layout(self.act_pspec, mesh, S,
+                                        self.cfg.d_model)
+        kv = None
+        if self.cfg.mla is None and partition.kv_layout(
+                self.cfg, mesh, B, S).heads:
+            kv = partition.KVLayout(True, (), S)
+        return dataclasses.replace(self.backend, residual=lay, kv=kv)
+
     def whole(self, params):
-        """The parameter tree whole on this rank (its FSDP pieces
-        all-gathered; else ``params`` itself)."""
+        """The parameter tree whole over the data axes on this rank (its
+        FSDP pieces all-gathered; else ``params`` itself); "model" pieces
+        stay."""
         if not self.fsdp:
             return params
-        return partition.gather_tree(params, self.specs, self.mesh)
+        return partition.gather_tree(params, self.data_specs, self.mesh)
+
+    def forward_tree(self, tracked):
+        """The forward's parameter tree of the tracked (whole over the data
+        axes) leaves: cast to the compute dtype, then each "model" piece as
+        ``partition.forward_leaf`` gives it."""
+        mesh = self.mesh
+        return partition.map_with_paths(
+            lambda t, spec, path: partition.forward_leaf(t, spec, path,
+                                                         mesh),
+            _compute(tracked, self.cfg), self.specs)
 
     def reduce(self, grads):
-        """Gradients of the whole tree summed over the data axes: a
-        ``cfg.fsdp`` leaf's reduce-scattered into the rank's piece, every
-        other leaf's all-reduced, all of them in one collective
-        (elementwise sums: the same numbers as one all-reduce a leaf)."""
+        """Gradients of the tree summed over the data axes: a ``cfg.fsdp``
+        leaf's reduce-scattered into the rank's piece, every other leaf's
+        all-reduced, all of them in one collective (elementwise sums: the
+        same numbers as one all-reduce a leaf)."""
         if partition.dp_size(self.mesh) == 1:
             return grads
         pending = []
@@ -155,7 +217,7 @@ class _MeshStep:
             pending.append(g)
             return g
 
-        grads = partition.map_with_specs(one, grads, self.specs)
+        grads = partition.map_with_specs(one, grads, self.data_specs)
         if not pending:
             return grads
         flat = coll.psum(torch.cat([g.reshape(-1) for g in pending]),
@@ -191,8 +253,10 @@ def _mesh_step(cfg: ModelConfig, mesh, act_pspec) -> _MeshStep:
     if report.dropped:
         warnings.warn(partition.dropped_summary(report), stacklevel=3)
     bk = backend_lib.Backend("xla", mesh=mesh, rows_sharded=True)
-    return _MeshStep(mesh=mesh, backend=bk,
-                     specs=param_specs(cfg, mesh),
+    specs = param_specs(cfg, mesh)
+    return _MeshStep(mesh=mesh, cfg=cfg, backend=bk,
+                     act_pspec=tuple(act_pspec or ()), specs=specs,
+                     data_specs=partition.data_specs(specs, mesh),
                      norm_specs=param_specs(cfg, mesh, fsdp=True),
                      fsdp=bool(cfg.fsdp) and dp > 1)
 
@@ -213,24 +277,25 @@ def _grads(loss, tracked):
 def _rank_grads(whole, cfg: ModelConfig, batch, remat: bool, ms: _MeshStep):
     """(ce, aux, grads) of this rank's rows of the global (micro)batch
     ``batch``: the unsharded CE and aux, and the gradient of the rank's
-    loss with respect to every leaf of ``whole`` (the whole tree); summed
-    over the data axes (``ms.reduce``) they are the unsharded gradients."""
+    loss (module docstring) with respect to every leaf of
+    ``whole`` (the tree whole over the data axes); summed over the data
+    axes (``ms.reduce``) they are the unsharded gradients."""
     sl = ms.rows(batch["tokens"].shape[0])
     batch = {k: v[sl] for k, v in batch.items()}
     tracked = _track(whole)
-    logits, _, aux = tfm.forward(_compute(tracked, cfg), cfg, batch,
-                                 mode="train", remat=remat,
-                                 execution=ms.backend)
     tokens = batch["tokens"]
+    B, S = tokens.shape
+    logits, _, aux = tfm.forward(ms.forward_tree(tracked), cfg, batch,
+                                 mode="train", remat=remat,
+                                 execution=ms.step_backend(B, S))
     num, den = ce_terms(logits[:, :-1], tokens[:, 1:], cfg.vocab_size)
-    den = torch.clamp(coll.psum(den.detach(), ms.mesh, ms.data), min=1.0)
-    ce = coll.psum(num.detach(), ms.mesh, ms.data) / den
+    den = torch.clamp(coll.psum(den, ms.mesh, ms.data), min=1.0)
+    # the whole CE on every rank, each data rank's gradient its own rows'
+    ce = coll.psum_grad(num, ms.mesh, ms.data) / den
     # aux is the same on every rank (the MoE routes the gathered batch):
-    # the rank losses add up to CE + AUX_WEIGHT * aux
-    rank_loss = num / den
-    if ms.mesh.index(ms.data) == 0:
-        rank_loss = rank_loss + AUX_WEIGHT * aux
-    return ce, aux.detach(), _grads(rank_loss, tracked)
+    # the data ranks' losses add up to CE + AUX_WEIGHT * aux
+    rank_loss = ce + AUX_WEIGHT * aux if ms.first else ce
+    return ce.detach(), aux.detach(), _grads(rank_loss, tracked)
 
 
 def loss_and_grads(params, cfg: ModelConfig, batch, remat: bool = True, *,
@@ -258,7 +323,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, act_pspec=None,
 
     ``mesh`` (a bound mesh of more than one position) trains on the ranks
     (module docstring): every rank passes the global batch, and its params
-    and Adam state in :func:`param_specs`' layout (its ``cfg.fsdp`` pieces).
+    and Adam state in :func:`param_specs`' layout (its pieces over
+    "model" and, under ``cfg.fsdp``, over the data axes).
     A batch, or a microbatch, that does not divide over the data ranks
     raises, as does ``act_pspec`` without a mesh.  ``None`` and a 1x1 mesh
     are the unsharded step."""

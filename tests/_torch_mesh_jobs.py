@@ -1,7 +1,8 @@
 """What the gloo ranks of ``tests/test_torch_train_mesh.py``,
 ``tests/test_torch_fsdp.py``, ``tests/test_torch_dryrun.py``,
-``tests/test_torch_tp_attention.py`` and ``tests/test_torch_tp_ssm_mla.py``
-run (``launch.mesh.init_ranks``
+``tests/test_torch_tp_attention.py``, ``tests/test_torch_tp_ssm_mla.py``,
+``tests/test_torch_seq_parallel.py`` and
+``tests/test_torch_seq_parallel_prefill.py`` run (``launch.mesh.init_ranks``
 imports a rank's function in each child process).  This module imports the port
 only, so a rank starts without JAX; the test files hold its results
 against the reference."""
@@ -38,49 +39,58 @@ def np_tree(tree) -> dict:
             for k, v in checkpoint._flatten(tree).items()}
 
 
-def train_rank(mesh, job, B, S, steps, tcfg, mbs):
+def train_rank(mesh, job, B, S, steps, tcfg, mbs, modes=None):
     """Per model of ``job`` ({name: (cfg, flat params)}) and per
     ``cfg.fsdp``: the rank's param pieces' shapes, ``loss_and_grads`` of
     the first batch (the gradients gathered whole), then ``steps`` steps
     with each microbatch count of ``mbs`` (one step without microbatches):
-    metrics, the params and moments gathered whole."""
+    metrics, the params and moments gathered whole.  The residual spec is
+    ``partition.act_pspec(mesh)`` ("seq"), keyed ``(name, fsdp)``; with
+    ``modes`` each of those modes', keyed ``(name, fsdp, mode)``."""
     torch.set_num_threads(1)
-    apspec = partition.act_pspec(mesh)
     out = {"collectives": grad_collectives(mesh), "coords": mesh.coords}
     for name, (tc, flat) in job.items():
         whole = bridge.params_from_flat(flat, device="cpu")
         data = tensors(batches(tc.vocab_size, B, S, steps))
         for fsdp in (False, True):
             cfg = dataclasses.replace(tc, fsdp=fsdp)
-            specs = trainer.param_specs(cfg, mesh)
-            params = partition.local_tree(whole, specs, mesh)
-            r = {"pieces": {k: tuple(v.shape) for k, v in
-                            checkpoint._flatten(params).items()}}
-            loss, ce, aux, g = trainer.loss_and_grads(
-                params, cfg, data[0], remat=True, mesh=mesh,
-                act_pspec=apspec)
-            r["loss_and_grads"] = (float(loss), float(ce), float(aux),
-                                   np_tree(partition.gather_tree(
-                                       g, specs, mesh)))
-            for mb in mbs:
-                step = trainer.make_train_step(
-                    cfg, TrainConfig(**tcfg, microbatch=mb),
-                    act_pspec=apspec, mesh=mesh)
-                p, o = params, adamw.init(params)
-                metrics = []
-                for b in data[:steps if mb else 1]:
-                    p, o, m = step(p, o, b)
-                    metrics.append((float(m["loss"]), float(m["grad_norm"]),
-                                    float(m["lr"])))
-                r[("steps", mb)] = (
-                    metrics, np_tree(partition.gather_tree(p, specs, mesh)),
-                    np_tree(partition.gather_tree(o.m, specs, mesh)),
-                    np_tree(partition.gather_tree(o.v, specs, mesh)),
-                    int(o.step))
-            out[(name, fsdp)] = r
+            if modes is None:
+                out[(name, fsdp)] = _train_one(
+                    mesh, cfg, whole, data, partition.act_pspec(mesh),
+                    steps, tcfg, mbs)
+                continue
+            for mode in modes:
+                out[(name, fsdp, mode)] = _train_one(
+                    mesh, cfg, whole, data, partition.act_pspec(mesh, mode),
+                    steps, tcfg, mbs)
     return out
 
 
+def _train_one(mesh, cfg, whole, data, apspec, steps, tcfg, mbs):
+    specs = trainer.param_specs(cfg, mesh)
+    params = partition.local_tree(whole, specs, mesh)
+    r = {"pieces": {k: tuple(v.shape) for k, v in
+                    checkpoint._flatten(params).items()}}
+    loss, ce, aux, g = trainer.loss_and_grads(
+        params, cfg, data[0], remat=True, mesh=mesh, act_pspec=apspec)
+    r["loss_and_grads"] = (float(loss), float(ce), float(aux),
+                           np_tree(partition.gather_tree(g, specs, mesh)))
+    for mb in mbs:
+        step = trainer.make_train_step(
+            cfg, TrainConfig(**tcfg, microbatch=mb), act_pspec=apspec,
+            mesh=mesh)
+        p, o = params, adamw.init(params)
+        metrics = []
+        for b in data[:steps if mb else 1]:
+            p, o, m = step(p, o, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            float(m["lr"])))
+        r[("steps", mb)] = (
+            metrics, np_tree(partition.gather_tree(p, specs, mesh)),
+            np_tree(partition.gather_tree(o.m, specs, mesh)),
+            np_tree(partition.gather_tree(o.v, specs, mesh)),
+            int(o.step))
+    return r
 
 
 def grad_collectives(mesh) -> dict:
@@ -184,16 +194,17 @@ def run_rank(mesh, job):
 
 
 def census_rank(mesh, job):
-    """Per cell of ``job`` ({name: (cfg, shape)}): the collectives a real
-    rank records running the dry-run's step (``dryrun.rank_step``) on
-    seeded weights and tokens, as ``(kind, result bytes)`` pairs."""
+    """Per cell of ``job`` ({name: (cfg, shape)} or {name: (cfg, shape,
+    act_mode)}): the collectives a real rank records running the dry-run's
+    step (``dryrun.rank_step``) on seeded weights and tokens, as ``(kind,
+    result bytes)`` pairs."""
     from repro_torch.launch import dryrun
     from repro_torch.models import transformer as tfm
     from repro_torch.sharding import collectives as coll
 
     torch.set_num_threads(1)
     out = {}
-    for name, (cfg, shape) in job.items():
+    for name, (cfg, shape, *mode) in job.items():
         params = tfm.init_model(cfg, seed=0, device="cpu")
         B = shape.global_batch
         S = 1 if shape.kind == "decode" else shape.seq_len
@@ -201,7 +212,8 @@ def census_rank(mesh, job):
         batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, S),
                                          generator=g, dtype=torch.int32)}
         run, _ = dryrun.rank_step(cfg, shape, mesh, params=params,
-                                  batch=batch)
+                                  batch=batch,
+                                  act_mode=mode[0] if mode else "replicated")
         with coll.recording() as rec:
             run()
         out[name] = rec
@@ -247,7 +259,7 @@ def tp_attention_rank(mesh, job):
         bk = prog.backend
 
         class Unpaired(type(bk)):
-            def pairs(self, n):
+            def pairs(self, n, w=None):
                 return False
 
         unpaired = Unpaired(**{f.name: getattr(bk, f.name)
@@ -381,4 +393,40 @@ def tp_ssm_mla_rank(mesh, job):
                               for c in sched.drain()}
     if job.get("cells"):
         out["census"] = census_rank(mesh, job["cells"])
+    return out
+
+
+def prefill_rank(mesh, job):
+    """Per model of ``job["models"]`` ({name: (cfg, flat params)}) and per
+    execution of ``job["executions"]``: ``api.prefill_step_fn`` of
+    ``job["tokens"]`` under the serving spec ("replicated") and the "seq"
+    and "hidden" specs (``api._act_pspec_of``): the last logits, the
+    rank's caches and the collectives recorded (the rank's rows), then
+    one decode step from those caches under the same spec (its residual
+    whole), fed the prompts' last tokens."""
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.sharding import collectives as coll
+
+    torch.set_num_threads(1)
+    toks = torch.as_tensor(job["tokens"]).long()
+    B, S = toks.shape
+    out = {"coords": mesh.coords}
+    for name, (cfg, flat) in job["models"].items():
+        params = bridge.params_from_flat(flat, device="cpu")
+        for execution in job["executions"]:
+            bk = dataclasses.replace(backend_lib.resolve(execution),
+                                     mesh=mesh)
+            for mode in ("replicated", "seq", "hidden"):
+                ap = (api._serve_act_pspec(bk, B) if mode == "replicated"
+                      else api._act_pspec_of(bk, B, mode))
+                fn = api.prefill_step_fn(cfg, S + 1, act_pspec=ap,
+                                         execution=bk)
+                with coll.recording() as rec:
+                    logits, caches = fn(params, {"tokens": toks})
+                kept = {k: v.clone() for k, v in leaf_tree(caches).items()}
+                dec = api.decode_step_fn(cfg, act_pspec=ap, execution=bk)
+                step, _ = dec(params, {"tokens": toks[:, -1:]}, caches, S)
+                out[(name, execution, mode)] = {
+                    "logits": logits, "decode": step,
+                    "caches": kept, "collectives": rec}
     return out

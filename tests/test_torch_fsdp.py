@@ -319,13 +319,33 @@ def test_checkpoint_restores_on_one_device(runs):
 def test_checkpoint_restores_on_2x2(runs):
     """A run on 2x2 resumed from the 2x1 checkpoint (nothing left to
     train) holds the same state, gathered, on every rank, in its own
-    pieces."""
+    pieces: the 2x1 pieces (params, ``m`` and ``v``) cut over "model" as
+    the reference's ``tree_pspecs`` on a 2x2 ``AbstractMesh`` cuts
+    them."""
+    jc, _, params, _ = _model("mistral")
+    specs = jp.tree_pspecs(params, j_tfm.model_specs(jc),
+                           AbstractMesh((2, 2), ("data", "model")), True)
+    model_dims = {}
+    for path, spec in jax.tree_util.tree_flatten_with_path(
+            specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)
+    )[0]:
+        key = "/".join(str(getattr(k, "key", k)) for k in path)
+        model_dims[key] = [d for d, e in enumerate(tuple(spec))
+                           if e == "model"]
+    pieces = {}
+    for k, shape in runs["2x1"][0]["pieces"].items():
+        leaf = k.split("/", 2)[-1] if k.startswith("1/") else k[2:]
+        shape = list(shape)
+        for d in model_dims.get(leaf, ()):
+            shape[d] //= 2
+        pieces[k] = tuple(shape)
+    assert any(pieces[k] != v for k, v in runs["2x1"][0]["pieces"].items())
     want = runs["2x1"][0]["state"]
     for r in runs["2x2"]:
         assert r["losses"] == []
         for k in want:
             np.testing.assert_array_equal(r["state"][k], want[k])
-        assert r["pieces"] == runs["2x1"][0]["pieces"]
+        assert r["pieces"] == pieces
 
 
 def test_checkpoint_restores_through_the_reference(runs):

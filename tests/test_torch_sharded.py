@@ -219,7 +219,9 @@ def test_mesh_refusals(what):
 
 def test_act_pspec_on_the_step_functions():
     """``prefill_step_fn`` / ``decode_step_fn`` accept the serving spec of
-    a mesh only, and refuse it off-mesh."""
+    a mesh and its "seq" / "hidden" specs as the reference's dry-run rules
+    give them (the batch entry None where the rows do not divide the data
+    axes), refuse any other placement, and refuse a spec off-mesh."""
     from repro_torch.core import backend as backend_lib
     cfg = sc.small_cfg()
     _, _, params = _weights()
@@ -228,9 +230,14 @@ def test_act_pspec_on_the_step_functions():
         t_api.prefill_step_fn(cfg, 14, act_pspec=("data",))(
             params, {"tokens": toks})
     bk = backend_lib.Backend("xla", mesh=mesh_lib.parse_mesh("2x2"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_api.prefill_step_fn(cfg, 14, act_pspec=("data", "model", None),
+    assert toks.shape[0] % 2 == 0
+    with pytest.raises(NotImplementedError, match="places its residual"):
+        t_api.prefill_step_fn(cfg, 14, act_pspec=(None, "model", None),
                               execution=bk)(params, {"tokens": toks})
+    assert t_api._act_pspec_of(bk, 4, "seq") == ("data", "model", None)
+    assert t_api._act_pspec_of(bk, 4, "hidden") == ("data", None, "model")
+    assert t_api._act_pspec_of(bk, 3, "seq") == (None, "model", None)
+    assert t_api._act_pspec_of(bk, 3, "hidden") == (None, None, "model")
     assert t_api._serve_act_pspec(bk, 4) == ("data",)
     assert t_api._serve_act_pspec(bk, 3) is None
     assert t_api._mesh_act_pspec(bk, 4) == ("data",)
