@@ -851,8 +851,7 @@ KERNEL_GROUPS = (
     ("blend_shuffle", ("::blend_kernel", "::blend_vec_kernel")),
     ("flash_attention", ("::flash_kernel", "::flash_mma_kernel")),
     ("ssd_chunk", ("::ssd_mma_kernel",)),
-    ("decode_attention", ("::decode_chunk_kernel",
-                          "::decode_combine_kernel")))
+    ("decode_attention", ("::decode_attention_kernel",)))
 
 
 def kernel_group(name: str) -> str:
@@ -951,17 +950,27 @@ def profile_step(torch, step) -> list:
 def port_kernels(evs) -> dict:
     """CUDA kernels among profiled events, counted per port kernel
     (``KERNEL_GROUPS``); the fused MVM's mma regime also runs
-    ``quantize_kernel`` and the decode attention its chunk pass before its
-    combine, neither a launch of its own."""
+    ``quantize_kernel``, not a launch of its own."""
     from torch.autograd import DeviceType
     kernels = dict.fromkeys((g for g, _ in KERNEL_GROUPS), 0)
     for e in evs:
         group = kernel_group(e.key)
         if (e.device_type == DeviceType.CUDA and group in kernels
-                and "::quantize_kernel" not in e.key
-                and "::decode_chunk_kernel" not in e.key):
+                and "::quantize_kernel" not in e.key):
             kernels[group] += e.count
     return kernels
+
+
+def kernel_ms(evs) -> dict:
+    """Device ms of the profiled CUDA kernels by port kernel
+    (``KERNEL_GROUPS``; the rest under "other torch kernels")."""
+    from torch.autograd import DeviceType
+    out: dict = {}
+    for e in evs:
+        if e.device_type == DeviceType.CUDA:
+            group = kernel_group(e.key)
+            out[group] = out.get(group, 0.0) + e.self_device_time_total / 1e3
+    return out
 
 
 def step_costs(torch, step) -> dict:
@@ -969,9 +978,9 @@ def step_costs(torch, step) -> dict:
     dispatches (counted with a ``TorchDispatchMode``; CUDA kernels, graph
     replays among them, are not aten ops), its wall time (median of 5
     synchronized steps) and one profiled step's device busy time, its CUDA
-    kernels counted by port kernel (``KERNEL_GROUPS``) and its costliest
-    host ops (the launch side of the step; with one ``cudaGraphLaunch`` of
-    the profile's prelude)."""
+    kernels counted and timed by port kernel (``KERNEL_GROUPS``) and its
+    costliest host ops (the launch side of the step; with one
+    ``cudaGraphLaunch`` of the profile's prelude)."""
     from torch.autograd import DeviceType
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -1000,6 +1009,7 @@ def step_costs(torch, step) -> dict:
                                            for e in cuda) / 1e3,
             "profiled_cuda_kernels": sum(e.count for e in cuda),
             "profiled_kernels": port_kernels(evs),
+            "profiled_kernel_ms": kernel_ms(evs),
             "profiled_host_op_self_ms": sum(e.self_cpu_time_total
                                             for e in cpu) / 1e3,
             "top_host_ops": [{"op": e.key, "calls": e.count,
@@ -3424,8 +3434,8 @@ def check_decode_attention(torch, timer, da):
     and 4 position pieces, joined (``join_partials``), at the float gates
     against the plain version; median time, the plain version's, SDPA's
     (``enable_gqa``, a bool mask over the L + 1 keys: the cache rows seen
-    and the new token) and the bound of the bytes and operations this
-    call's positions need."""
+    and the new token), the bound of the bytes and operations this call's
+    positions need and the share of it the kernel reaches (bound / ms)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(18)
     rows = []
@@ -3506,6 +3516,7 @@ def check_decode_attention(torch, timer, da):
                "library_backend": sdpa_backend(torch, q4, k4, v4, mask),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_share": max(t_bytes, t_ops) / ms,
                "bytes": nbytes, "ops": ops,
                "bytes_whole_cache": 2 * ck.numel() * ck.element_size()}
         emit(row)

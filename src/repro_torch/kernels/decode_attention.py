@@ -6,10 +6,12 @@ reference's ``_attend_decode`` (``src/repro/models/attention.py:202``), an
 einsum chain in the reference and in this module's plain version.  It has
 no Pallas counterpart.  The CUDA kernel (``csrc/decode_attention.cu``)
 exists so that a row's output does not depend on the other rows or heads
-of the call: its reduction order is fixed by the head dim, the chunk size
+of the call: its reduction order is fixed by the head dim, the split size
 and the row's own position, where cuBLAS picks the einsum's from the whole
 call's shapes (so a rank holding one row, or its own KV heads, got other
-bits than the unsharded step).
+bits than the unsharded step).  One launch a call: split-K over fixed
+blocks of ``SPLIT`` positions, the last block of a (row, KV head) to
+arrive joining the splits in split order (the source's design note).
 
 Shapes: q (B, 1, H, hd); ck / cv (B, L, KV, hd), the cache; k_new / v_new
 (B, 1, KV, hd); ``pos`` an int or a (B,) / 0-d tensor: cache position l of
@@ -38,7 +40,8 @@ from repro_torch.kernels import planned as _planned
 
 MAX_HEAD_DIM = 256           # the kernel's largest hd
 MAX_GROUP = 16               # query heads a KV head serves
-CHUNK = 64                   # positions one block of the chunk pass scores
+SPLIT = 128                  # positions one block takes (DECODE_SPLIT)
+STAGES = 4                   # steps a lane keeps in flight (DECODE_STAGES)
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,6 +52,12 @@ launches = 0
 def score_scale(hd: int) -> torch.Tensor:
     """1 / sqrt(hd) as the reference forms it: a float32 division."""
     return 1.0 / torch.tensor(math.sqrt(hd), dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_value(hd: int) -> float:
+    """``score_scale(hd)`` as the float the kernel takes, formed once."""
+    return float(score_scale(hd))
 
 
 def seen_mask(pos, L: int, device, offset: int = 0):
@@ -135,16 +144,45 @@ def join_partials(parts, dtype):
 # =========================================================================
 # the CUDA kernel
 # =========================================================================
-@functools.lru_cache(maxsize=1)
-def _library():
-    """The built library and its launcher with C argument types declared."""
-    lib = _build.load("decode_attention")
+def _bind(lib):
+    """(library, launcher with C argument types declared, its SPLIT)."""
     fn = lib.decode_attention
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, ll,
-                   ctypes.c_float, ll, i, i, p, p, p, p, p, p, p]
+                   ctypes.c_float, ll, i, i, p, p, p, p, p, p, p, p]
     fn.restype = i
-    return lib, fn
+    lib.decode_attention_split.restype = i
+    return lib, fn, int(lib.decode_attention_split())
+
+
+@functools.lru_cache(maxsize=1)
+def _library():
+    """The built library, bound (``_bind``)."""
+    return _bind(_build.load("decode_attention"))
+
+
+_counters: dict = {}
+_retired_counters: list = []
+
+
+def _arrival_counters(device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters of ``device``, zero between
+    calls: the last block of a (row, KV head) re-arms its counter, and the
+    device's calls run in stream order.  One buffer per device, grown to the
+    largest call; a captured CUDA graph keeps the raw address it was
+    captured with, so an outgrown buffer is kept alive, and the buffer may
+    not grow while a graph is being captured (warm the shape up first)."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"decode attention's arrival counters must grow to {n} "
+                f"inside a CUDA graph capture; run the step eagerly first")
+        if buf is not None:
+            _retired_counters.append(buf)
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def _check(q, ck, cv, k_new, v_new):
@@ -201,11 +239,13 @@ def _launch(q, ck, cv, k_new, v_new, pos, offset, partial, with_new):
     k_new = k_new.to(dt).contiguous()
     v_new = v_new.to(dt).contiguous()
     p, pstride = _positions(pos, B, dev)
-    nch = -(-L // CHUNK)
-    ws = torch.empty(B * H * nch * (hd + 2), dtype=torch.float32,
+    lib, fn, split = _library()
+    nsplit = max(1, -(-L // split))
+    ws = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32,
                      device=dev)
-    ws_m, ws_l, ws_o = ws.split([B * H * nch, B * H * nch,
-                                 B * H * nch * hd])
+    ws_m, ws_l, ws_o = ws.split([B * H * nsplit, B * H * nsplit,
+                                 B * H * nsplit * hd])
+    counters = _arrival_counters(dev, B * KV)
     if partial:
         out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
         m = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -214,14 +254,13 @@ def _launch(q, ck, cv, k_new, v_new, pos, offset, partial, with_new):
     else:
         out = torch.empty((B, 1, H, hd), dtype=dt, device=dev)
         mp = lp = None
-    lib, fn = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), p.data_ptr(), pstride, _DTYPE_CODE[dt], B, L,
             H, KV, hd, ck.stride(0), ck.stride(1), cv.stride(0),
-            cv.stride(1), float(score_scale(hd)), int(offset), int(partial),
+            cv.stride(1), _scale_value(hd), int(offset), int(partial),
             int(with_new), ws_m.data_ptr(), ws_l.data_ptr(), ws_o.data_ptr(),
-            out.data_ptr(), mp, lp, stream)
+            counters.data_ptr(), out.data_ptr(), mp, lp, stream)
     _build.check(lib, "decode_attention_error_string", rc,
                  "decode_attention")
     launches += 1

@@ -6,15 +6,25 @@
     positions, G = 1 and 3, hd 16 and 64;
   * the partial form joined over 2 and 4 pieces of the positions (the new
     token in one) against the whole, float32 <= 1e-6;
-  * the kernel's arithmetic (chunks of ``CHUNK`` positions, each with its
-    own max and the unnormalised weights rounded to the cache dtype, joined
-    in chunk order) emulated here: at the card's gates against the plain
-    version, and a row's output independent of the other rows;
+  * the kernel's arithmetic emulated here, with the constants read from
+    its source: splits of ``SPLIT`` positions, each with its own max and
+    its unnormalised weights rounded to the cache dtype; lanes owning 8
+    elements of a row, their products summed in element order and joined
+    by the row's butterfly; the P V sums of each (warp, row slot) in
+    position order, the row slots' butterfly and the warps in warp order;
+    the splits joined in split order with the new token.  At the card's
+    gates against the plain version at the four serving (G, hd) pairs, in
+    bf16 and float32, whole and as the partial form over pieces, and a
+    row's and a KV-head group's bits the same alone as in the whole call;
   * the wrapper's device rules: the plain version for CPU tensors (no
     launch counted), a planned call on meta tensors (operations and bytes
     of the positions seen), on any other device the kernel or an error;
-    ``build.SOURCES`` naming the source, whose limits equal the module's."""
+    ``build.SOURCES`` naming the source, whose limits and constants equal
+    the module's; the arrival counters' buffer; ``chip_smoke``'s profile
+    groups naming the source's kernels."""
+import importlib.util
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -102,61 +112,222 @@ def test_partial_form_joined_over_pieces_equals_the_whole(pieces, pos_kind):
     assert torch.all(m == da.NEG_INF) and not l_sum.any() and not o.any()
 
 
-def _kernel_emulated(q, ck, cv, kn, vn, pos):
-    """The CUDA kernel's arithmetic on the CPU: per row and KV head, chunks
-    of ``CHUNK`` seen positions, each with its own max and its weights
-    exp(s - max) rounded to the cache dtype for the V sum, joined in chunk
-    order with the new token (whose normalised weight rounds to q's
-    dtype)."""
+def _source_constants():
+    """The kernel's constants as its source states them."""
+    text = (t_build.csrc_dir() / t_build.SOURCES["decode_attention"]) \
+        .read_text()
+
+    def const(pat):
+        return int(re.search(pat, text).group(1))
+    return {"split": const(r"#define DECODE_SPLIT (\d+)"),
+            "stages": const(r"#define DECODE_STAGES (\d+)"),
+            "threads": const(r"constexpr int THREADS = (\d+);"),
+            "slice": const(r"constexpr int SLICE = (\d+);"),
+            "max_hd": const(r"constexpr int MAX_HD = (\d+);"),
+            "max_g": const(r"constexpr int MAX_G = (\d+);")}
+
+
+_C = _source_constants()
+WARPS, SLICE, SPLIT = _C["threads"] // 32, _C["slice"], _C["split"]
+
+
+def _fma(a, b, c):
+    """fmaf: a * b + c rounded once to float32 (through float64, where the
+    product of two float32 values is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _geometry(hd):
+    """(hd padded to whole lane slices, lanes a row, rows a warp step)."""
+    hdp = -(-hd // SLICE) * SLICE
+    lpr = 1
+    while lpr * SLICE < hdp:
+        lpr *= 2
+    return hdp, lpr, 32 // lpr
+
+
+def _halvings(n):
+    """n / 2, n / 4, ..., 1 (none for n = 1): a butterfly's offsets."""
+    out = []
+    while n > 1:
+        n //= 2
+        out.append(n)
+    return out
+
+
+def _butterfly(v, offsets):
+    """``v += shfl_xor(v, o)`` over the last axis (the lanes), for each
+    offset in turn; every lane ends with the same bits."""
+    idx = torch.arange(v.shape[-1])
+    for o in offsets:
+        v = v + v[..., idx ^ o]
+    return v
+
+
+def _slice_dots(qh, rows, hd):
+    """Scores before the scale, (G, n): each lane's 8 products in element
+    order (fmaf), then the butterfly over the row's lanes (lpr / 2 .. 1)."""
+    hdp, lpr, _ = _geometry(hd)
+    G, n = qh.shape[0], rows.shape[0]
+    qp = torch.zeros(G, lpr * SLICE)
+    kp = torch.zeros(n, lpr * SLICE)
+    qp[:, :hd], kp[:, :hd] = qh, rows
+    qp, kp = qp.view(G, 1, lpr, SLICE), kp.view(1, n, lpr, SLICE)
+    acc = torch.zeros(G, n, lpr)
+    for e in range(SLICE):
+        acc = _fma(qp[..., e], kp[..., e], acc)
+    return _butterfly(acc, _halvings(lpr))[..., 0]
+
+
+def _split(qh, K, V, scale):
+    """One block's split: (m (G,), l (G,), P V (G, hd)) over its n rows."""
+    G, hd = qh.shape
+    n = K.shape[0]
+    hdp, lpr, rpw = _geometry(hd)
+    s = _slice_dots(qh, K.float(), hd) * scale
+    m = s.max(dim=1).values
+    p = torch.exp(s - m[:, None])
+    lanes = torch.zeros(G, 32)
+    for c0 in range(0, n, 32):
+        w = min(32, n - c0)
+        lanes[:, :w] = lanes[:, :w] + p[:, c0:c0 + w]
+    l_sum = _butterfly(lanes, _halvings(32))[:, 0]
+    pr = p.to(V.dtype).float()                       # (G, n)
+    step = WARPS * rpw
+    steps = -(-n // step)
+    vp = torch.zeros(steps * step, hdp)
+    vp[:n, :hd] = V.float()
+    pp = torch.zeros(G, steps * step)
+    pp[:, :n] = pr
+    live = torch.arange(steps * step) < n
+    acc = torch.zeros(WARPS, rpw, G, hdp)
+    for c in range(steps):
+        sl = slice(c * step, (c + 1) * step)
+        x = vp[sl].view(WARPS, rpw, 1, hdp)
+        w8 = pp[:, sl].T.reshape(WARPS, rpw, G, 1)
+        acc = torch.where(live[sl].view(WARPS, rpw, 1, 1),
+                          _fma(w8, x, acc), acc)
+    # the row slots (lane offsets 16 .. lpr), then the warps in order
+    acc = _butterfly(acc.permute(0, 2, 3, 1), _halvings(rpw))[..., 0]
+    o_sum = acc[0]
+    for w in range(1, WARPS):
+        o_sum = o_sum + acc[w]
+    return m, l_sum, o_sum[:, :hd]
+
+
+def _kernel_emulated(q, ck, cv, kn, vn, pos, offset=0, partial=False,
+                     with_new=True):
+    """The CUDA kernel's arithmetic on the CPU, per (row, KV head): splits
+    of SPLIT seen positions (``_split``), joined in split order with the
+    new token.  Returns what the wrapper returns."""
     B, _, H, hd = q.shape
     KV, L = ck.shape[2], ck.shape[1]
     G = H // KV
-    scale = da.score_scale(hd)
-    seen = da.seen_rows(pos, B, L)
-    out = torch.empty((B, 1, H, hd), dtype=q.dtype)
+    scale = torch.tensor(da._scale_value(hd), dtype=torch.float32)
+    seen = da.seen_rows(pos, B, L, offset)
+    out = torch.empty((B, H, hd), dtype=torch.float32 if partial
+                      else q.dtype)
+    m_out = torch.empty((B, H))
+    l_out = torch.empty((B, H))
     for b in range(B):
-        for h in range(H):
-            k = h // G
-            qv = q[b, 0, h].float()
-            ms, ls, os_ = [], [], []
-            for c0 in range(0, seen[b], da.CHUNK):
-                c1 = min(c0 + da.CHUNK, seen[b])
-                s = (ck[b, c0:c1, k].float() @ qv) * scale
-                m = s.max()
-                p = torch.exp(s - m)
-                ms.append(m)
-                ls.append(p.sum())
-                os_.append(p.to(cv.dtype).float() @ cv[b, c0:c1, k].float())
-            s_new = (kn[b, 0, k].float() @ qv) * scale
-            M = torch.stack(ms + [s_new]).max()
-            S = sum(l_ * torch.exp(m - M) for m, l_ in zip(ms, ls))
-            e_new = torch.exp(s_new - M)
+        for k in range(KV):
+            qh = q[b, 0, k * G:(k + 1) * G].float()
+            parts = [_split(qh, ck[b, c0:min(c0 + SPLIT, seen[b]), k],
+                            cv[b, c0:min(c0 + SPLIT, seen[b]), k], scale)
+                     for c0 in range(0, seen[b], SPLIT)]
+            if with_new or not partial:
+                s_new = _slice_dots(qh, kn[b, 0, k:k + 1].float(), hd)[:, 0] \
+                    * scale
+                M = s_new
+            else:
+                M = torch.full((G,), da.NEG_INF)
+            for m, _, _ in parts:
+                M = torch.maximum(M, m)
+            S = torch.zeros(G)
+            for m, l_sum, _ in parts:
+                S = _fma(l_sum, torch.exp(m - M), S)
+            e_new = torch.exp(s_new - M) if (with_new or not partial) \
+                else torch.zeros(G)
             S = S + e_new
-            o = sum((o_ * torch.exp(m - M) for m, o_ in zip(ms, os_)),
-                    torch.zeros(hd))
-            o = o / S + (e_new / S).to(q.dtype).float() * vn[b, 0, k].float()
-            out[b, 0, h] = o.to(q.dtype)
+            o = torch.zeros(G, hd)
+            for m, _, o_c in parts:
+                o = _fma(o_c, torch.exp(m - M)[:, None], o)
+            v = vn[b, 0, k].float()[None, :]
+            rows = slice(k * G, (k + 1) * G)
+            if not partial:
+                w_new = (e_new / S).to(q.dtype).float()[:, None]
+                out[b, rows] = _fma(w_new, v, o / S[:, None]).to(q.dtype)
+            else:
+                if with_new:
+                    o = _fma(e_new.to(q.dtype).float()[:, None], v, o)
+                out[b, rows] = o
+                m_out[b, rows], l_out[b, rows] = M, S
+    if partial:
+        return m_out, l_out, out
     return out.reshape(B, 1, H * hd)
 
 
-@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2.0 ** -8),
-                                       ("float32", 1e-5)])
-def test_kernel_arithmetic_within_the_card_gates(dtype, tol):
-    """Chunked, with chunk-local maxima and weights rounded before their
-    normalisation: within the gates ``chip_smoke.py`` holds the kernel to
-    (rel-L2 2**-8 in bf16, 1e-5 in float32), and each row the same alone
-    as beside the others."""
-    B, L, H, KV, hd = 3, 3 * da.CHUNK + 5, 6, 2, 32
+# the serving paths' (G, hd): minitron-4b, the vlm's self-attention,
+# whisper's decoder, granite-moe (chip_smoke.decode_attention_cases)
+SERVING_PAIRS = [(3, 128), (4, 128), (1, 64), (2, 64)]
+GATES = [("bfloat16", 2.0 ** -8), ("float32", 1e-5)]
+
+
+def _emulation_inputs(G, hd, dtype, B=3, KV=2, seed=7):
+    L = 3 * SPLIT + 37                 # three whole splits and a ragged tail
     dt = getattr(torch, dtype)
-    q, ck, cv, kn, vn = (torch.as_tensor(a).to(dt) for a in
-                         _inputs(7, B, L, H, KV, hd))
-    pos = torch.tensor([5, da.CHUNK + 1, L])
+    arrs = [torch.as_tensor(a).to(dt) for a in
+            _inputs(seed + G + hd, B, L, G * KV, KV, hd)]
+    return arrs, L, torch.tensor([5, SPLIT + 1, L][:B])
+
+
+@pytest.mark.parametrize("dtype,tol", GATES)
+@pytest.mark.parametrize("G,hd", SERVING_PAIRS)
+def test_kernel_arithmetic_within_the_card_gates(G, hd, dtype, tol):
+    """The kernel's arithmetic at each serving (G, hd), over one split, two
+    and four with a ragged tail: within the gates ``chip_smoke.py`` holds
+    the kernel to (rel-L2 2**-8 in bf16, 1e-5 in float32); each row the
+    same alone as beside the others, and each KV head with its query heads
+    the same alone as in the whole call."""
+    (q, ck, cv, kn, vn), L, pos = _emulation_inputs(G, hd, dtype)
     got = _kernel_emulated(q, ck, cv, kn, vn, pos)
     assert _rel(got.float(), da.decode_attention_plain(
         q, ck, cv, kn, vn, pos).float()) <= tol
-    alone = _kernel_emulated(q[1:2], ck[1:2], cv[1:2], kn[1:2], vn[1:2],
-                             pos[1:2])
-    assert torch.equal(alone, got[1:2])
+    for b in range(q.shape[0]):
+        alone = _kernel_emulated(q[b:b + 1], ck[b:b + 1], cv[b:b + 1],
+                                 kn[b:b + 1], vn[b:b + 1], pos[b:b + 1])
+        assert torch.equal(alone, got[b:b + 1])
+    head = _kernel_emulated(q[:, :, G:], ck[:, :, 1:], cv[:, :, 1:],
+                            kn[:, :, 1:], vn[:, :, 1:], pos)
+    assert torch.equal(head, got[..., G * hd:])
+
+
+@pytest.mark.parametrize("pieces", [2, 4])
+@pytest.mark.parametrize("dtype,tol", GATES)
+def test_kernel_partial_form_joined_within_the_card_gates(dtype, tol,
+                                                          pieces):
+    """The kernel's partial form over 2 and 4 pieces of the positions (the
+    new token in the first), joined by ``join_partials``: within the card's
+    gates against the plain whole, as ``chip_smoke`` holds it; a piece no
+    query sees gives m = NEG_INF, l = 0, o = 0."""
+    (q, ck, cv, kn, vn), L, pos = _emulation_inputs(3, 128, dtype)
+    w = L // pieces
+    parts = [_kernel_emulated(q, ck[:, j * w:(j + 1) * w],
+                              cv[:, j * w:(j + 1) * w], kn, vn, pos,
+                              offset=j * w, partial=True, with_new=j == 0)
+             for j in range(pieces)]
+    tail = L - pieces * w
+    if tail:
+        parts.append(_kernel_emulated(q, ck[:, pieces * w:],
+                                      cv[:, pieces * w:], kn, vn, pos,
+                                      offset=pieces * w, partial=True,
+                                      with_new=False))
+    want = da.decode_attention_plain(q, ck, cv, kn, vn, pos)
+    assert _rel(da.join_partials(parts, q.dtype).float(),
+                want.float()) <= tol
+    m, l_sum, o = _kernel_emulated(q, ck, cv, kn, vn, pos * 0, partial=True,
+                                   with_new=False)
+    assert torch.all(m == da.NEG_INF) and not l_sum.any() and not o.any()
 
 
 def test_cpu_takes_the_plain_version_and_counts_no_launch():
@@ -207,10 +378,11 @@ def test_launch_refuses_what_the_kernel_cannot_take_and_never_falls_back(
     text = (t_build.csrc_dir() / t_build.SOURCES["decode_attention"]) \
         .read_text()
     assert t_build.SOURCES["decode_attention"] == "decode_attention.cu"
-    assert int(re.search(r"CHUNK = (\d+);", text).group(1)) == da.CHUNK
-    assert int(re.search(r"MAX_HD = (\d+);", text).group(1)) \
-        == da.MAX_HEAD_DIM
-    assert int(re.search(r"MAX_G = (\d+);", text).group(1)) == da.MAX_GROUP
+    assert "decode_attention_split" in text
+    assert (_C["split"], _C["stages"]) == (da.SPLIT, da.STAGES)
+    assert (_C["max_hd"], _C["max_g"]) == (da.MAX_HEAD_DIM, da.MAX_GROUP)
+    assert re.search(r"constexpr int SPLIT = (\w+);", text).group(1) \
+        == "DECODE_SPLIT"
 
     def launch(B=1, L=8, H=2, KV=1, hd=16, dtype=torch.float32):
         q, ck, cv, kn, vn = (torch.as_tensor(a).to(dtype) for a in
@@ -229,3 +401,52 @@ def test_launch_refuses_what_the_kernel_cannot_take_and_never_falls_back(
     with pytest.raises((FileNotFoundError, OSError)):
         launch()
     da._library.cache_clear()
+
+
+def test_chip_smoke_kernel_groups_name_the_sources_kernels():
+    """Every CUDA kernel name ``chip_smoke.KERNEL_GROUPS`` lists for
+    decode attention is a ``__global__`` function of its source, and every
+    ``__global__`` function of the source is listed: a renamed kernel's
+    time would otherwise land in "other torch kernels"."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    text = (t_build.csrc_dir() / t_build.SOURCES["decode_attention"]) \
+        .read_text()
+    kernels = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\("
+                             r"(?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(",
+                             text))
+    listed = dict(cs.KERNEL_GROUPS)["decode_attention"]
+    assert kernels and {k.removeprefix("::") for k in listed} == kernels
+    for k in kernels:
+        assert cs.kernel_group(f"void (anonymous namespace)::{k}"
+                               f"<__nv_bfloat16, 3>((anonymous namespace)"
+                               f"::Args)") == "decode_attention"
+
+
+def test_arrival_counters_grow_outside_a_capture_and_keep_old_buffers(
+        monkeypatch):
+    """One zeroed counter buffer per device, grown to the largest call; an
+    outgrown buffer stays alive (a captured graph holds its address); no
+    growth inside a graph capture; the scale is formed once per head dim,
+    equal to the plain version's."""
+    dev = torch.device("cpu")
+    monkeypatch.setattr(da, "_counters", {})
+    monkeypatch.setattr(da, "_retired_counters", [])
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    first = da._arrival_counters(dev, 32)
+    assert first.dtype == torch.int32 and first.numel() >= 32
+    assert not first.any()
+    assert da._arrival_counters(dev, 16) is first
+    grown = da._arrival_counters(dev, first.numel() + 1)
+    assert grown.numel() > first.numel() and not grown.any()
+    assert da._retired_counters == [first]
+    capturing[0] = True
+    assert da._arrival_counters(dev, 8) is grown
+    with pytest.raises(RuntimeError, match="capture"):
+        da._arrival_counters(dev, grown.numel() + 1)
+    for hd in (64, 100, 128):
+        assert da._scale_value(hd) == float(da.score_scale(hd))
