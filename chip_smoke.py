@@ -186,8 +186,9 @@ the script exits non-zero without printing the final ``ok`` line):
    rows (one a rank) bit-equal to the unsharded Program at 2 rows; and
    shardcheck's sequence-split gate (``seq_cfg``: 3 KV heads, so the
    positions split) on 1x2 on xla within 1e-5; since slice 19
-   mamba2-780m R&B (8 decode steps) and deepseek-v2-lite-16b R&B (4) on
-   1x2 with SSM states and MLA latents cut by ``cache_pspecs``
+   mamba2-780m R&B (8 decode steps) and deepseek-v2-lite-16b R&B (4; 2
+   since slice 22) on 1x2 with SSM states and MLA latents cut by
+   ``cache_pspecs``
    (``tp_cache_runs``: the mamba2 logits bit-equal to the unsharded
    Program's);
 3p. since slice 16 training on a mesh (``train_mesh_phase``), right after
@@ -197,7 +198,11 @@ the script exits non-zero without printing the final ``ok`` line):
    1e-3 of ``train``'s unsharded step 0; the FSDP checkpoint restored in
    this process bit-equal to the ranks' state), then ``Program.loss`` of
    the FSDP build on the mesh on photonic (CE within 1e-3 of the
-   unsharded einsum route, every fused launch checked and counted);
+   unsharded einsum route, every fused launch checked and counted); since
+   slice 22 FSDP gathers each block where it runs: the FSDP rank's peak
+   below the DP rank's, its gathers and reduce-scatters a step as
+   ``sharding.fsdp.planned`` counts them, one block's gathers alive at
+   most;
 3q. since slice 17 the dry-run (``dryrun_phase``), after ``train_mesh``:
    no GPU work; ``repro_torch.launch.dryrun`` walks the earlier phases'
    steps on meta tensors on the host and is held to what they measured in
@@ -1521,7 +1526,8 @@ def bank_bytes(bank) -> int:
 def fsdp_serving(mesh, cfg, prompts, tokens, want, dense_bytes):
     """minitron-4b R&B built again with ``cfg.fsdp`` on the same ranks (one
     rank at a time): every bank field and float leaf cut over "data" on its
-    "embed" dim and gathered at each use.  The prefill and
+    "embed" dim and gathered at each use (a float leaf of a stack where
+    its block runs).  The prefill and
     ``SHARD_FSDP_DECODE`` decode steps on the same tokens must give the
     logits ``want`` of the build without FSDP bit for bit, with the same
     fused launches per pass.  Returns the rank's bank bytes, peak, walls
@@ -4504,8 +4510,10 @@ def train_mesh_rank(mesh, job):
     granite-moe-1b-a400m R&B at full width, the train phase's setup, for
     ``TRAIN_MESH_STEPS`` steps from seed 0, first data-parallel, then with
     ``cfg.fsdp`` (each in its own checkpoint directory, deterministic
-    algorithms on).  Per run: the losses, grad norms, step walls, peak and
-    the bytes of the rank's params plus Adam state.  Then the two runs'
+    algorithms on).  Per run: the losses, grad norms, step walls, peak,
+    the bytes of the rank's params plus Adam state, the FSDP all-gathers
+    and reduce-scatters a step beside ``fsdp.planned``'s, and the most
+    gathered bytes alive (``fsdp.track_live``).  Then the two runs'
     gathered params and moments compared bit for bit, the FSDP state's
     digest, and the held-out eval through ``Program.loss`` of the FSDP
     build on this mesh on photonic: fused launches counted, each held to
@@ -4517,19 +4525,26 @@ def train_mesh_rank(mesh, job):
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.kernels import counts
     from repro_torch.launch import train as launch
+    from repro_torch.sharding import fsdp as fsdp_lib
     from repro_torch.sharding import partition
     from repro_torch.train import trainer
 
     base = get_arch(TRAIN_ARCH, reuse=True)
     out = {"rank": mesh.rank, "coords": mesh.coords,
            "transport": mesh.describe()}
+    live = fsdp_lib.track_live()
     gathered = {}
     for fsdp in (False, True):
         cfg = dataclasses.replace(base, fsdp=fsdp)
         tcfg = TrainConfig(lr=1e-3, total_steps=TRAIN_STEPS, warmup_steps=1,
                            microbatch=2, checkpoint_every=0,
                            checkpoint_dir=job["dirs"][fsdp])
+        specs = trainer.param_specs(cfg, mesh)
+        planned = (fsdp_lib.planned(cfg, partition.data_specs(specs, mesh))
+                   if fsdp else {k: 0 for k in fsdp_lib.COUNTS})
         record = []
+        fsdp_lib.reset_counts()
+        fsdp_lib.reset_live()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with deterministic(torch):
@@ -4539,21 +4554,31 @@ def train_mesh_rank(mesh, job):
                 record=record)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        made = fsdp_lib.snapshot()
         held = tree_leaves({"p": params, "m": opt.m, "v": opt.v})
-        specs = trainer.param_specs(cfg, mesh)
-        gathered[fsdp] = (
-            partition.gather_tree(params, specs, mesh),
-            partition.gather_tree(opt.m, specs, mesh),
-            partition.gather_tree(opt.v, specs, mesh), int(opt.step))
+        # the whole state, leaf by leaf, to host memory: the next run's
+        # peak holds none of it
+        gathered[fsdp] = tuple(partition.map_with_specs(
+            lambda t, spec: partition.gather_leaf(t, spec, mesh).cpu(),
+            tree, specs) for tree in (params, opt.m, opt.v)) + (
+                int(opt.step),)
         out["fsdp" if fsdp else "dp"] = {
             "losses": losses,
             "grad_norms": [float(r["grad_norm"]) for r in record],
             "lrs": [float(r["lr"]) for r in record],
             "step_walls_s": [r["s"] for r in record], "run_s": run_s,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_mem_gb": peak_gb,
             "params_adam_bytes": sum(t.numel() * t.element_size()
                                      for t in held),
-            "leaves_cut": sum(1 for x in _spec_list(specs) if x)}
+            "leaves_cut": sum(1 for x in _spec_list(specs) if x),
+            "fsdp_collectives_per_step": {
+                k: v / TRAIN_MESH_STEPS for k, v in made.items()},
+            "fsdp_planned_per_step": {k: v * tcfg.microbatch
+                                      for k, v in planned.items()},
+            "gathered_max_bytes": live["max"],
+            "gathered_blocks_max": live["blocks_max"],
+            "gathered_left_bytes": live["now"]}
         del params, opt, held
     a, b = gathered[False], gathered[True]
     out["fsdp_bit_equal_to_dp"] = (
@@ -4657,7 +4682,11 @@ def train_mesh_phase(torch, gpu, train):
     held-out CE within ``TRAIN_MESH_TOL`` of the unsharded Program's with
     flash off (the einsum route a mesh runs; the flash route's gap
     printed), every fused launch of the pass held to its plain version
-    and counted at ``TRAIN_FUSED_PER_PASS`` a rank.  Since slice 20 a
+    and counted at ``TRAIN_FUSED_PER_PASS`` a rank.  Since slice 22 FSDP
+    gathers each block where it runs: the FSDP rank's peak below the DP
+    rank's, its all-gathers and reduce-scatters a step ``fsdp.planned``'s
+    times the microbatches (none under DP), one block's gathers alive at
+    most and none after the run.  Since slice 20 a
     1x2 run in the reference's train layout (``train_seq_rank``: "model"
     pieces, the residual cut by positions), its step-0 loss within
     ``TRAIN_MESH_TOL`` of the unsharded step 0, its ranks' params + Adam
@@ -4734,6 +4763,16 @@ def train_mesh_phase(torch, gpu, train):
                "eval_ce_mesh_vs_flash_rel": abs(ce_mesh - ces["flash"])
                / ces["flash"],
                "eval_fused_per_pass": TRAIN_FUSED_PER_PASS,
+               "peak_mem_gb": {m: [r[m]["peak_mem_gb"] for r in ranks]
+                               for m in ("dp", "fsdp")},
+               "fsdp_peak_below_dp": [r["fsdp"]["peak_mem_gb"]
+                                      < r["dp"]["peak_mem_gb"]
+                                      for r in ranks],
+               "fsdp_collectives_per_step": [
+                   r["fsdp"]["fsdp_collectives_per_step"] for r in ranks],
+               "fsdp_planned_per_step": r0["fsdp"]["fsdp_planned_per_step"],
+               "gathered_max_bytes": [r["fsdp"]["gathered_max_bytes"]
+                                      for r in ranks],
                "seq": {"mesh": TRAIN_SEQ_MESH, "ranks_s": seq_s,
                        "step0_rel": abs(seq_ranks[0]["losses"][0] - step0)
                        / step0,
@@ -4764,6 +4803,17 @@ def train_mesh_phase(torch, gpu, train):
             bad.append(f"1x2 seq ranks {seq_ranks}")
         if not all(out["checkpoint_bit_equal"]):
             bad.append("the restored checkpoint differs from the ranks'")
+        if not all(out["fsdp_peak_below_dp"]):
+            bad.append(f"FSDP peak not below DP's: {out['peak_mem_gb']}")
+        for r in ranks:
+            dp, fs = r["dp"], r["fsdp"]
+            if not (fs["fsdp_collectives_per_step"]
+                    == fs["fsdp_planned_per_step"]
+                    and fs["gathered_blocks_max"] == 1
+                    and fs["gathered_left_bytes"] == 0
+                    and dp["gathered_max_bytes"] == 0
+                    and not any(dp["fsdp_collectives_per_step"].values())):
+                bad.append(f"rank {r['rank']} FSDP gathers: {fs}")
         if not out["eval_ce_mesh_vs_einsum_rel"] <= TRAIN_MESH_TOL:
             bad.append(f"mesh CE {ce_mesh} vs unsharded {ces['einsum']}")
         for r in ranks:

@@ -38,13 +38,15 @@ batch's; its caches hold the rank's rows.  The dots run sharded over
 "model" (``core/backend.py``); the rank holds its piece of each bank.
 With ``cfg.fsdp`` the rank's pieces are also cut over the data axes on
 their "embed" dim (the reference's ``bank_shardings(..., fsdp=True)``): a
-dot all-gathers its bank's fields over them at each use, and each step
-gathers the float leaves so cut (embedding, norms, router; every leaf on
-xla) and lets them go when it returns.  ``loss`` runs each data rank's rows
-(the train cell's ``_mesh_act_pspec``), sums CE's numerator and denominator
-over the data axes and returns the unsharded CE and aux on every rank.
-Decode steps run eagerly (``graphs.MESH_RULE``).  A 1x1 mesh is the
-unsharded path.  A rank's caches are its piece of the whole caches under
+dot all-gathers its bank's fields over them at each use, and the float
+leaves so cut (norms, router, biases; every leaf on xla) are gathered
+where the model stack uses them, each block of a stack before its reuses
+and freed after (``Backend.fsdp``, ``sharding/fsdp.py``); the embedding
+is looked up by its columns, its rows gathered.  ``loss`` runs each
+data rank's rows (the train cell's ``_mesh_act_pspec``), sums CE's
+numerator and denominator over the data axes and returns the unsharded
+CE and aux on every rank.  Decode steps run eagerly
+(``graphs.MESH_RULE``).  A 1x1 mesh is the unsharded path.  A rank's caches are its piece of the whole caches under
 ``partition.cache_pspecs`` (made at that shape, ``tfm.init_caches(...,
 mesh=)``): KV heads over "model" where they divide, else the positions;
 MLA latents over the positions; SSM states over their heads and conv tails
@@ -85,6 +87,7 @@ from repro_torch.graphs import DecodeCell
 from repro_torch.models import transformer as tfm
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import fsdp as fsdp_lib
 from repro_torch.sharding import partition
 from repro_torch.train.trainer import ce_terms
 
@@ -451,10 +454,6 @@ class Program:
                                     repr=False, compare=False)
     # the whole bank's accounting (a mesh rank holds pieces of it)
     _stats: Any = dataclasses.field(default=None, repr=False, compare=False)
-    # cfg.fsdp on an active mesh: the data-axes spec of each fp leaf's
-    # piece (None: nothing to gather before a step)
-    _fp_specs: Any = dataclasses.field(default=None, repr=False,
-                                       compare=False)
 
     @classmethod
     def build(cls, cfg: ModelConfig, params, *, execution=None,
@@ -473,7 +472,9 @@ class Program:
         unsharded path.  Rules that do not divide a concrete dim are
         replicated, not an error: surfaced here as a one-line warning.
         ``cfg.fsdp`` on an active mesh also cuts each bank's "embed" dim
-        over the data axes (module docstring)."""
+        over the data axes, and the backend then carries the float leaves'
+        data-axes specs (``Backend.fsdp``: each step gathers them where
+        they are used; module docstring)."""
         bk = backend_lib.resolve(execution if execution is not None else cfg)
         if mesh is not None and bk.mesh is not None and bk.mesh != mesh:
             raise ValueError(
@@ -499,7 +500,6 @@ class Program:
         del moved
         stats = prepared_lib.prepared_stats(bank)
         dropped = 0
-        fp_specs = None
         if mesh is not None:
             report = partition.PartitionReport(dropped=[])
             specs = partition.model_specs(bank)
@@ -508,8 +508,9 @@ class Program:
                 if cfg.fsdp:
                     fp_specs = partition.bank_data_specs(bank, specs, mesh,
                                                          True)
-                    if not any(prepared_lib.tree_leaves(fp_specs)):
-                        fp_specs = None
+                    if any(prepared_lib.tree_leaves(fp_specs)):
+                        bk = dataclasses.replace(
+                            bk, fsdp=fsdp_lib.Layout(fp_specs, mesh))
                 bank = partition.place_bank(bank, specs, mesh, cfg.fsdp)
             dropped = len(report.dropped)
             if report.dropped:
@@ -522,8 +523,7 @@ class Program:
         for k, v in stats.items():
             reg.gauge(f"program.bank.{k}").set(v)
         reg.gauge("program.partition.dropped_rules").set(dropped)
-        return cls(cfg=cfg, backend=bk, bank=bank, device=dev, _stats=stats,
-                   _fp_specs=fp_specs)
+        return cls(cfg=cfg, backend=bk, bank=bank, device=dev, _stats=stats)
 
     @property
     def mesh(self):
@@ -562,16 +562,6 @@ class Program:
         return max(errs, default=0.0)
 
     # --------------------------------------------------------- mesh rows
-    def _step_bank(self):
-        """The bank a step runs on: under ``cfg.fsdp`` on an active mesh
-        the fp leaves cut over the data axes gathered whole (every rank of
-        the mesh takes each step, so each takes part); else the bank."""
-        if self._fp_specs is None:
-            return self.bank
-        return partition.map_with_specs(
-            lambda leaf, spec: partition.gather_leaf(leaf, spec, self.mesh)
-            if spec else leaf, self.bank, self._fp_specs)
-
     def _rows(self, B: int):
         """(this rank's row slice or None, the step's backend) for a
         B-row step."""
@@ -599,7 +589,7 @@ class Program:
         batch = _as_batch(batch, self.device)
         B, S = batch["tokens"].shape
         sl, bk = self._rows(B)
-        logits, caches = _prefill(self.cfg, self._step_bank(),
+        logits, caches = _prefill(self.cfg, self.bank,
                                   _rows_of(batch, sl, B), cache_len, bk, B)
         if last is None:
             last = torch.full((B,), S - 1, dtype=torch.long)
@@ -623,7 +613,7 @@ class Program:
         B = batch["tokens"].shape[0]
         sl, bk = self._rows(B)
         rows = _rows_of(batch, sl, B)
-        logits, _, aux = tfm.forward(self._step_bank(), self.cfg, rows,
+        logits, _, aux = tfm.forward(self.bank, self.cfg, rows,
                                      mode="train", execution=bk)
         num, den = ce_terms(logits[:, :-1], rows["tokens"][:, 1:],
                             self.cfg.vocab_size)
@@ -662,7 +652,7 @@ class Program:
         if sl is not None:
             tokens, last = tokens[sl], last[sl]
         logits, caches, _ = tfm.forward(
-            self._step_bank(), self.cfg, {"tokens": tokens},
+            self.bank, self.cfg, {"tokens": tokens},
             mode="prefill_chunk", caches=caches, pos=int(q_offset),
             execution=_kv_of(bk, self.cfg, caches))
         rows = torch.arange(tokens.shape[0], device=self.device)
@@ -704,7 +694,7 @@ class Program:
         """``decode_step_fn`` on the banks under ``backend``: logits
         (B, V); the caches are updated in place."""
         return decode_step_fn(self.cfg, execution=backend)(
-            self._step_bank(), {"tokens": tokens}, caches, pos)[0]
+            self.bank, {"tokens": tokens}, caches, pos)[0]
 
     def _decode_rows(self, tokens, caches, pos):
         """One eager decode step on an active mesh: this rank's rows of the

@@ -86,7 +86,9 @@ reads a field in another layout gathers it over "model" once and keeps the
 piece it reads.  Under ``cfg.fsdp`` a field's "embed" dim is cut over the
 data axes as well: every dot all-gathers it over them at each use (the
 reference's ``shard_map`` in-spec reshard), keeps nothing, and then runs
-as above.
+as above; the step's float leaves so cut are gathered where the model
+stack uses them (``fsdp``, a ``sharding.fsdp.Layout``: block r of a stack
+before its reuses, a leaf outside the stacks at its use).
 
 Left out: the TPU tile plans (``bm/bk/bn``, ``adaptive``: the CUDA kernels
 pick their own tiles).
@@ -247,6 +249,10 @@ class Backend:
     residual: Any = None              # partition.ResidualLayout of a step
                                       # whose residual is cut over "model"
                                       # ("seq" / "hidden"), else None
+    fsdp: Any = None                  # sharding.fsdp.Layout of a step whose
+                                      # params are cfg.fsdp pieces: where
+                                      # the model stack gathers them (each
+                                      # block where it runs), else None
 
     def __post_init__(self):
         if self.execution not in EXECUTIONS:

@@ -24,6 +24,12 @@ With ``remat`` (training, no cache) each reuse runs under
 ``torch.utils.checkpoint``: only its input is kept for the backward, and
 the reuse is recomputed there against the shared weights (the reference's
 ``jax.checkpoint(one_reuse(t))`` boundary).
+
+A backend carrying FSDP pieces (``Backend.fsdp``, a
+``sharding.fsdp.Layout``) has block r's leaves gathered before its first
+reuse and dropped after its last; under remat its checkpoints keep them as
+tokens, so the backward gathers the block once more where it recomputes
+it (``fsdp.Block.remat``).
 """
 from __future__ import annotations
 
@@ -164,14 +170,16 @@ def _delta_update(cache_leaf: torch.Tensor, delta: torch.Tensor, r: int,
 
 def run_stack(block_fn: BlockFn, params: Any, x: torch.Tensor,
               shared: SharedStack, cache: Any = None, aux0=0.0,
-              remat: bool = False, decode_pos=None, backend=None):
+              remat: bool = False, decode_pos=None, backend=None,
+              path: tuple = ()):
     """Run a PRM-shared stack.
 
     params: tree with leading axis R; cache: optional tree with leading
     axes [R, T, ...], updated in place (see module docstring); remat:
     recompute each reuse in the backward (no cache); decode_pos: set in
-    decode mode, where block cache returns are deltas.  Returns
-    (x, cache, aux)."""
+    decode mode, where block cache returns are deltas; path: where
+    ``params`` lies in the model's tree (read by ``backend.fsdp``).
+    Returns (x, cache, aux)."""
     if remat and cache is not None:
         raise ValueError("remat runs without a cache (train mode)")
     T = shared.reuse_times
@@ -189,8 +197,14 @@ def run_stack(block_fn: BlockFn, params: Any, x: torch.Tensor,
                         transpose=bool(shared.transpose_flags[t]),
                         reuse_index=t)
 
+    fsdp = backend.fsdp
     for r in range(R):
-        p_r = tree_index(params, r)
+        if fsdp is not None and remat and torch.is_grad_enabled():
+            x, aux = _run_gathered_remat(fsdp.block(params, r, path),
+                                         one_reuse, T, x, aux)
+            continue
+        p_r = (tree_index(params, r) if fsdp is None
+               else fsdp.block(params, r, path).tree)
         for t in range(T):
             c_t = tree_index(tree_index(cache, r), t) if cache is not None \
                 else None
@@ -204,7 +218,25 @@ def run_stack(block_fn: BlockFn, params: Any, x: torch.Tensor,
                     _write_deltas(cache, new_c, r, t, decode_pos)
                 else:
                     _write_prefill(c_t, new_c)
+        del p_r                         # block r's gathered leaves go
     return x, cache, aux
+
+
+def _run_gathered_remat(block, one_reuse, T: int, x, aux):
+    """The T reuses of a block gathered by ``fsdp.Block``, each under a
+    checkpoint that takes the block's tensors as arguments and keeps them
+    as tokens (``Block.remat``); its tree is rebuilt inside the reuse."""
+    tensors, rebuild = block.flat()
+    block.tree = None
+
+    def reuse(t, h, a, *ts):
+        return one_reuse(t, rebuild(ts), h, a, None)
+
+    with block.remat(tensors):
+        for t in range(T):
+            x, _, aux = checkpoint(reuse, t, x, aux, *tensors,
+                                   use_reentrant=False)
+    return x, aux
 
 
 def _write_prefill(view, new) -> None:

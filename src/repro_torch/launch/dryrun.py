@@ -29,9 +29,13 @@ reference's microbatch rule), ``api.prefill_step_fn`` and
 ``api.decode_step_fn``.  ``--act-mode seq|hidden`` cuts the residual of
 the train and prefill cells over "model" as the reference's rules give its
 spec (``rank_step``); decode cells keep it whole.  A rank whose
-parameters are FSDP pieces gathers them whole at the start of a prefill or
-decode step, as ``api.Program`` does.  The port's scalar decode position is a Python int; the walk passes
-the cache's last position.
+parameters are FSDP pieces gathers them where they are used, as
+``api.Program`` and the train step do (``Backend.fsdp``,
+``sharding/fsdp.py``: each block of a stack where it runs, again where a
+train step's backward recomputes it, its gradient reduce-scattered), so
+the census counts those collectives and the peak holds one block gathered
+at a time.  The port's scalar decode position is a Python int; the walk
+passes the cache's last position.
 
 Memory, per rank: ``argument_size_in_bytes`` (the inputs), ``output_size_
 in_bytes`` (returned storages that are not inputs: in-place cache updates
@@ -69,6 +73,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
 from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import fsdp as fsdp_lib
 from repro_torch.sharding import partition
 from repro_torch.train import trainer
 
@@ -177,7 +182,8 @@ def rank_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, params=None,
     batch entry None where the batch does not divide the data axes); a
     decode step keeps it whole.  A train step's rank holds the "model"
     pieces of its parameters and Adam state (``trainer.param_specs``); a
-    serving step's, the data-axes part of them."""
+    serving step's, the data-axes part of them, gathered where the step
+    uses them (``Backend.fsdp``)."""
     B, S = shape.global_batch, shape.seq_len
     active = mesh.size > 1
     result = {} if result is None else result
@@ -210,23 +216,19 @@ def rank_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, params=None,
     apspec = api._serve_act_pspec(bk, B) if active else None
     if active and act_mode != "replicated" and shape.kind == "prefill":
         apspec = api._act_pspec_of(bk, B, act_mode)
-    fsdp = active and any(partition.cuts(spec)
-                          for spec in _spec_leaves(pspecs))
-
-    def whole():
-        return partition.gather_tree(params, pspecs, mesh) if fsdp \
-            else params
+    if active and any(partition.cuts(spec) for spec in _spec_leaves(pspecs)):
+        bk = dataclasses.replace(bk, fsdp=fsdp_lib.Layout(pspecs, mesh))
 
     if shape.kind == "prefill":
         fn = api.prefill_step_fn(cfg, S, act_pspec=apspec, execution=bk)
-        return (lambda: fn(whole(), batch)), (params, batch)
+        return (lambda: fn(params, batch)), (params, batch)
     caches = tfm.init_caches(cfg, B, S,
                              dtype=torch_dtype(cfg.compute_dtype),
                              device=device, mesh=mesh if active else None)
     fn = api.decode_step_fn(cfg, act_pspec=apspec,
                             legacy_decode=legacy_decode, execution=bk)
-    return (lambda: fn(whole(), batch, caches, S - 1)), (params, batch,
-                                                         caches)
+    return (lambda: fn(params, batch, caches, S - 1)), (params, batch,
+                                                        caches)
 
 
 def walk(cfg: ModelConfig, shape: ShapeConfig, mesh, *, compile_=True,

@@ -239,18 +239,29 @@ def _embed(p, tokens, dtype, backend):
     looked up vocab-parallel: each rank takes the tokens in its rows of
     the table (zeros elsewhere) and the ranks' rows are summed, by a
     reduce-scatter into the layout's block or an all-reduce (one nonzero
-    term per output: exact)."""
+    term per output: exact).  A table held as FSDP pieces
+    (``Backend.fsdp``) is looked up by its columns and its rows gathered
+    (``fsdp.Layout.lookup``)."""
     from repro_torch.sharding.partition import ModelPiece
-    table = p["table"]
-    if not isinstance(table, ModelPiece):
-        return cut_residual(embed(p, tokens, dtype), backend)
-    from repro_torch.sharding import collectives as coll
     bk = backend_lib.resolve(backend)
+    table = p["table"]
+    if bk.fsdp is not None:
+        rows_of, n, vocab_cut = bk.fsdp.lookup(table, ("embed", "table"),
+                                               dtype, not bk.rows_sharded)
+    elif isinstance(table, ModelPiece):
+        n, vocab_cut = table.t.shape[0], True
+
+        def rows_of(idx):
+            return table.t.to(dtype)[idx]
+    else:
+        return cut_residual(embed(p, tokens, dtype), backend)
+    if not vocab_cut:
+        return cut_residual(rows_of(tokens), backend)
+    from repro_torch.sharding import collectives as coll
     mesh = bk.mesh
-    n = table.t.shape[0]
     local = tokens.long() - mesh.index("model") * n
     hit = (local >= 0) & (local < n)
-    rows = table.t.to(dtype)[local.clamp(0, n - 1)]
+    rows = rows_of(local.clamp(0, n - 1))
     rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
     lay = _layout(bk)
     if lay is None:
@@ -475,15 +486,24 @@ def encoder_pass(params, cfg: ModelConfig, batch, backend,
         # the encoder's residual over its frames, in the step's layout
         bk = dataclasses.replace(
             bk, residual=bk.residual.for_length(frames.shape[1]))
-    h = cut_residual(apply_linear(params["audio_proj"], frames,
+    h = cut_residual(apply_linear(_use(params, "audio_proj", bk), frames,
                                   backend=bk), bk)
     spec = build_segments(cfg)[0]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     h, _, aux = run_stack(group_block_fn(cfg, spec, "train", None, bk),
                           params["segments"][spec.name], h,
                           shareds_for(cfg)[spec.name], aux0=aux,
-                          remat=remat, backend=bk)
-    return normed_whole(params["enc_final_norm"], h, cfg, bk), aux
+                          remat=remat, backend=bk,
+                          path=("segments", spec.name))
+    return normed_whole(_use(params, "enc_final_norm", bk), h, cfg, bk), aux
+
+
+def _use(params, key: str, backend):
+    """``params[key]`` (a leaf group outside the stacks) as its use reads
+    it: gathered from FSDP pieces where the backend carries them
+    (``fsdp.Layout.use``), else as it is."""
+    fs = backend_lib.resolve(backend).fsdp
+    return params[key] if fs is None else fs.use(params[key], (key,))
 
 
 def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
@@ -513,7 +533,12 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
     every layer norms its block and works on whole rows
     (:func:`apply_layer`), and the final norm's output is gathered whole,
     so the lm head (column-parallel over the vocabulary where it is cut)
-    and the logits see whole rows."""
+    and the logits see whole rows.
+
+    A backend carrying FSDP pieces (``Backend.fsdp``: ``params`` are the
+    rank's pieces) gathers each stack's blocks where they run
+    (``core.sharing.run_stack``), every other leaf group at its use and
+    looks the embedding up by its columns (``sharding/fsdp.py``)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     check_ported(cfg)
@@ -534,7 +559,7 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     memory = None                   # decode: the cross K/V are in the cache
     if cfg.family == "vlm" and mode != "decode":
-        memory = apply_linear(params["vision_proj"],
+        memory = apply_linear(_use(params, "vision_proj", backend),
                               batch["image_embeds"].to(dtype),
                               backend=backend)
     if cfg.family == "audio" and mode != "decode":
@@ -549,13 +574,14 @@ def forward(params, cfg: ModelConfig, batch, *, mode="train", caches=None,
             block, params["segments"][spec.name], h, shareds[spec.name],
             cache=seg_cache, aux0=aux, remat=remat,
             decode_pos=pos if mode == "decode" and not legacy else None,
-            backend=backend)
-    h = normed_whole(params["final_norm"], h, cfg, backend)
+            backend=backend, path=("segments", spec.name))
+    h = normed_whole(_use(params, "final_norm", backend), h, cfg, backend)
     if cfg.tie_embeddings:
-        logits = backend.dot(h, cast(params["embed"]["table"], h.dtype),
-                             transpose=True)
+        table = _use(params, "embed", backend)["table"]
+        logits = backend.dot(h, cast(table, h.dtype), transpose=True)
     else:
-        logits = unembed(params["lm_head"], h, backend=backend)
+        logits = unembed(_use(params, "lm_head", backend), h,
+                         backend=backend)
     return logits, caches, aux
 
 

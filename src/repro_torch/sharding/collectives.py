@@ -192,8 +192,9 @@ class _ReduceScatter(torch.autograd.Function):
 def all_gather_grad(x: torch.Tensor, mesh, axes, dim: int = -1):
     """:func:`all_gather` on ``dim`` whose backward reduce-scatters the
     gradient on ``dim``: rank i receives the sum over the ranks of the
-    gradient of block i (FSDP's "all-gather on use, reduce-scatter on
-    grads"; the MoE FFN's rows gathered over "data")."""
+    gradient of block i (the MoE FFN's rows gathered over "data"; FSDP's
+    leaves go through ``sharding/fsdp.py``, a block's in one
+    collective)."""
     axes = _axes(axes)
     if mesh.axis_size(axes) == 1:
         return x

@@ -26,12 +26,12 @@ programmed bank (``core.prepared.PreparedTensor.field_specs``; under
 ``fsdp`` the matrices' and the float leaves' "embed" dims over the data
 axes too).  For training, a rank holds the whole ``tree_pspecs`` piece of
 every parameter ("model" entries too); :func:`data_specs` keeps the
-data-axes part of a spec tree (what FSDP gathers at a step's start),
-:func:`local_tree` cuts a rank's pieces of a parameter tree and
-:func:`gather_tree` all-gathers them back into the logical layout;
-:func:`scatter_leaf` reduce-scatters a whole gradient into the rank's
-piece; :func:`forward_leaf` gives a train step's forward each leaf as its
-dots read it (a :class:`ModelPiece` for a matrix cut over "model").
+data-axes part of a spec tree (what FSDP gathers where a leaf is used:
+``sharding/fsdp.py``), :func:`local_tree` cuts a rank's pieces of a
+parameter tree and :func:`gather_tree` all-gathers them back into the
+logical layout; :func:`forward_leaf` gives a train step's forward each
+leaf as its dots read it (a :class:`ModelPiece` for a matrix cut over
+"model").
 :func:`residual_layout` reads a step's residual placement ("seq" /
 "hidden") from its activation spec (:class:`ResidualLayout`).  A rank's
 caches are its pieces under :func:`cache_pspecs`, each made at
@@ -632,7 +632,9 @@ def place_bank(bank: Any, specs: Any, mesh, fsdp: bool = False) -> Any:
     ``field_specs(matrix_spec(...))``); every fp leaf (the embedding
     gather, norms, biases and the router run on every rank) to its
     :func:`fp_data_spec` piece, whole without ``fsdp`` (under it gathered
-    whole at each step: ``api.Program``)."""
+    where a step uses it: each block of a stack before its reuses, a leaf
+    outside the stacks at its use, the embedding looked up by its columns;
+    ``sharding/fsdp.py``)."""
     from repro_torch.core.prepared import PreparedTensor
 
     def one(leaf, ax):
@@ -705,7 +707,7 @@ class ModelPiece:
         return coll.split_grad(whole, mesh, "model", dim=dim)
 
 
-def forward_leaf(t, spec: tuple, path: tuple, mesh):
+def forward_leaf(t, spec: tuple, path: tuple, mesh, lead: int = 0):
     """A train step's leaf as its forward reads it on this rank, given the
     rank's piece ``t`` under the whole ``tree_pspecs`` spec ``spec``: a
     leaf whole over "model" as it is; a matrix a dot reads (a
@@ -713,13 +715,19 @@ def forward_leaf(t, spec: tuple, path: tuple, mesh):
     expert bank) a :class:`ModelPiece`; any other cut leaf (an expert bank
     cut on its experts, the SSM's conv kernel and per-head vectors)
     all-gathered whole (``collectives.all_gather_split``: every rank runs
-    it whole, and its gradient comes back as the rank's piece)."""
+    it whole, and its gradient comes back as the rank's piece).  ``lead``:
+    the leading dims of the leaf ``t`` was indexed out of (1 for block r
+    of a stack; ``spec`` is the whole leaf's)."""
     from repro_torch.sharding import collectives as coll
 
     d = model_dim(spec)
     if d is None or mesh.axis_size("model") == 1:
         return t
-    axes = leaf_axes(path, t.ndim)
+    if d < lead:
+        raise ValueError(f"{'/'.join(path)}: a leading dim cut over "
+                         f"'model', spec {spec}")
+    d -= lead
+    axes = leaf_axes(path, t.ndim + lead)[lead:]
     if path[-1] in DOT_KEYS and "experts" not in axes and d >= t.ndim - 2:
         shape = list(t.shape)
         shape[d] *= mesh.axis_size("model")
@@ -757,19 +765,6 @@ def gather_leaf(t, spec: tuple, mesh):
         axes = _entry_axes(entry)
         if axes:
             t = coll.all_gather(t, mesh, axes, dim=dim)
-    return t
-
-
-def scatter_leaf(t, spec: tuple, mesh):
-    """The inverse of :func:`gather_leaf` for a gradient: ``t``, a whole
-    tensor on every rank, summed over each cut dim's axes with this rank
-    keeping its piece (a reduce-scatter a cut dim, the last first)."""
-    from repro_torch.sharding import collectives as coll
-
-    for dim in reversed(range(len(spec))):
-        axes = _entry_axes(spec[dim])
-        if axes:
-            t = coll.psum_scatter(t, mesh, axes, dim=dim)
     return t
 
 

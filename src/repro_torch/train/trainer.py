@@ -23,12 +23,13 @@ by ``partition_rule`` on it (``core/backend.py``: column blocks, row blocks
 rejoined, the Megatron pairing of the MLP and, where "model" divides the
 KV heads, of attention on the rank's own heads); any other leaf cut over
 "model" (a MoE expert bank, the SSM's conv kernel and per-head vectors) is
-all-gathered whole at the step's start, differentiably.  The residual
-follows ``act_pspec`` (``partition.ResidualLayout``): "seq" holds the
-rank's block of positions between the layers (Korthikanti's sequence
-parallelism: each norm on the rank's positions, an all-gather entering
-each mixer and FFN, the pair-second dot's reduce-scatter over the
-positions), "hidden" its block of channels, "replicated" whole rows.  The
+all-gathered whole, differentiably: at the step's start, or under FSDP
+where its block runs.  The residual follows ``act_pspec``
+(``partition.ResidualLayout``): "seq" holds the rank's block of positions
+between the layers (Korthikanti's sequence parallelism: each norm on the
+rank's positions, an all-gather entering each mixer and FFN, the
+pair-second dot's reduce-scatter over the positions), "hidden" its block
+of channels, "replicated" whole rows.  The
 final norm's output is gathered whole: the lm head runs column-parallel
 over the vocabulary and its logits are gathered whole, so CE is not
 vocab-parallel.
@@ -46,13 +47,20 @@ rank holds whole gets its whole gradient on each, so a leaf whole over
 "model" (norm scales, biases, the router) has the unsharded gradient of
 its data rank's rows (a norm applied to the rank's positions takes its
 scale through ``copy_to_model``), and a "model" piece the gradient of its
-block.  Then, once a step, the rank sums its gradients over the
-microbatches and over the data axes: all-reduced for a leaf whole over
-them, reduce-scattered into the rank's piece for a ``cfg.fsdp`` leaf.  A
-``cfg.fsdp`` piece (its "embed" dim over the data axes) is all-gathered
-over them once a step, before the first microbatch.  ``grad_norm``, the
-clip and the update follow ``optim/adamw.py`` (the norm's shares over
-"model" too).
+block.  Each microbatch's gradients are summed over the data axes as its
+backward ends, then added to the step's sum: a leaf whole over them in one
+all-reduce of all such leaves (:meth:`_MeshStep.reduce`), a ``cfg.fsdp``
+piece (its "embed" dim over the data axes) in its block's reduce-scatter.
+Under ``cfg.fsdp`` the rank never holds the whole tree: the step's backend
+carries a ``sharding.fsdp.Layout``, so the forward gathers each block of a
+stack where it runs (in the compute dtype; under remat again where the
+backward recomputes it) and every other leaf group at its use, and each
+gathered group's gradient is cast to float32 and reduce-scattered into the
+rank's piece as its backward completes (``sharding/fsdp.py``).  At two
+data ranks every element of a gradient is then one float32 add of the
+same two numbers under FSDP and under DP: the runs are bit-equal.
+``grad_norm``, the clip and the update follow ``optim/adamw.py`` (the
+norm's shares over "model" too).
 :func:`state_specs` is the layout of ``(params, OptState)`` for the
 checkpoints, which hold the logical layout.  ``tcfg.grad_allreduce_dtype``
 is not read (nor is it in the reference): the gradients are summed in
@@ -64,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Any
 
 import torch
 
@@ -74,6 +83,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
 from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import fsdp as fsdp_lib
 from repro_torch.sharding import partition
 
 NEG_INF = -1e30
@@ -148,7 +158,13 @@ class _MeshStep:
     specs: dict            # param_specs under cfg.fsdp
     data_specs: dict       # their data-axes part (what FSDP gathers)
     norm_specs: dict       # param_specs under fsdp=True: the norm's shares
-    fsdp: bool             # the rank holds cfg.fsdp pieces (dp > 1)
+    gather: Any = None     # fsdp.Layout of the rank's cfg.fsdp pieces
+                           # (dp > 1), else None
+
+    @property
+    def fsdp(self) -> bool:
+        """The rank holds ``cfg.fsdp`` pieces."""
+        return self.gather is not None
 
     @property
     def data(self) -> tuple:
@@ -174,28 +190,27 @@ class _MeshStep:
         residual layout of ``act_pspec``, and on "model" ranks that divide
         the KV heads, attention on the rank's own heads."""
         mesh = self.mesh
+        bk = self.backend
+        if self.fsdp:
+            bk = dataclasses.replace(bk, fsdp=self.gather)
         if mesh.axis_size("model") == 1:
-            return self.backend
+            return bk
         lay = partition.residual_layout(self.act_pspec, mesh, S,
                                         self.cfg.d_model)
         kv = None
         if self.cfg.mla is None and partition.kv_layout(
                 self.cfg, mesh, B, S).heads:
             kv = partition.KVLayout(True, (), S)
-        return dataclasses.replace(self.backend, residual=lay, kv=kv)
-
-    def whole(self, params):
-        """The parameter tree whole over the data axes on this rank (its
-        FSDP pieces all-gathered; else ``params`` itself); "model" pieces
-        stay."""
-        if not self.fsdp:
-            return params
-        return partition.gather_tree(params, self.data_specs, self.mesh)
+        return dataclasses.replace(bk, residual=lay, kv=kv)
 
     def forward_tree(self, tracked):
-        """The forward's parameter tree of the tracked (whole over the data
-        axes) leaves: cast to the compute dtype, then each "model" piece as
-        ``partition.forward_leaf`` gives it."""
+        """The forward's parameter tree of the tracked leaves: under FSDP
+        the rank's pieces themselves (the step's backend gathers them where
+        they are used: ``sharding/fsdp.py``); else cast to the compute
+        dtype, then each "model" piece as ``partition.forward_leaf`` gives
+        it."""
+        if self.fsdp:
+            return tracked
         mesh = self.mesh
         return partition.map_with_paths(
             lambda t, spec, path: partition.forward_leaf(t, spec, path,
@@ -203,17 +218,18 @@ class _MeshStep:
             _compute(tracked, self.cfg), self.specs)
 
     def reduce(self, grads):
-        """Gradients of the tree summed over the data axes: a ``cfg.fsdp``
-        leaf's reduce-scattered into the rank's piece, every other leaf's
-        all-reduced, all of them in one collective (elementwise sums: the
-        same numbers as one all-reduce a leaf)."""
+        """A microbatch's gradients summed over the data axes: a
+        ``cfg.fsdp`` piece's came summed from its gather's backward (a
+        reduce-scatter); every other leaf's is all-reduced, all of them in
+        one collective (elementwise sums: the same numbers as one
+        all-reduce a leaf)."""
         if partition.dp_size(self.mesh) == 1:
             return grads
         pending = []
 
         def one(g, spec):
             if self.fsdp and partition.cuts(spec):
-                return partition.scatter_leaf(g, spec, self.mesh)
+                return g
             pending.append(g)
             return g
 
@@ -254,11 +270,16 @@ def _mesh_step(cfg: ModelConfig, mesh, act_pspec) -> _MeshStep:
         warnings.warn(partition.dropped_summary(report), stacklevel=3)
     bk = backend_lib.Backend("xla", mesh=mesh, rows_sharded=True)
     specs = param_specs(cfg, mesh)
+    data = partition.data_specs(specs, mesh)
+    gather = None
+    if cfg.fsdp and dp > 1:
+        gather = fsdp_lib.Layout(data, mesh, dtype=torch_dtype(
+            cfg.compute_dtype), model_specs=specs)
     return _MeshStep(mesh=mesh, cfg=cfg, backend=bk,
                      act_pspec=tuple(act_pspec or ()), specs=specs,
-                     data_specs=partition.data_specs(specs, mesh),
+                     data_specs=data,
                      norm_specs=param_specs(cfg, mesh, fsdp=True),
-                     fsdp=bool(cfg.fsdp) and dp > 1)
+                     gather=gather)
 
 
 def _track(params):
@@ -274,15 +295,16 @@ def _grads(loss, tracked):
     return adamw.tree_map(lambda p: by_id[id(p)], tracked)
 
 
-def _rank_grads(whole, cfg: ModelConfig, batch, remat: bool, ms: _MeshStep):
+def _rank_grads(params, cfg: ModelConfig, batch, remat: bool,
+                ms: _MeshStep):
     """(ce, aux, grads) of this rank's rows of the global (micro)batch
     ``batch``: the unsharded CE and aux, and the gradient of the rank's
-    loss (module docstring) with respect to every leaf of
-    ``whole`` (the tree whole over the data axes); summed over the data
-    axes (``ms.reduce``) they are the unsharded gradients."""
+    loss (module docstring) with respect to every leaf of ``params`` (the
+    rank's); summed over the data axes (``ms.reduce``; a ``cfg.fsdp``
+    piece's is summed already) they are the unsharded gradients."""
     sl = ms.rows(batch["tokens"].shape[0])
     batch = {k: v[sl] for k, v in batch.items()}
-    tracked = _track(whole)
+    tracked = _track(params)
     tokens = batch["tokens"]
     B, S = tokens.shape
     logits, _, aux = tfm.forward(ms.forward_tree(tracked), cfg, batch,
@@ -307,7 +329,7 @@ def loss_and_grads(params, cfg: ModelConfig, batch, remat: bool = True, *,
     gradients summed over the data axes (the rank's pieces of them under
     ``cfg.fsdp``)."""
     ms = _mesh_step(cfg, mesh, act_pspec)
-    ce, aux, grads = _rank_grads(ms.whole(params), cfg, batch, remat, ms)
+    ce, aux, grads = _rank_grads(params, cfg, batch, remat, ms)
     return ce + AUX_WEIGHT * aux, ce, aux, ms.reduce(grads)
 
 
@@ -318,8 +340,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, act_pspec=None,
     ``grad_norm``.
 
     With ``tcfg.microbatch > 1`` the batch splits into that many
-    microbatches along its rows; their float32 gradients are summed and
-    divided by the count, and the loss is their mean.
+    microbatches along its rows; their float32 gradients, each summed over
+    the data axes first, are summed and divided by the count, and the loss
+    is their mean.
 
     ``mesh`` (a bound mesh of more than one position) trains on the ranks
     (module docstring): every rank passes the global batch, and its params
@@ -341,24 +364,21 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, act_pspec=None,
                              f"microbatches")
         split = {k: v.reshape(mb, B // mb, *v.shape[1:])
                  for k, v in batch.items()}
-        whole = ms.whole(params)
         for i in range(mb):
-            ce, aux, g = _rank_grads(whole, cfg,
+            ce, aux, g = _rank_grads(params, cfg,
                                      {k: v[i] for k, v in split.items()},
                                      remat, ms)
+            # summed over the data axes a microbatch, then over them
+            g = ms.reduce(g)
             loss = ce + AUX_WEIGHT * aux
             if i == 0:
                 lsum = loss
-                gsum = g if mb == 1 else adamw.tree_map(
+                grads = g if mb == 1 else adamw.tree_map(
                     lambda x: x.to(torch.float32), g)
             else:
-                adamw.tree_map(lambda a, b: a.add_(b), gsum, g)
+                adamw.tree_map(lambda a, b: a.add_(b), grads, g)
                 lsum = lsum + loss
             del g
-        del whole
-        # summed over the data axes once a step
-        grads = ms.reduce(gsum)
-        del gsum
         if mb > 1:
             grads = adamw.tree_map(lambda g: g / mb, grads)
             lsum = lsum / mb

@@ -94,8 +94,8 @@ def test_lower_cell_walks_full_width_cells(cell):
         # the gradient all-reduce over the data axes
         assert r["collectives"]["counts"]["all-reduce"] > 0
     if r["shape"] == "long_500k":
-        # jamba's cfg.fsdp: each rank's parameter pieces are gathered whole
-        # over the data axes at the step's start
+        # jamba's cfg.fsdp: each rank's parameter pieces are gathered over
+        # the data axes where the step uses them, a block at a time
         assert r["collectives"]["counts"]["all-gather"] > 0
 
 
