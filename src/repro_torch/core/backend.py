@@ -249,6 +249,9 @@ class Backend:
     residual: Any = None              # partition.ResidualLayout of a step
                                       # whose residual is cut over "model"
                                       # ("seq" / "hidden"), else None
+    experts: Any = None               # partition.ExpertLayout of a train
+                                      # step whose expert banks are the
+                                      # rank's experts, else None
     fsdp: Any = None                  # sharding.fsdp.Layout of a step whose
                                       # params are cfg.fsdp pieces: where
                                       # the model stack gathers them (each

@@ -21,7 +21,10 @@ stride-0 views over the head axis (the group broadcast of
 scores C B^T once for the group of heads it serves (``ssd_launch_plan``).
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises; for meta tensors (the dry-run) it plans a
-call (``kernels/planned.py``).
+call (``kernels/planned.py``).  It is a ``torch.autograd.Function``: the
+backward (:func:`ssd_chunk_vjp`) is the block's VJP written out in float32
+torch ops on any device (the reference trains through XLA einsums of the
+same block and has no Pallas backward).
 """
 from __future__ import annotations
 
@@ -189,12 +192,9 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def ssd_chunk(x, dA, B, C):
-    """Intra-chunk SSD: x (b, nc, L, H, P) dt-folded, dA (b, nc, H, L),
-    B/C (b, nc, L, H, N) head-broadcast (any strides), float32.  Returns
-    y_diag (b, nc, L, H, P) and states (b, nc, H, N, P), float32.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (L up to
-    ``MAX_L``, P up to ``MAX_P``; ValueError beyond)."""
+def _forward(x, dA, B, C):
+    """The forward dispatch: CPU tensors take the plain version, meta
+    tensors plan a call, CUDA tensors launch the kernel."""
     b, nc, L, H, P, N = _check(x, dA, B, C)
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dA, B, C)
@@ -209,3 +209,75 @@ def ssd_chunk(x, dA, B, C):
                      (x, dA, B, C), (y, st))
         return y, st
     return _launch(x, dA, B, C, b, nc, L, H, P, N)
+
+
+def ssd_chunk_vjp(x, dA, B, C, gy, gst):
+    """The VJP of the intra-chunk block, in float32 torch ops on any
+    device: given the inputs and the gradients ``gy`` of y_diag (b, nc, L,
+    H, P) and ``gst`` of the states (b, nc, H, N, P), returns the gradients
+    of x, dA, B and C (B's and C's (b, nc, L, H, N), contiguous; autograd
+    sums them over a stride-0 head broadcast).  With cs = cumsum(dA),
+    S = C B^T, Lmat = exp(cs_i - cs_j) on the causal triangle, M = S * Lmat
+    and w = exp(cs_L - cs):
+
+        y  = M x                  gx = M^T gy + (B w) gst
+        st = (B w)^T x            gS = (gy x^T) * Lmat,  gC = gS B,
+                                  gB = gS^T C + (x gst^T) w
+        d cs_i = sum_j G_ij - sum_j G_ji - h_i (+ sum_l h_l at i = L-1),
+        G = gS * S, h = w * rowsum((x gst^T) * B),
+
+    and dA's gradient is the reverse cumsum of cs's.  The scores and decays
+    are recomputed from the saved inputs."""
+    L = x.shape[2]
+    x, dA, B, C, gy, gst = (t.to(torch.float32)
+                            for t in (x, dA, B, C, gy, gst))
+    cs = torch.cumsum(dA, dim=-1)                          # (b,nc,H,L)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    Lmat = torch.exp(seg.masked_fill(~mask, float("-inf")))
+    del seg
+    scores = torch.einsum("bclhn,bcshn->bchls", C, B)
+    gS = torch.einsum("bclhp,bcshp->bchls", gy, x) * Lmat
+    gx = torch.einsum("bchls,bclhp->bcshp", scores * Lmat, gy)
+    del Lmat
+    gC = torch.einsum("bchls,bcshn->bclhn", gS, B)
+    gB = torch.einsum("bchls,bclhn->bcshn", gS, C)
+    G = gS * scores
+    del gS, scores
+    g_cs = G.sum(-1) - G.sum(-2)
+    del G
+    w = torch.exp(cs[..., -1:] - cs).permute(0, 1, 3, 2)[..., None]
+    Bw = B * w                                             # (b,nc,L,H,N)
+    gx = gx + torch.einsum("bclhn,bchnp->bclhp", Bw, gst)
+    gBw = torch.einsum("bclhp,bchnp->bclhn", x, gst)
+    gB = gB + gBw * w
+    h = ((gBw * Bw).sum(-1)).permute(0, 1, 3, 2)          # (b,nc,H,L)
+    g_cs = g_cs - h
+    g_cs[..., -1] += h.sum(-1)
+    g_dA = torch.flip(torch.cumsum(torch.flip(g_cs, (-1,)), -1), (-1,))
+    return gx, g_dA, gB, gC
+
+
+class _SSDChunk(torch.autograd.Function):
+    """``ssd_chunk`` with a gradient: the forward is the kernel's dispatch
+    (:func:`_forward`), the backward :func:`ssd_chunk_vjp` on the saved
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dA, B, C):
+        ctx.save_for_backward(x, dA, B, C)
+        return _forward(x, dA, B, C)
+
+    @staticmethod
+    def backward(ctx, gy, gst):
+        return ssd_chunk_vjp(*ctx.saved_tensors, gy, gst)
+
+
+def ssd_chunk(x, dA, B, C):
+    """Intra-chunk SSD: x (b, nc, L, H, P) dt-folded, dA (b, nc, H, L),
+    B/C (b, nc, L, H, N) head-broadcast (any strides), float32.  Returns
+    y_diag (b, nc, L, H, P) and states (b, nc, H, N, P), float32.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (L up to
+    ``MAX_L``, P up to ``MAX_P``; ValueError beyond).  Differentiable on
+    every device: the gradient is :func:`ssd_chunk_vjp`."""
+    return _SSDChunk.apply(x, dA, B, C)

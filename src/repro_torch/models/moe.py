@@ -16,6 +16,14 @@ from R_e basic experts (PRM across the expert dimension): expert e reuses
 bank e % R_e, so the photonic path streams the E / R_e logical experts of
 each bank through the reuse-resident kernel (``Backend.reuse_dot``).
 
+A train step on a mesh runs expert parallelism over "model"
+(``Backend.experts``, a ``partition.ExpertLayout``): a rank holds basic
+banks [lo, lo + n) and runs the logical experts that reuse them, the
+capacity buffers taken in the reuse-major order that makes its experts a
+block of each reuse (:func:`_local`); routing stays whole and float32 on
+every rank, and the ranks' partial combines are summed over "model", as
+the reference's expert-sharded combine is partitioned.
+
 What the port matches of the reference, besides the arithmetic:
 
   * top-k tie order: ``jax.lax.top_k`` sorts descending and puts the lower
@@ -73,11 +81,26 @@ def _capacity(g: int, mcfg: MoEConfig) -> int:
     return max(min(cap, g), mcfg.top_k)
 
 
-def route(p, xg, mcfg: MoEConfig):
+def _local(t, lay, dim: int = -1):
+    """The rank's experts of ``t``'s expert dim ``dim`` (E logical experts,
+    ``t * R_e + r``) under an ``ExpertLayout``: the (T, R_e) view's block
+    of basic banks [lo, lo + n), reuse-major (a view: no index tensor)."""
+    dim = dim % t.ndim
+    v = t.unflatten(dim, (t.shape[dim] // lay.basic, lay.basic))
+    return v.narrow(dim + 1, lay.lo, lay.n).flatten(dim, dim + 1)
+
+
+def route(p, xg, mcfg: MoEConfig, experts=None, mesh=None):
     """Per-group routing in float32.  xg: (G, g, d).
 
     Returns dispatch (G,g,E,C), combine (G,g,E,C) — both bf16 — and the aux
-    losses.  Tokens beyond an expert's capacity are dropped."""
+    losses.  Tokens beyond an expert's capacity are dropped.  With
+    ``experts`` (a train step's ``partition.ExpertLayout`` on ``mesh``)
+    the routing, the drops and the aux are still the whole ones, and the
+    dispatch and combine are those of the rank's experts only
+    (:func:`_local`); their combine weights enter through
+    ``copy_to_model``, so the router and the rows get the ranks' gradients
+    summed."""
     G, g, d = xg.shape
     E, K = mcfg.num_experts, mcfg.top_k
     C = _capacity(g, mcfg)
@@ -96,6 +119,14 @@ def route(p, xg, mcfg: MoEConfig):
     keep = (pos_in_e < C).to(torch.float32) * mask
     # one nonzero term per (token, expert): exact
     weight_ge = (sel * gate_vals[..., None]).sum(dim=2) * keep
+    frac_tokens = mask.mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = {"load_balance": E * (frac_tokens * frac_probs).sum(),
+           "dropped_frac": 1.0 - keep.sum() / (G * g * K)}
+    if experts is not None:
+        from repro_torch.sharding import collectives as coll
+        weight_ge = _local(coll.copy_to_model(weight_ge, mesh), experts)
+        keep, pos_in_e = _local(keep, experts), _local(pos_in_e, experts)
     # the (G,g,E,C) one-hots are bf16, as in the reference: the combine
     # weights round to bf16 even in a float32 model
     slots = torch.arange(C, device=xg.device, dtype=torch.int32)
@@ -103,10 +134,6 @@ def route(p, xg, mcfg: MoEConfig):
         torch.bfloat16)
     dispatch = pos_oh * keep.to(torch.bfloat16)[..., None]
     combine = pos_oh * weight_ge.to(torch.bfloat16)[..., None]
-    frac_tokens = mask.mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
-    aux = {"load_balance": E * (frac_tokens * frac_probs).sum(),
-           "dropped_frac": 1.0 - keep.sum() / (G * g * K)}
     return dispatch, combine, aux
 
 
@@ -115,13 +142,19 @@ def _blended(mcfg: MoEConfig) -> bool:
                 and mcfg.num_basic_experts < mcfg.num_experts)
 
 
-def _expert_weights(p, mcfg: MoEConfig, dtype):
+def _expert_weights(p, mcfg: MoEConfig, dtype, lay=None):
     """Effective (E, ...) expert banks: with ``num_basic_experts`` set,
-    expert e reuses basic e % R_e."""
+    expert e reuses basic e % R_e.  Under an ``ExpertLayout`` ``lay`` the
+    banks are the rank's n and its T * n experts (reuse-major) reuse bank
+    j % n."""
     wg, wu, wd = (cast(p[k], dtype) for k in ("w_gate", "w_up", "w_down"))
+    if lay is not None and wg.shape[0] != lay.n:
+        raise ValueError(f"an expert layout of {lay.n} banks a rank, got "
+                         f"{wg.shape[0]}")
     if _blended(mcfg):
-        idx = torch.arange(mcfg.num_experts,
-                           device=wg.device) % mcfg.num_basic_experts
+        nb = wg.shape[0]
+        E = mcfg.num_experts * nb // mcfg.num_basic_experts
+        idx = torch.arange(E, device=wg.device) % nb
         wg, wu, wd = wg[idx], wu[idx], wd[idx]
     return wg, wu, wd
 
@@ -194,37 +227,63 @@ def _einsum(eq, a, b, dtype):
     return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32)).to(dtype)
 
 
+def expert_ffn(p, xe, mcfg: MoEConfig, transpose: bool = False, lay=None):
+    """The xla expert FFN of the capacity buffers xe (G, E, C, d): gate, up
+    and down per expert with float32 accumulation, the OBU-transposed swap,
+    and the blended experts' static gate shuffle.  Under an
+    ``ExpertLayout`` ``lay``, xe holds the rank's experts (reuse-major, as
+    :func:`_local` orders them) and ``p`` the rank's banks: each expert
+    runs the same dots as in the whole call."""
+    dtype = xe.dtype
+    wg, wu, wd = _expert_weights(p, mcfg, dtype, lay)
+    if transpose:
+        gate = _einsum("necd,efd->necf", xe, wd, dtype)        # W_down.T
+        up = _einsum("necd,edf->necf", xe, wu, dtype)
+        h = apply_activation(gate, "silu") * up
+        return _einsum("necf,edf->necd", h, wg, dtype)         # W_gate.T
+    gate = _einsum("necd,edf->necf", xe, wg, dtype)
+    if _blended(mcfg):
+        perms = _expert_gate_perms(mcfg, xe.device)            # (E, f)
+        if lay is not None:
+            perms = _local(perms, lay, dim=0)
+        gate = torch.gather(gate, -1, perms[None, :, None, :].expand(
+            gate.shape))
+    up = _einsum("necd,edf->necf", xe, wu, dtype)
+    h = apply_activation(gate, "silu") * up
+    return _einsum("necf,efd->necd", h, wd, dtype)
+
+
 def apply_moe(p, x, mcfg: MoEConfig, transpose: bool = False, backend=None):
     """x: (B, S, d) -> ((B, S, d), aux losses).
 
     Routing stays float32 on every backend; only the expert FFN banks
-    route through the photonic kernels."""
+    route through the photonic kernels.  A train step whose banks are the
+    rank's experts (``Backend.experts``, a ``partition.ExpertLayout``)
+    routes whole, dispatches the rows (entering through ``copy_to_model``)
+    to its own experts only, runs their FFN and combines them: each rank's
+    partial sum over its experts, rounded to the activation dtype, is
+    summed over "model" (``psum_grad``), as a row-parallel dot rejoins."""
     bk = resolve_backend(backend)
     B, S, d = x.shape
     G, g = _group_shape(B * S, mcfg)
     xg = x.reshape(G, g, d)
-    dispatch, combine, aux = route(p, xg, mcfg)
+    lay = bk.experts
+    if lay is not None and bk.is_photonic:
+        raise NotImplementedError("an expert layout runs on the xla "
+                                  "backend (a train step)")
+    dispatch, combine, aux = route(p, xg, mcfg, experts=lay, mesh=bk.mesh)
+    if lay is not None:
+        from repro_torch.sharding import collectives as coll
+        xg = coll.copy_to_model(xg, bk.mesh)
     # one nonzero term per output: exact in any dtype
     xe = torch.einsum("ngec,ngd->necd", dispatch.to(x.dtype), xg)
     if bk.is_photonic:
         ye = _photonic_expert_ffn(bk, p, xe, mcfg, x.dtype, transpose)
     else:
-        wg, wu, wd = _expert_weights(p, mcfg, x.dtype)
-        if transpose:
-            gate = _einsum("necd,efd->necf", xe, wd, x.dtype)  # W_down.T
-            up = _einsum("necd,edf->necf", xe, wu, x.dtype)
-            h = apply_activation(gate, "silu") * up
-            ye = _einsum("necf,edf->necd", h, wg, x.dtype)     # W_gate.T
-        else:
-            gate = _einsum("necd,edf->necf", xe, wg, x.dtype)
-            if _blended(mcfg):
-                perms = _expert_gate_perms(mcfg, x.device)     # (E, f)
-                gate = torch.gather(
-                    gate, -1, perms[None, :, None, :].expand(gate.shape))
-            up = _einsum("necd,edf->necf", xe, wu, x.dtype)
-            h = apply_activation(gate, "silu") * up
-            ye = _einsum("necf,efd->necd", h, wd, x.dtype)
+        ye = expert_ffn(p, xe, mcfg, transpose, lay)
     y = _einsum("ngec,necd->ngd", combine, ye, x.dtype).reshape(B, S, d)
+    if lay is not None:
+        y = coll.psum_grad(y, bk.mesh, "model")
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x, act="swiglu", transpose=transpose,
                           backend=bk)

@@ -10,7 +10,10 @@ the reference computes them inline); the inter-chunk recurrence over the
 Cache layout (decode): {"h": (B, H, P, N) fp32, "conv": (B, W-1, conv_dim)};
 on a mesh a rank's pieces of them (``partition.cache_pspecs``: its heads
 of ``h``, its channels of ``conv``, where "model" divides them), which a
-serving step reads from ``Backend.ssm`` (``ssm_forward``).
+serving step reads from ``Backend.ssm`` (``ssm_forward``).  A train step on
+a mesh runs the same cuts with its pieces of the SSM leaves: the gradient
+of the intra-chunk block is ``ssd_chunk``'s own
+(``kernels/ssd.ssd_chunk_vjp``).
 The kernel returns chunk states as (N, P); :func:`ssd_chunked` transposes
 them to the carried (P, N) layout in one place.
 
@@ -185,12 +188,32 @@ def _channels(bk):
     return slice(lay.chan_lo, lay.chan_lo + lay.n_chans)
 
 
+def _conv_inputs(xBC, kernel, bk):
+    """xBC and the conv kernel of the rank's channels: the rank's block of
+    the whole xBC (``split_grad``: in a train step its gradient is
+    gathered whole), and the kernel's block where it arrives whole (a
+    serving step; a train step's is the rank's piece already)."""
+    ch = _channels(bk)
+    if ch is None:
+        return xBC, kernel
+    if kernel.shape[-1] == xBC.shape[-1]:
+        kernel = kernel[:, ch]
+    return coll.split_grad(xBC, bk.mesh, "model", dim=-1), kernel
+
+
+def _join(y, bk, dim):
+    """The rank's block ``y`` gathered whole over "model" on ``dim`` (a
+    concatenation: exact), differentiably (``all_gather_split``: in a train
+    step the gradient, whole on every rank, comes back as the block's)."""
+    return coll.all_gather_split(y.contiguous(), bk.mesh, "model", dim=dim)
+
+
 def _join_channels(y, bk):
-    """The conv output of the rank's channels gathered whole over "model"
-    (a concatenation: exact)."""
+    """The conv output of the rank's channels gathered whole over
+    "model"."""
     if _channels(bk) is None:
         return y
-    return coll.all_gather(y.contiguous(), bk.mesh, "model", dim=-1)
+    return _join(y, bk, -1)
 
 
 def _head_inputs(cfg: ModelConfig, p, xBC, dt, bk, lead):
@@ -198,25 +221,48 @@ def _head_inputs(cfg: ModelConfig, p, xBC, dt, bk, lead):
     that cuts them the rank's heads [head_lo, head_lo + n_heads) with the
     B/C of their groups.  ``xBC`` (lead..., conv_dim) is the whole conv
     output, ``dt`` (lead..., H) the raw step sizes.  Returns x (lead..., h,
-    P), B and C (lead..., g, N), dt after softplus (float32), A, and D."""
+    P), B and C (lead..., g, N), dt after softplus (float32), A, and D.
+
+    Under the layout x's heads are the rank's block of the whole tensor
+    (``split_grad``), and the B/C of its groups a block of the groups where
+    the ranks' blocks tile them, else (ranks sharing one group) a slice of
+    the whole entering through ``copy_to_model``, whose backward sums the
+    ranks' gradients.  The per-head leaves (``A_log``, ``D``, ``dt_bias``)
+    arrive whole in a serving step: softplus and exp run over every head
+    before the rank's are taken (an elementwise op on a slice may take
+    another vector path on the CPU than on the whole); in a train step they
+    are the rank's pieces (``partition.forward_leaf``)."""
     s = cfg.ssm
     d_in, H, _ = ssm_dims(cfg)
-    P, N = s.head_dim, s.d_state
-    gn = s.n_groups * N
+    P, N, G = s.head_dim, s.d_state, s.n_groups
+    xs = xBC[..., :d_in]
+    Bm = xBC[..., d_in:d_in + G * N].reshape(*lead, G, N)
+    Cm = xBC[..., d_in + G * N:d_in + 2 * G * N].reshape(*lead, G, N)
+    dt = dt.to(torch.float32)
+    A_log, D, dt_bias = p["A_log"], p["D"], p["dt_bias"]
     lay = bk.ssm
-    h0, nh, g0, ng = 0, H, 0, s.n_groups
-    if lay is not None and lay.heads:
-        h0, nh, g0, ng = lay.head_lo, lay.n_heads, lay.group_lo, lay.n_groups
-    hs = slice(h0, h0 + nh)
-    xs = xBC[..., h0 * P:(h0 + nh) * P].reshape(*lead, nh, P)
-    Bm = xBC[..., d_in + g0 * N:d_in + (g0 + ng) * N].reshape(*lead, ng, N)
-    Cm = xBC[..., d_in + gn + g0 * N:d_in + gn + (g0 + ng) * N].reshape(
-        *lead, ng, N)
-    # softplus and exp over every head, then the rank's: an elementwise op
-    # on a slice may take another vector path on the CPU than on the whole
-    dt = _softplus(dt.to(torch.float32) + p["dt_bias"])[..., hs]
-    A = (-torch.exp(p["A_log"]))[..., hs]
-    return xs, Bm, Cm, dt, A, p["D"][..., hs]
+    if lay is None or not lay.heads:
+        return (xs.reshape(*lead, H, P), Bm, Cm, _softplus(dt + dt_bias),
+                -torch.exp(A_log), D)
+    mesh = bk.mesh
+
+    def block(t, dim=-1):
+        return coll.split_grad(t, mesh, "model", dim=dim)
+
+    def groups(t):
+        if lay.n_groups * mesh.axis_size("model") == G:
+            return block(t, -2)
+        g = slice(lay.group_lo, lay.group_lo + lay.n_groups)
+        return coll.copy_to_model(t, mesh)[..., g, :]
+
+    if dt_bias.shape[-1] == H:
+        dt = block(_softplus(dt + dt_bias))
+        A, D = block(-torch.exp(A_log)), block(D)
+    else:
+        dt = _softplus(block(dt) + dt_bias)
+        A = -torch.exp(A_log)
+    return (block(xs).reshape(*lead, lay.n_heads, P), groups(Bm),
+            groups(Cm), dt, A, D)
 
 
 def _join_heads(y, bk):
@@ -225,7 +271,7 @@ def _join_heads(y, bk):
     lay = bk.ssm
     if lay is None or not lay.heads:
         return y
-    return coll.all_gather(y.contiguous(), bk.mesh, "model", dim=-2)
+    return _join(y, bk, -2)
 
 
 def ssm_forward(p, cfg: ModelConfig, x, *, transpose=False,
@@ -242,7 +288,11 @@ def ssm_forward(p, cfg: ModelConfig, x, *, transpose=False,
     over the heads before the gated RMSNorm (exact: the norm spans all of
     d_in), and ``w_out`` takes the whole normed y by its own rule (no
     ``tp_hint``, as in the reference: column where "model" divides d).  The
-    conv tail keeps the rank's channels of the second ``w_in`` dot."""
+    conv tail keeps the rank's channels of the second ``w_in`` dot.  A
+    train step on a mesh runs the same cuts on the rank's pieces of
+    ``conv_k``, ``A_log``, ``D`` and ``dt_bias``; every cut and join is
+    differentiable in Megatron's convention (``_conv_inputs``,
+    ``_head_inputs``, ``_join``)."""
     bk = resolve_backend(backend)
     s = cfg.ssm
     B_, S, d = x.shape
@@ -250,10 +300,8 @@ def ssm_forward(p, cfg: ModelConfig, x, *, transpose=False,
     proj = bk.dot(x, cast(p["w_in"], x.dtype), transpose=False)
     z, xBC, dt = _split_in(cfg, proj)
     ch = _channels(bk)
-    kernel = p["conv_k"].to(x.dtype)
-    if ch is not None:
-        xBC, kernel = xBC[..., ch], kernel[:, ch]
-    xBC = _join_channels(_causal_conv(xBC, kernel), bk)
+    xBC = _join_channels(_causal_conv(*_conv_inputs(
+        xBC, p["conv_k"].to(x.dtype), bk)), bk)
     xs, Bm, Cm, dt, A, D = _head_inputs(cfg, p, xBC, dt, bk, (B_, S))
     y, h_last = ssd_chunked(xs, dt, A, Bm, Cm, s.chunk)
     y = y + D.to(x.dtype)[None, None, :, None] * xs

@@ -422,7 +422,11 @@ class SSMLayout:
       * ``channels``: a rank's ``conv`` tail holds channels [chan_lo,
         chan_lo + n_chans); it runs the depthwise conv on those only.
 
-    A part not cut is whole: the whole range on every rank."""
+    A part not cut is whole: the whole range on every rank.  A train step
+    runs the same cuts: its SSM leaves cut over "model" (``conv_k`` on its
+    channels, ``A_log``, ``D`` and ``dt_bias`` on their heads) arrive as
+    the rank's pieces (:func:`forward_leaf`); a serving step's arrive
+    whole and the step takes the rank's."""
     heads: bool
     channels: bool
     head_lo: int
@@ -435,10 +439,11 @@ class SSMLayout:
 
 def ssm_layout(cfg, mesh) -> SSMLayout:
     """The :class:`SSMLayout` of ``cfg``'s SSM caches on ``mesh`` (it
-    depends on neither the batch nor the length).  Where the heads are cut
-    and ``n_groups > 1``, a rank's heads must lie within whole groups or
-    within one group: a cut that would give a rank part of one group and
-    part of another raises."""
+    depends on neither the batch nor the length), and of a train step's
+    SSM leaves (the same cuts: they are the leaves' "ssm_conv" and
+    "ssm_heads" rules).  Where the heads are cut and ``n_groups > 1``, a rank's heads
+    must lie within whole groups or within one group: a cut that would
+    give a rank part of one group and part of another raises."""
     from repro_torch.models.ssm import ssm_dims
 
     _, H, conv_dim = ssm_dims(cfg)
@@ -467,6 +472,38 @@ def ssm_layout(cfg, mesh) -> SSMLayout:
         chan_lo = i * n_chans
     return SSMLayout(heads, channels, head_lo, n_heads, group_lo, n_groups,
                      chan_lo, n_chans)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertLayout:
+    """Where a train step's MoE expert banks lie over "model": a rank
+    holds basic banks [lo, lo + n) of R_e (``num_basic_experts``, or every
+    expert), its piece of each bank cut on the experts (``"experts"``), and
+    runs the logical experts e with e % R_e in that range
+    (``models/moe.apply_moe``)."""
+    lo: int
+    n: int
+    basic: int
+
+
+def expert_layout(cfg, mesh):
+    """The :class:`ExpertLayout` of ``cfg``'s expert banks on ``mesh``
+    where "model" cuts them on their experts (it divides R_e; R_e must
+    then divide the E logical experts, or this raises), else None (a bank
+    not cut on its experts reaches the MoE whole)."""
+    moe = cfg.moe
+    tp = mesh.axis_size("model")
+    if moe is None or tp == 1:
+        return None
+    basic = moe.num_basic_experts or moe.num_experts
+    if basic % tp:
+        return None
+    if moe.num_experts % basic:
+        raise ValueError(f"{cfg.name}: {moe.num_experts} experts blended "
+                         f"from {basic} basic banks cut over {tp} 'model' "
+                         f"ranks: the banks' reuses must divide")
+    n = basic // tp
+    return ExpertLayout(mesh.index("model") * n, n, basic)
 
 
 # ------------------------------------------------------- logical-axis specs
@@ -712,12 +749,16 @@ def forward_leaf(t, spec: tuple, path: tuple, mesh, lead: int = 0):
     rank's piece ``t`` under the whole ``tree_pspecs`` spec ``spec``: a
     leaf whole over "model" as it is; a matrix a dot reads (a
     :data:`DOT_KEYS` leaf cut on one of its two matrix dims, not a MoE
-    expert bank) a :class:`ModelPiece`; any other cut leaf (an expert bank
-    cut on its experts, the SSM's conv kernel and per-head vectors)
-    all-gathered whole (``collectives.all_gather_split``: every rank runs
-    it whole, and its gradient comes back as the rank's piece).  ``lead``:
-    the leading dims of the leaf ``t`` was indexed out of (1 for block r
-    of a stack; ``spec`` is the whole leaf's)."""
+    expert bank) a :class:`ModelPiece`; a MoE expert bank cut on its
+    experts (:class:`ExpertLayout`), the SSM's conv kernel cut on its
+    channels and its per-head vectors cut on their heads
+    (:class:`SSMLayout`) the piece itself, which the rank
+    runs on its own experts, channels and heads; any other cut leaf (the
+    SSM's norm scale, an expert bank cut on its matrices) all-gathered
+    whole (``collectives.all_gather_split``: every rank runs it whole, and
+    its gradient comes back as the rank's piece).  ``lead``: the leading
+    dims of the leaf ``t`` was indexed out of (1 for block r of a stack;
+    ``spec`` is the whole leaf's)."""
     from repro_torch.sharding import collectives as coll
 
     d = model_dim(spec)
@@ -726,13 +767,19 @@ def forward_leaf(t, spec: tuple, path: tuple, mesh, lead: int = 0):
     if d < lead:
         raise ValueError(f"{'/'.join(path)}: a leading dim cut over "
                          f"'model', spec {spec}")
+    axes = leaf_axes(path, t.ndim + lead)
+    if axes[d] in _PIECE_AXES:
+        return t
     d -= lead
-    axes = leaf_axes(path, t.ndim + lead)[lead:]
     if path[-1] in DOT_KEYS and "experts" not in axes and d >= t.ndim - 2:
         shape = list(t.shape)
         shape[d] *= mesh.axis_size("model")
         return ModelPiece(t, d - t.ndim, tuple(shape))
     return coll.all_gather_split(t, mesh, "model", dim=d)
+
+
+# the logical axes whose "model" pieces a train step runs as they are
+_PIECE_AXES = frozenset({"experts", "ssm_conv", "ssm_heads"})
 
 
 def map_with_paths(fn, tree: Any, specs: Any, path=()) -> Any:

@@ -21,10 +21,17 @@ xla dots to GSPMD, which partitions them so): a matrix the rank holds a
 piece of reaches ``Backend.dot`` as a ``partition.ModelPiece`` and runs
 by ``partition_rule`` on it (``core/backend.py``: column blocks, row blocks
 rejoined, the Megatron pairing of the MLP and, where "model" divides the
-KV heads, of attention on the rank's own heads); any other leaf cut over
-"model" (a MoE expert bank, the SSM's conv kernel and per-head vectors) is
-all-gathered whole, differentiably: at the step's start, or under FSDP
-where its block runs.  The residual follows ``act_pspec``
+KV heads, of attention on the rank's own heads).  A MoE expert bank cut on
+its experts stays the rank's experts (``partition.ExpertLayout`` on
+``Backend.experts``: routing whole, the rank's dispatch, expert FFN and
+partial combine, summed over "model"; ``models/moe.apply_moe``), and the
+SSM's conv kernel and per-head vectors stay the rank's channels and heads
+(``partition.SSMLayout`` with ``train`` on ``Backend.ssm``: the conv on
+the rank's channels, ``ssd_chunk`` on its heads, joined before the gated
+norm; ``models/ssm.ssm_forward``).  Any other leaf cut over "model" (the
+SSM's norm scale, an expert bank cut on its matrices) is all-gathered
+whole, differentiably: at the step's start, or under FSDP where its block
+runs.  The residual follows ``act_pspec``
 (``partition.ResidualLayout``): "seq" holds the rank's block of positions
 between the layers (Korthikanti's sequence parallelism: each norm on the
 rank's positions, an all-gather entering each mixer and FFN, the
@@ -187,8 +194,10 @@ class _MeshStep:
 
     def step_backend(self, B: int, S: int) -> backend_lib.Backend:
         """The backend of a forward over B rows of S positions: the
-        residual layout of ``act_pspec``, and on "model" ranks that divide
-        the KV heads, attention on the rank's own heads."""
+        residual layout of ``act_pspec``, on "model" ranks that divide the
+        KV heads attention on the rank's own heads, and the rank's SSM
+        heads and conv channels (``partition.SSMLayout``) and its experts
+        (``partition.ExpertLayout``) where "model" cuts them."""
         mesh = self.mesh
         bk = self.backend
         if self.fsdp:
@@ -201,7 +210,10 @@ class _MeshStep:
         if self.cfg.mla is None and partition.kv_layout(
                 self.cfg, mesh, B, S).heads:
             kv = partition.KVLayout(True, (), S)
-        return dataclasses.replace(bk, residual=lay, kv=kv)
+        cfg = self.cfg
+        ssm = None if cfg.ssm is None else partition.ssm_layout(cfg, mesh)
+        return dataclasses.replace(bk, residual=lay, kv=kv, ssm=ssm,
+                                   experts=partition.expert_layout(cfg, mesh))
 
     def forward_tree(self, tracked):
         """The forward's parameter tree of the tracked leaves: under FSDP

@@ -20,7 +20,10 @@ numbers; the grad norm's shares are the same under both layouts), and
 every rank's gathered params equal.  2x2 against 2x1 within ``GRAD_TOL``:
 the "model" ranks hold the reference's "model" pieces and run the dots
 tensor-parallel around a sequence-sharded residual (the ranks' spec is
-``partition.act_pspec``'s "seq"), which sums in another order.
+``partition.act_pspec``'s "seq"), which sums in another order.  One leaf
+kind after a first step (no microbatches) is held otherwise, for a cause
+named beside it: a MoE router under expert parallelism
+(``_router_first_step_close``).
 
 The reference's own sharded path raises under jax 0.9 (ROADMAP), so the
 port is held to the reference's unsharded step, as
@@ -184,11 +187,52 @@ def _port_unsharded(name, mb):
     return metrics, _np_tree(p)
 
 
-def _trees_close(got, want, tol, what):
+def _trees_close(got, want, tol, what, first=None):
+    """Every leaf of ``got`` within ``tol`` rel-L2 of ``want``'s.  With
+    ``first`` (``_first_step``: the params after one step without
+    microbatches) a MoE router leaf is held as ``_router_first_step_close``
+    says; every other leaf to ``tol``."""
     assert sorted(got) == sorted(want)
     for k in want:
+        if first is not None and k.endswith("/router"):
+            _router_first_step_close(got[k], want[k], first[0][k],
+                                     first[1], tol, f"{what} {k}")
+            continue
         err = _rel(got[k], want[k])
         assert err <= tol, f"{what} {k}: rel-L2 {err}"
+
+
+def _first_step(name, mb, metrics):
+    """``_trees_close``'s ``first`` for a run of ``mb`` microbatches whose
+    step metrics are ``metrics``: the reference's gradient of each leaf and
+    the step's lr after one step without microbatches, else None."""
+    if mb:
+        return None
+    return _jax_loss_and_grads(name)[3], metrics[0][2]
+
+
+def _router_first_step_close(got, want, grads, lr, tol, what):
+    """A MoE router after Adam's first step, ``got`` against ``want``.
+
+    The cause: expert parallelism (granite's experts cut over "model" on
+    2x2) sums the ranks' partial combines, a float32 order change, and the
+    combine weights' cotangent is rounded to bf16 (the reference's
+    rounding: ``moe.route`` builds the combine in bf16), which turns that
+    order change into one-ulp flips of single cotangents summed into the
+    router's gradient.  The gradient stays within ``GRAD_TOL`` of the
+    reference's (``test_loss_and_grads_match_unsharded_reference``), but
+    Adam's first update is lr * g / (|g| + eps), the sign of g, so on an
+    element whose reference gradient lies within ``tol`` * ||g|| of zero
+    (the gradient gate, which one element may carry whole) the update may
+    go the other way.  Such an element is held to one flipped first update
+    (2 * lr); every other element, as a leaf, within ``tol`` rel-L2.  The
+    granite smoke's l0 router reads 1.19e-2 rel-L2 whole (one element)."""
+    free = np.abs(grads) <= tol * np.linalg.norm(grads)
+    gap = np.abs(got - want)[free]
+    assert not gap.size or gap.max() <= 2 * lr * (1 + 1e-3), (
+        f"{what}: a near-zero gradient's element moved {gap.max()}")
+    err = _rel(np.where(free, want, got), want)
+    assert err <= tol, f"{what}: rel-L2 {err} off the near-zero elements"
 
 
 def _metrics_close(got, want):
@@ -255,13 +299,14 @@ def test_train_steps_match_unsharded_reference(shape, name, fsdp, mb):
     got = _spawn(shape)[0][(name, fsdp)][("steps", mb)]
     want = _jax_steps(name, mb)
     _metrics_close(got[0], want[0])
-    _trees_close(got[1], want[1], GRAD_TOL, "params")
+    first = _first_step(name, mb, got[0])
+    _trees_close(got[1], want[1], GRAD_TOL, "params", first)
     _trees_close(got[2], want[2], STATE_TOL, "m")
     _trees_close(got[3], want[3], STATE_TOL, "v")
     assert got[4] == want[4] == (STEPS if mb else 1)
     port = _port_unsharded(name, mb)
     _metrics_close(got[0], port[0])
-    _trees_close(got[1], port[1], GRAD_TOL, "params vs port")
+    _trees_close(got[1], port[1], GRAD_TOL, "params vs port", first)
 
 
 @pytest.mark.parametrize("mb", MB)
@@ -291,7 +336,8 @@ def test_2x2_bit_equal_to_2x1(name, fsdp, mb):
     a = _spawn("2x2")[0][(name, fsdp)][("steps", mb)]
     b = _spawn("2x1")[0][(name, fsdp)][("steps", mb)]
     _metrics_close(a[0], b[0])
-    _trees_close(a[1], b[1], GRAD_TOL, "params 2x2 vs 2x1")
+    _trees_close(a[1], b[1], GRAD_TOL, "params 2x2 vs 2x1",
+                 _first_step(name, mb, a[0]))
     _trees_close(a[2], b[2], STATE_TOL, "m 2x2 vs 2x1")
     _trees_close(a[3], b[3], STATE_TOL, "v 2x2 vs 2x1")
 
